@@ -1,0 +1,184 @@
+"""Hardened orthogonalization (port of the standard-metric part of
+``diaglib_tpu/ortho/core.py``).
+
+Every routine works on row-major vector blocks ``U: (k, n)`` with an
+optional boolean row-validity ``mask``; masked rows are zero and stay zero.
+The retry and refinement loops are plain Python loops with the reference's
+ladders and tolerances.
+
+* ``norm_est``   — triangular norm bound.
+* ``ortho_cd``   — shifted Cholesky + iterative refinement + growth model.
+* ``ortho_qr``   — QR fallback (also applies R^{-1} to a second set).
+* ``ortho_vs_x`` — project out an orthonormal X, re-orthonormalize, repeat.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..utils.masking import masked_cholesky
+from ..utils.mm import mm, mmT
+
+__all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x"]
+
+_MAXIT = 10
+
+
+def _eps(dtype) -> float:
+    return torch.finfo(dtype).eps
+
+
+def _tol_ortho(dtype) -> float:
+    return 2.0 * _eps(dtype)
+
+
+def _rowmask(mask, k, device):
+    if mask is None:
+        return torch.ones((k,), dtype=torch.bool, device=device)
+    return mask
+
+
+def norm_est(L: torch.Tensor, mask=None) -> torch.Tensor:
+    """||L|| <= max_i |L_ii| + ||strict lower||_F, masked rows/cols out."""
+    mask = _rowmask(mask, L.shape[0], L.device)
+    diag_norm = torch.where(mask, torch.diagonal(L).abs(), 0.0).max()
+    outer = mask[:, None] & mask[None, :]
+    lower = torch.where(outer, torch.tril(L, diagonal=-1), 0.0)
+    return diag_norm + torch.sqrt((lower * lower).sum())
+
+
+def _shifted_cholesky(metric, mask, unorm: float, dtype):
+    """Cholesky with the level-shift retry ladder: on failure add
+    ``max(eps*alpha*||U||, tol_ortho)`` to the valid diagonal, alpha = 100
+    growing 10x per retry, at most _MAXIT retries.  Returns (L, failed)."""
+    L, failed = masked_cholesky(metric, mask)
+    alpha = 100.0
+    it = 0
+    while failed and it < _MAXIT:
+        shift = max(_eps(dtype) * alpha * unorm, _tol_ortho(dtype))
+        shifted = metric + torch.diag(
+            torch.where(mask, shift, 0.0).to(metric.dtype))
+        L, failed = masked_cholesky(shifted, mask)
+        alpha *= 10.0
+        it += 1
+    return L, failed
+
+
+def ortho_cd(u: torch.Tensor, mask=None, max_iter: int = _MAXIT):
+    """Cholesky orthonormalization with level shifting and refinement.
+
+    Returns ``(u_ortho, growth, ok)``: ``growth`` is the accumulated
+    ||L^-1|| product the *_vs_x callers use to bound the orthogonality
+    error they re-introduce; ``ok`` is False if the refinement did not
+    converge (the shift ladder failed, rcond stalled, or max_iter passes
+    ran out) — callers then fall back to QR.
+    """
+    k, n = u.shape
+    dtype = u.dtype
+    mask = _rowmask(mask, k, u.device)
+    eye = torch.eye(k, dtype=dtype, device=u.device)
+    growth = 1.0
+    prev_rcond = math.inf
+    ok = False
+    done = False
+    it = 0
+    while not done and it < max_iter:
+        metric = mmT(u, u)
+        unorm = float(torch.sqrt((u * u).sum()))
+        L, failed = _shifted_cholesky(metric, mask, unorm, dtype)
+        linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        l_norm = float(norm_est(L, mask))
+        linv_norm = float(norm_est(linv, mask))
+        rcond = l_norm * linv_norm
+        error = _eps(dtype) * rcond * rcond
+        converged = error < _tol_ortho(dtype)
+        # each refinement pass squares the orthogonality error, so rcond
+        # must drop sharply pass over pass; a stalled rcond means the
+        # block is numerically rank deficient and can never converge here
+        stalled = it > 0 and rcond >= 0.5 * prev_rcond and not converged
+        done = converged or failed or stalled
+        ok = converged
+        if not failed:
+            u = mm(linv, u)
+            growth = growth * linv_norm
+        prev_rcond = rcond
+        it += 1
+    return u, growth, ok and done
+
+
+def ortho_qr(u: torch.Tensor, mask=None, extra=None):
+    """QR orthonormalization of the masked rows.
+
+    Valid rows are (stably) permuted to the front, so the leading Q columns
+    depend only on them; masked rows come back as zeros.  With ``extra``
+    (e.g. A@U with the same masked rows) the same transform R^{-1} is
+    applied to it and ``(q, extra_q)`` is returned.
+    """
+    k, n = u.shape
+    mask = _rowmask(mask, k, u.device)
+    perm = torch.argsort((~mask).to(torch.int8), stable=True)
+    inv_perm = torch.argsort(perm, stable=True)
+    u_p = u[perm]
+    # masked (now trailing) rows become unit vectors so the QR stays
+    # well-posed; they never influence the leading (valid) Q columns
+    basis = torch.nn.functional.one_hot(
+        torch.arange(k, device=u.device) % n, n).to(u.dtype)
+    mask_p = mask[perm]
+    u_p = torch.where(mask_p[:, None], u_p, basis)
+    q, r = torch.linalg.qr(u_p.T, mode="reduced")      # (n, k), (k, k)
+    q_rows = torch.where(mask_p[:, None], q.T, 0.0)
+    out = q_rows[inv_perm]
+    if extra is None:
+        return out
+    e_rows = torch.linalg.solve_triangular(r.T, extra[perm], upper=False)
+    e_rows = torch.where(mask_p[:, None], e_rows.to(u.dtype), 0.0)
+    return out, e_rows[inv_perm]
+
+
+def _ortho_or_qr(u, mask):
+    """ortho_cd with the QR fallback; returns (u, growth, cd_ok).  When
+    ortho_cd fails, u comes from QR and callers must compute the explicit
+    overlap to test convergence."""
+    u_cd, growth, ok = ortho_cd(u, mask)
+    return (u_cd if ok else ortho_qr(u, mask)), growth, ok
+
+
+def _iterate_vs_x(project, x_for_overlap, u, umask, max_iter):
+    """Project out X, re-orthonormalize, repeat until the (estimated)
+    overlap with X is below 2*eps.  Returns (u, done)."""
+    dtype = u.dtype
+    u, _, _ = _ortho_or_qr(u, umask)
+    done = False
+    it = 0
+    while not done and it < max_iter:
+        uu = project(u)
+        u, growth, cd_ok = _ortho_or_qr(uu, umask)
+        if cd_ok:
+            xu_norm = growth * _eps(dtype)
+        else:
+            overlap = mmT(u, x_for_overlap)
+            xu_norm = float(torch.sqrt((overlap * overlap).sum()))
+        done = xu_norm < _tol_ortho(dtype)
+        it += 1
+    return u, done
+
+
+def ortho_vs_x(x: torch.Tensor, u: torch.Tensor, xmask=None, umask=None,
+               max_iter: int = _MAXIT):
+    """Orthogonalize block u against orthonormal x, then orthonormalize u.
+
+    Iterates ``u <- u - (u x^T) x`` + orthonormalization until
+    ||x u^T|| < 2*eps, estimating the overlap from ortho_cd's growth factor
+    when available.  Masked rows of x and u are zero and stay zero.
+    Returns ``(u, done)``.
+    """
+    xmask = _rowmask(xmask, x.shape[0], x.device)
+    umask = _rowmask(umask, u.shape[0], u.device)
+    xm = torch.where(xmask[:, None], x, 0.0)
+
+    def project(uu):
+        return uu - mm(mmT(uu, xm), xm)
+
+    return _iterate_vs_x(project, xm, u, umask, max_iter)

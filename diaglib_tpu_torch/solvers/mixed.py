@@ -1,0 +1,70 @@
+"""The float32 -> float64 Davidson ladder (port of ``davidson_ladder`` of
+``diaglib_tpu/solvers/mixed.py``).
+
+1. Run Davidson in float32 until the residuals reach the float32 noise
+   floor (``lo_tol``, at most ``lo_iter`` iterations); it need not
+   converge.
+2. Warm-start the float64 Davidson from the float32 Ritz vectors;
+   ``check_guess`` re-orthonormalizes them in float64.
+
+The result is the float64 stage's, with both stages' iteration and matvec
+counts added up.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..types import SolverOptions, SolverResult
+from .davidson import davidson
+
+__all__ = ["davidson_ladder"]
+
+
+def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
+    return dataclasses.replace(
+        options,
+        tol=max(float(options.tol), float(lo_tol)),
+        max_iter=lo_iter if lo_iter is not None else options.max_iter,
+    )
+
+
+def _two_stage(solver, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
+               evec_guess, options: SolverOptions, lo_tol, lo_iter,
+               generator):
+    lo = solver(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
+                _lo_options(options, lo_tol, lo_iter), generator=generator)
+    hi = solver(matvec_hi, precnd_hi, lo.evec.to(torch.float64), options,
+                generator=generator)
+    return SolverResult(
+        eig=hi.eig,
+        evec=hi.evec,
+        ok=hi.ok,
+        n_iter=lo.n_iter + hi.n_iter,
+        n_matvec=lo.n_matvec + hi.n_matvec,
+        done=hi.done,
+        rms_history=hi.rms_history,
+        max_history=hi.max_history,
+        eig_history=hi.eig_history,
+        # the float32 stage is a warm start only; the float64 stage
+        # re-orthonormalizes its guess, so only its ortho health counts
+        ortho_ok=hi.ortho_ok,
+    )
+
+
+def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
+                    evec_guess: torch.Tensor, options: SolverOptions, *,
+                    lo_tol: float = 2e-6, lo_iter: int | None = None,
+                    generator: torch.Generator | None = None) -> SolverResult:
+    """float32-then-float64 Davidson-Liu.
+
+    ``matvec_lo``/``precnd_lo`` operate on float32 blocks,
+    ``matvec_hi``/``precnd_hi`` on float64.  ``lo_tol`` is the float32
+    stage's rms target — keep it above the float32 noise floor
+    (~1e-6 ||A||).  Returns the float64 stage's :class:`SolverResult` with
+    iteration/matvec counts accumulated over both stages.
+    """
+    return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
+                      evec_guess, options, lo_tol, lo_iter, generator)

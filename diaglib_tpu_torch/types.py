@@ -1,0 +1,89 @@
+"""Solver options and results (port of ``diaglib_tpu/types.py``).
+
+Callback contract, as in the JAX package:
+
+* ``matvec(x)`` applies the operator to a block of row vectors,
+  ``x: (k, n) -> (k, n)``; it must be linear (zero rows stay zero).
+* ``precnd(shift, r)`` is a shift-aware preconditioner,
+  ``(float, (k, n)) -> (k, n)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+MatVec = Callable[[torch.Tensor], torch.Tensor]
+PrecndFn = Callable[[float, torch.Tensor], torch.Tensor]
+
+__all__ = ["MatVec", "PrecndFn", "SolverOptions", "SolverResult"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverOptions:
+    """Solver configuration, field for field the JAX package's.
+
+    n_targ:   number of converged eigenpairs required.
+    n_max:    block size / max subspace width per macro-block (>= n_targ).
+    max_iter: maximum number of iterations.
+    tol:      rms convergence threshold; the max-norm threshold is ``10*tol``.
+    max_dav:  macro-blocks before a restart; effective ``max(10, max_dav)``.
+    shift:    diagonal level shift, removed from the reported eigenvalues.
+    reduced_solver: "auto" and "device" solve the reduced problems with
+              ``torch.linalg``; "host" and "jacobi" are not ported yet.
+    verbose:  print one progress line per iteration.
+    wide_mm:  the int8 wide-rotation kernel route; "auto" and "never" are
+              plain matmuls in the operands' dtype, "always" is not ported.
+    sliced_mm: the integer-sliced long-contraction route; as ``wide_mm``.
+    """
+
+    n_targ: int
+    n_max: int
+    max_iter: int = 100
+    tol: float = 1e-8
+    max_dav: int = 20
+    shift: float = 0.0
+    reduced_solver: str = "auto"
+    verbose: bool = False
+    wide_mm: str = "auto"
+    sliced_mm: str = "auto"
+
+    def __post_init__(self):
+        if self.n_max < self.n_targ:
+            raise ValueError("n_max must be >= n_targ")
+
+    @property
+    def dim_dav(self) -> int:
+        return max(10, self.max_dav)
+
+    @property
+    def tol_max(self) -> float:
+        return 10.0 * self.tol
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverResult:
+    """Result of a symmetric eigensolver.
+
+    eig:  (n_max,) eigenvalues ascending (shift removed).
+    evec: (n_max, n) eigenvector rows.
+    ok:   True if the first n_targ roots converged.
+    n_iter: iterations performed.
+    n_matvec: operator applications, one per vector in each applied block.
+    done: (n_max,) per-root converged flags (a contiguous prefix).
+    rms_history/max_history/eig_history: (max_iter, n_max) tables.
+    ortho_ok: False if any orthogonalization step failed to converge.
+    """
+
+    eig: torch.Tensor
+    evec: torch.Tensor
+    ok: bool
+    n_iter: int
+    n_matvec: int
+    done: torch.Tensor
+    rms_history: torch.Tensor
+    max_history: torch.Tensor
+    eig_history: torch.Tensor
+    ortho_ok: bool

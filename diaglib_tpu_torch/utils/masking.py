@@ -1,0 +1,82 @@
+"""Row and mask helpers of the solvers (port of the parts of
+``diaglib_tpu/utils/masking.py`` the Davidson slice uses).
+
+The solvers keep their subspaces in fixed ``(lda_pad, n)`` buffers, like
+the JAX package, so the state matches it row for row; counts are Python
+ints here, since the loop is eager.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import reduced
+
+__all__ = ["prefix_mask", "gather_rows", "scatter_rows", "masked_cholesky",
+           "masked_eigh_prefix", "prefix_lock"]
+
+
+def prefix_mask(k: int, count: int, device=None) -> torch.Tensor:
+    """(k,) bool mask, True for indices < count."""
+    return torch.arange(k, device=device) < count
+
+
+def gather_rows(x: torch.Tensor, start: int, width: int,
+                count: int | None = None) -> torch.Tensor:
+    """Rows ``[start, start+width)`` of x (indices clipped to the buffer),
+    rows >= ``count`` (relative) zeroed."""
+    idx = (start + torch.arange(width, device=x.device)).clamp(
+        0, x.shape[0] - 1)
+    out = x[idx]
+    if count is not None:
+        out[count:] = 0
+    return out
+
+
+def scatter_rows(x: torch.Tensor, block: torch.Tensor,
+                 start: int) -> torch.Tensor:
+    """Copy of x with ``block`` written at row ``start``; the start is
+    clamped so the block fits, as ``lax.dynamic_update_slice`` does."""
+    start = min(max(int(start), 0), x.shape[0] - block.shape[0])
+    out = x.clone()
+    out[start:start + block.shape[0]] = block.to(x.dtype)
+    return out
+
+
+def masked_cholesky(a: torch.Tensor, mask: torch.Tensor):
+    """Lower Cholesky factor of the masked SPD matrix (identity padding).
+
+    Returns (L, failed): ``failed`` is True when the matrix is not
+    numerically positive definite (the factorization stopped or produced
+    non-finite entries)."""
+    outer = mask[:, None] & mask[None, :]
+    a_m = torch.where(outer, a, 0.0) + torch.diag(
+        torch.where(mask, 0.0, 1.0).to(a.dtype))
+    chol, info = torch.linalg.cholesky_ex(a_m)
+    failed = bool(info != 0) or not bool(torch.isfinite(chol).all())
+    return chol, failed
+
+
+def masked_eigh_prefix(a: torch.Tensor, ldu: int, method: str = "device"):
+    """eigh of the leading ``ldu x ldu`` block of symmetric ``a``, padded
+    to a's full size: the genuine eigenpairs ascending in the leading
+    positions, the rest at a Gershgorin bound above the genuine spectrum
+    with zero eigenvector columns.  ``method`` as utils.reduced."""
+    full = a.shape[0]
+    lead = a[:ldu, :ldu]
+    pad = lead.abs().sum(dim=1).max() + 1.0
+    w, v = reduced.eigh(lead, method)
+    w_out = torch.cat([w, pad.expand(full - ldu)])
+    v_out = torch.zeros((full, full), dtype=a.dtype, device=a.device)
+    v_out[:ldu, :ldu] = v
+    return w_out, v_out
+
+
+def prefix_lock(done: torch.Tensor, conv: torch.Tensor,
+                n_targ: int) -> torch.Tensor:
+    """Contiguous-prefix locking: a root is locked iff it and every
+    preceding root (within the first ``n_targ``) converged or was locked;
+    roots past ``n_targ`` are never locked."""
+    cand = (done | conv).to(torch.int32)
+    prefix = torch.cumprod(cand, dim=0).to(torch.bool)
+    return prefix & (torch.arange(done.shape[0], device=done.device) < n_targ)

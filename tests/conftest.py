@@ -29,6 +29,11 @@ enable_persistent_cache(min_compile_secs=2.0)
 assert jax.devices()[0].platform == "cpu", jax.devices()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where there is none")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_per_module():
     # The one-process full-suite run accumulates hundreds of compiled XLA
