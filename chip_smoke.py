@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive diaglib_tpu_torch's main path on one NVIDIA GPU and check it.
+"""Drive diaglib_tpu_torch's ported paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,37 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and turns TF32 off for float32 matmuls and convolutions;
-2. build: compiles the CUDA kernels of diaglib_tpu_torch/csrc with nvcc;
-3. operator: random_bsr_spd(65536, 512, 8) on the card, sliced into the
-   symmetric int8 store (the configuration bench.py headlines);
+2. build: compiles the CUDA kernels of diaglib_tpu_torch/csrc with nvcc,
+   one process per source, in parallel;
+3. operators: random_bsr_spd(65536, 512, 8) on the card (the configuration
+   bench.py headlines and the README's plain-BSR operator), its symmetric
+   int8 store, a float64 copy of its blocks, and bsr_gen_problem(65536,
+   512, 8), the generalized flagship's (A, B) pair of stores;
 4. kernels: each kernel against its plain torch version on the card at the
-   shapes the main path gives it — the peel (K2) at (15, 65536) and the
-   symmetric SpMM (K1) on the store, both precision tiers, bit for bit —
-   with median times of kernel and plain version, plus the float64 matvec
-   against a dense float64 oracle at n = 2048 (1e-14 max|y|);
-5. main path: the float32 -> float64 Davidson ladder (10 roots, n_max 15,
-   tol 1e-10, zero guess from a seeded generator), once to warm up and once
-   with every kernel's launch count set to 0 just before and read just
-   after; the 10 returned pairs' residuals are recomputed with a plain
-   float64 BSR product of the original blocks (rms < 1e-10, max < 1e-9);
-6. kernel usage: a JSON ``kernels`` line; every kernel must have run in 5.
+   shapes the paths give it, with median times of kernel and plain version:
+   the peel (K2) at (15, 65536) and the symmetric SpMM (K1) on the store,
+   both precision tiers, bit for bit; the wide-rotation product (K3) at
+   (15, 165) @ (165, 65536) in the mm and mTm layouts, bit for bit, and
+   against cuBLAS float64 (1e-14 max|y|, its time too); the plain BSR SpMM
+   (K4) on the float32 operator at k = 15 (1e-5 max|y|); and the float64
+   sliced matvec against a dense float64 oracle at n = 2048 (1e-14 max|y|);
+5. ladders at full width (10 roots, n_max 15, tol 1e-10, max_dav 10, zero
+   guess from a seeded generator), each run once to warm up and once with
+   every kernel's launch count set to 0 just before and read just after:
+   (a) lobpcg_ladder on the symmetric store (lo_iter 70);
+   (b) gen_david_ladder on the generalized pair through sliced_matvec_any,
+       float32 and float64 tiers of both A and B (lo_iter 60);
+   (c) davidson_ladder over bsr_matvec of the float32 and float64 blocks
+       (lo_iter 35);
+   (d) davidson_ladder on the symmetric store (lo_iter 35) under
+       wide_mm="auto" and once more under "never": eigenvalues within
+       1e-10, iterations within 2.
+   Each returned set of 10 pairs must be ok, with residuals recomputed by a
+   plain float64 BSR product of the original blocks: rms < 1e-10, max <
+   1e-9 (A x - lambda B x for (b), whose vectors must also be
+   B-orthonormal to 1e-10);
+6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
+   the timed runs of 5; every kernel must have run there.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -38,6 +55,7 @@ ROOT = Path(__file__).resolve().parent
 
 N, BLOCK, BPR = 65536, 512, 8
 N_TARG, N_MAX = 10, 15
+K3_M, K3_K = N_MAX, 11 * N_MAX     # the f64 Davidson rotation: lda_pad = 165
 
 
 def log(msg):
@@ -65,7 +83,7 @@ def time_ms(fn, reps):
 
 def plain_bsr_matvec(m, x, chunk=64):
     """y = x @ A^T from the BSR blocks in float64 (an oracle independent of
-    the slice store)."""
+    the slice store and of the kernels)."""
     import torch
 
     B = m.block
@@ -80,65 +98,20 @@ def plain_bsr_matvec(m, x, chunk=64):
     return y.permute(1, 0, 2).reshape(x.shape[0], m.n)
 
 
-def main():
+def check_kernels_k1_k2(store, dev, card, stats, max_err):
+    """K2 and K1 against their plain versions, both tiers, bit for bit."""
     import torch
 
-    # ---- 1. device ----
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device")
-    if not (ROOT / "diaglib_tpu_torch" / "csrc").is_dir():
-        raise RuntimeError("chip_smoke.py must run from a checkout of the "
-                           "repository (diaglib_tpu_torch/ is missing)")
-    sys.path.insert(0, str(ROOT))
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"[device] {torch.cuda.get_device_name(0)} x"
-        f"{torch.cuda.device_count()}  torch {torch.__version__} cuda "
-        f"{torch.version.cuda}  matmul.allow_tf32="
-        f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
-        f"{torch.backends.cudnn.allow_tf32}")
-
-    from diaglib_tpu_torch import SolverOptions, davidson_ladder
-    from diaglib_tpu_torch.ops import _build, slicing
     from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
-    from diaglib_tpu_torch.ops.bsr import bsr_to_dense, random_bsr_spd
+    from diaglib_tpu_torch.ops import slicing
     from diaglib_tpu_torch.ops.bsr_sliced import _slice_x
-    from diaglib_tpu_torch.problems import diag_precnd
 
-    # ---- 2. build ----
-    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
-        f"{_build.build_all():.1f} s")
-
-    # ---- 3. operator ----
-    t0 = time.perf_counter()
-    m = random_bsr_spd(N, BLOCK, BPR, seed=0, dtype=torch.float32,
-                       device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    store = sym.slice_bsr_sym(m)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    log(f"[operator] n={N} B={BLOCK} bpr={BPR}: nnzb={m.nnzb} "
-        f"({t1 - t0:.2f} s); symmetric store: {store.slices.shape[0]} + "
-        f"{store.slices1.shape[0]} entries, {store.nbytes / 2**30:.3f} GiB "
-        f"({t2 - t1:.2f} s)")
-
-    # ---- 4. kernels against their plain versions ----
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((N_MAX, N), generator=g, dtype=torch.float64,
                     device=dev)
     x = x * 2.0 ** torch.randint(-8, 8, (N_MAX, 1), generator=g, device=dev)
     tiers = {"f64": (torch.float64, 8, 9, store.na),
              "f32": (torch.float32, 4, 4, min(store.na, 4))}
-    stats = {"peel_rows": {}, "sym_spmm": {}}
-    max_err = {"peel_rows": 0.0, "sym_spmm": 0.0}
     for tier, (dt, nx, nlev, na_used) in tiers.items():
         xu = (x * store.u_scale).to(dt)
         sx = 2.0 * slicing.pow2_grid(xu.abs().amax(dim=1, keepdim=True))
@@ -185,14 +158,181 @@ def main():
         stats["sym_spmm"][tier] = (
             time_ms(lambda: levels(sym.sym_spmm), 10),
             time_ms(lambda: levels(sym.sym_spmm_plain), 3))
-        for name in stats:
+        for name in ("peel_rows", "sym_spmm"):
             ms, plain = stats[name][tier]
             log(f"[kernels] {name} {tier}: kernel == plain, kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms (median, {card})")
 
+
+def check_kernel_k3(dev, card, stats, max_err):
+    """K3 at the flagship rotation, mm and mTm layouts, bit for bit against
+    its plain version and within 1e-14 max|y| of cuBLAS float64."""
+    import torch
+
+    from diaglib_tpu_torch.ops import slicing
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = torch.linalg.qr(torch.randn((K3_K, K3_M), generator=g,
+                                    dtype=torch.float64, device=dev))[0]
+    b = torch.randn((K3_K, N), generator=g, dtype=torch.float64, device=dev)
+    for layout, a in (("mm", c.T.contiguous()), ("mTm", c.T)):
+        got = slicing.sliced_wide_mm(a, b)
+        want = slicing.sliced_wide_mm_plain(a, b)
+        ref = a @ b
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err["sliced_wide_mm"] = max(max_err["sliced_wide_mm"], err)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        log(f"[kernels] sliced_wide_mm {layout} ({K3_M}, {K3_K}) @ ({K3_K}, "
+            f"{N}): kernel == plain {torch.equal(got, want)}, vs cuBLAS f64 "
+            f"{rel:.3e} of max|y|")
+        if not torch.equal(got, want):
+            raise AssertionError(f"wide_mm kernel != plain ({layout})")
+        if not rel <= 1e-14:
+            raise AssertionError(f"wide_mm vs cuBLAS {rel:.3e} > 1e-14")
+    a = c.T.contiguous()
+    stats["sliced_wide_mm"] = (
+        time_ms(lambda: slicing.sliced_wide_mm(a, b), 20),
+        time_ms(lambda: slicing.sliced_wide_mm_plain(a, b), 5),
+        time_ms(lambda: a @ b, 20))
+    ms, plain, cublas = stats["sliced_wide_mm"]
+    log(f"[kernels] sliced_wide_mm: kernel {ms:.4f} ms (a peel included), "
+        f"plain {plain:.4f} ms, cuBLAS f64 {cublas:.4f} ms (median, {card})")
+
+
+def check_kernel_k4(m32, dev, card, stats, max_err):
+    """K4 on the float32 operator at k = 15 against its plain version."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((N_MAX, N), generator=g, dtype=torch.float32, device=dev)
+    got = bsr.bsr_spmm(m32, x)
+    want = bsr.bsr_spmm_plain(m32, x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    max_err["bsr_spmm"] = max(max_err["bsr_spmm"], err)
+    stats["bsr_spmm"] = (time_ms(lambda: bsr.bsr_spmm(m32, x), 20),
+                         time_ms(lambda: bsr.bsr_spmm_plain(m32, x), 5))
+    ms, plain = stats["bsr_spmm"]
+    log(f"[kernels] bsr_spmm f32 k={N_MAX}: vs plain {rel:.3e} of max|y|, "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median, {card})")
+    if not rel <= 1e-5:
+        raise AssertionError(f"bsr_spmm vs plain {rel:.3e} > 1e-5")
+
+
+def check_pairs(tag, res, a_bsr, b_bsr=None):
+    """ok, and the returned pairs' residuals by a plain float64 product."""
+    import torch
+
+    if not res.ok:
+        raise AssertionError(f"{tag}: the ladder did not converge")
+    ev = res.evec[:N_TARG]
+    bev = plain_bsr_matvec(b_bsr, ev) if b_bsr is not None else ev
+    r = plain_bsr_matvec(a_bsr, ev) - res.eig[:N_TARG, None] * bev
+    rms = float((r.norm(dim=1) / N ** 0.5).max())
+    rmax = float(r.abs().max())
+    extra = ""
+    if b_bsr is not None:
+        gram = ev @ bev.T
+        dev_b = float((gram - torch.eye(N_TARG, dtype=gram.dtype,
+                                        device=gram.device)).abs().max())
+        extra = f", B-orthonormality {dev_b:.3e}"
+        if not dev_b < 1e-10:
+            raise AssertionError(f"{tag}: vectors not B-orthonormal")
+    log(f"[{tag}] eig[:3]={res.eig[:3].tolist()} plain-product residuals: "
+        f"max rms {rms:.3e}, max |r| {rmax:.3e}{extra}")
+    if not (rms < 1e-10 and rmax < 1e-9 and bool(torch.isfinite(
+            res.eig).all()) and tuple(res.evec.shape) == (N_MAX, N)):
+        raise AssertionError(f"{tag}: residuals of the returned pairs above "
+                             "tol")
+
+
+def main():
+    import torch
+
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    if not (ROOT / "diaglib_tpu_torch" / "csrc").is_dir():
+        raise RuntimeError("chip_smoke.py must run from a checkout of the "
+                           "repository (diaglib_tpu_torch/ is missing)")
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] {torch.cuda.get_device_name(0)} x"
+        f"{torch.cuda.device_count()}  torch {torch.__version__} cuda "
+        f"{torch.version.cuda}  matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+
+    from diaglib_tpu_torch import (
+        SolverOptions,
+        bsr_matvec,
+        davidson_ladder,
+        gen_david_ladder,
+        lobpcg_ladder,
+    )
+    from diaglib_tpu_torch.ops import _build, bsr, slicing
+    from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
+    from diaglib_tpu_torch.ops.bsr import bsr_to_dense, random_bsr_spd
+    from diaglib_tpu_torch.problems import bsr_gen_problem, diag_precnd
+
+    # ---- 2. build ----
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
+        f"{_build.build_all():.1f} s")
+
+    # ---- 3. operators ----
+    t0 = time.perf_counter()
+    m = random_bsr_spd(N, BLOCK, BPR, seed=0, dtype=torch.float32,
+                       device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    store = sym.slice_bsr_sym(m)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"[operator] n={N} B={BLOCK} bpr={BPR}: nnzb={m.nnzb} "
+        f"({t1 - t0:.2f} s); symmetric store: {store.slices.shape[0]} + "
+        f"{store.slices1.shape[0]} entries, {store.nbytes / 2**30:.3f} GiB "
+        f"({t2 - t1:.2f} s)")
+    m64 = bsr.BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start,
+                        m.n, m.block)
+    t0 = time.perf_counter()
+    gen_a, gen_b = bsr_gen_problem(N, BLOCK, BPR, seed=0, device=dev)
+    torch.cuda.synchronize()
+    # the metric's BSR blocks for the residual oracle: the same builder
+    # call bsr_gen_problem makes (seed + 1), so the same values
+    b_bsr = random_bsr_spd(N, BLOCK, 4, seed=1, dtype=torch.float32,
+                           off_scale=0.1, n_low_modes=0, device=dev)
+    log(f"[operator] bsr_gen_problem({N}, {BLOCK}, {BPR}): A store "
+        f"{gen_a.nbytes / 2**30:.3f} GiB, B store {gen_b.nbytes / 2**30:.3f}"
+        f" GiB ({time.perf_counter() - t0:.2f} s)")
+    if not (torch.equal(gen_b.diagonal, bsr.bsr_diagonal(b_bsr).double())
+            and torch.equal(gen_a.diagonal, store.diagonal)):
+        raise AssertionError("the residual oracles are not "
+                             "bsr_gen_problem's (A, B)")
+
+    # ---- 4. kernels against their plain versions ----
+    stats = {"peel_rows": {}, "sym_spmm": {}}
+    max_err = {"peel_rows": 0.0, "sym_spmm": 0.0, "sliced_wide_mm": 0.0,
+               "bsr_spmm": 0.0}
+    check_kernels_k1_k2(store, dev, card, stats, max_err)
+    check_kernel_k3(dev, card, stats, max_err)
+    check_kernel_k4(m, dev, card, stats, max_err)
+
     small = random_bsr_spd(2048, 256, 4, seed=1, dtype=torch.float32,
                            device=dev)
     small_store = sym.slice_bsr_sym(small)
+    g = torch.Generator(device=dev).manual_seed(5)
     xs_small = torch.randn((N_MAX, 2048), generator=g, dtype=torch.float64,
                            device=dev)
     y = sym.sym_sliced_matvec(small_store)(xs_small)
@@ -203,67 +343,122 @@ def main():
     if not rel <= 1e-14:
         raise AssertionError(f"f64 matvec error {rel:.3e} > 1e-14")
 
-    # ---- 5. the main path ----
+    # ---- 5. the ladders ----
+    counters = {"peel_rows": slicing.peel_rows,
+                "sym_spmm": sym.sym_spmm,
+                "sliced_wide_mm": slicing.sliced_wide_mm,
+                "bsr_spmm": bsr.bsr_spmm}
+    launches = dict.fromkeys(counters, 0)
     opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
                          tol=1e-10, max_dav=10)
-    mv_lo = sym.sym_sliced_matvec(store, dtype=torch.float32)
-    mv_hi = sym.sym_sliced_matvec(store)
-    pc_lo = diag_precnd(store.diagonal.to(torch.float32))
-    pc_hi = diag_precnd(store.diagonal)
     guess = torch.zeros((N_MAX, N), dtype=torch.float64, device=dev)
+    f32 = torch.float32
 
-    def ladder():
-        gen = torch.Generator(device=dev).manual_seed(1)
-        res = davidson_ladder(mv_lo, pc_lo, mv_hi, pc_hi, guess, opts,
-                              lo_tol=2e-6, lo_iter=35, generator=gen)
-        torch.cuda.synchronize()
-        return res
+    def timed(tag, run):
+        """Warm-up run, then a run with every launch count at 0."""
+        def once():
+            res = run(torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            return res
+        t0 = time.perf_counter()
+        once()
+        warm_s = time.perf_counter() - t0
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = once()
+        wall_s = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        f64_iters = int(torch.isfinite(res.rms_history[:, 0]).sum())
+        log(f"[{tag}] ok={res.ok} ortho_ok={res.ortho_ok} iterations="
+            f"{res.n_iter} (f64 stage {f64_iters}) n_matvec={res.n_matvec} "
+            f"wall {wall_s:.3f} s (first run {warm_s:.3f} s) launches "
+            f"{json.dumps(counts)} ({card})")
+        return res, wall_s
 
-    t0 = time.perf_counter()
-    ladder()
-    warm_s = time.perf_counter() - t0
-    slicing.peel_rows.launches = 0
-    sym.sym_spmm.launches = 0
-    t0 = time.perf_counter()
-    res = ladder()
-    wall_s = time.perf_counter() - t0
-    launches = {"peel_rows": slicing.peel_rows.launches,
-                "sym_spmm": sym.sym_spmm.launches}
-    f64_iters = int(torch.isfinite(res.rms_history[:, 0]).sum())
-    log(f"[ladder] ok={res.ok} ortho_ok={res.ortho_ok} iterations="
-        f"{res.n_iter} (f64 stage {f64_iters}) n_matvec={res.n_matvec} "
-        f"wall {wall_s:.3f} s (first run {warm_s:.3f} s) store "
-        f"{store.nbytes} bytes ({card})")
-    if not res.ok:
-        raise AssertionError("the ladder did not converge")
-    ev = res.evec[:N_TARG]
-    r = plain_bsr_matvec(m, ev) - res.eig[:N_TARG, None] * ev
-    rms = float((r.norm(dim=1) / N ** 0.5).max())
-    rmax = float(r.abs().max())
-    log(f"[ladder] eig[:3]={res.eig[:3].tolist()} plain-matvec residuals: "
-        f"max rms {rms:.3e}, max |r| {rmax:.3e}")
-    if not (rms < 1e-10 and rmax < 1e-9 and bool(torch.isfinite(
-            res.eig).all()) and tuple(res.evec.shape) == (N_MAX, N)):
-        raise AssertionError("residuals of the returned pairs above tol")
+    pc_lo = diag_precnd(store.diagonal.to(f32))
+    pc_hi = diag_precnd(store.diagonal)
+    mv_lo = sym.sym_sliced_matvec(store, dtype=f32)
+    mv_hi = sym.sym_sliced_matvec(store)
+
+    # (a) LOBPCG ladder on the symmetric store
+    res, _ = timed("lobpcg_ladder", lambda gen: lobpcg_ladder(
+        mv_lo, pc_lo, mv_hi, pc_hi, guess, opts, lo_tol=2e-6, lo_iter=70,
+        generator=gen))
+    check_pairs("lobpcg_ladder", res, m)
+
+    # (b) generalized Davidson ladder on the (A, B) pair
+    res, _ = timed("gen_david_ladder", lambda gen: gen_david_ladder(
+        sym.sliced_matvec_any(gen_a, dtype=f32),
+        diag_precnd(gen_a.diagonal.to(f32)),
+        sym.sliced_matvec_any(gen_b, dtype=f32),
+        sym.sliced_matvec_any(gen_a), diag_precnd(gen_a.diagonal),
+        sym.sliced_matvec_any(gen_b), guess, opts, lo_tol=2e-6, lo_iter=60,
+        generator=gen))
+    check_pairs("gen_david_ladder", res, m, b_bsr)
+    del gen_a, gen_b
+
+    # (c) the plain-BSR Davidson ladder (K4 in the float32 stage)
+    d = bsr.bsr_diagonal(m64)
+    res, _ = timed("bsr_davidson_ladder", lambda gen: davidson_ladder(
+        bsr_matvec(m), diag_precnd(d.to(f32)), bsr_matvec(m64),
+        diag_precnd(d), guess, opts, lo_tol=2e-6, lo_iter=35,
+        generator=gen))
+    check_pairs("bsr_davidson_ladder", res, m)
+    del m64
+
+    # (d) the sliced Davidson ladder, wide rotations on ("auto") and off
+    runs = {}
+    for mode in ("auto", "never"):
+        o = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                          tol=1e-10, max_dav=10, wide_mm=mode)
+        runs[mode] = timed(f"davidson_ladder wide_mm={mode}",
+                           lambda gen, o=o: davidson_ladder(
+                               mv_lo, pc_lo, mv_hi, pc_hi, guess, o,
+                               lo_tol=2e-6, lo_iter=35, generator=gen))
+        check_pairs(f"davidson_ladder wide_mm={mode}", runs[mode][0], m)
+    (ra, wa), (rn, wn) = runs["auto"], runs["never"]
+    d_eig = float((ra.eig[:N_TARG] - rn.eig[:N_TARG]).abs().max())
+    log(f"[davidson_ladder] auto vs never: eigenvalues {d_eig:.3e} apart, "
+        f"iterations {ra.n_iter} vs {rn.n_iter}, wall {wa:.3f} vs "
+        f"{wn:.3f} s ({card})")
+    if not (d_eig <= 1e-10 and abs(ra.n_iter - rn.n_iter) <= 2):
+        raise AssertionError("wide_mm='auto' and 'never' disagree")
 
     # ---- 6. kernel usage ----
-    sources = {"peel_rows": ("diaglib_tpu_torch/csrc/peel.cu",
-                             "diaglib_tpu/ops/slicing.py:268"),
-               "sym_spmm": ("diaglib_tpu_torch/csrc/sym_spmm.cu",
-                            "diaglib_tpu/ops/bsr_sliced_sym.py:220")}
+    sources = {
+        "peel_rows": ("diaglib_tpu_torch/csrc/peel.cu",
+                      "diaglib_tpu/ops/slicing.py:268"),
+        "sym_spmm": ("diaglib_tpu_torch/csrc/sym_spmm.cu",
+                     "diaglib_tpu/ops/bsr_sliced_sym.py:220"),
+        "sliced_wide_mm": ("diaglib_tpu_torch/csrc/wide_mm.cu",
+                           "diaglib_tpu/ops/slicing.py:456"),
+        "bsr_spmm": ("diaglib_tpu_torch/csrc/bsr_spmm.cu",
+                     "diaglib_tpu/ops/bsr.py:138"),
+    }
     kernels = []
     for name, (src, replaces) in sources.items():
-        (ms, plain), (ms32, plain32) = (stats[name]["f64"],
-                                        stats[name]["f32"])
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max_err[name], "ms": ms,
-                        "plain_ms": plain, "ms_f32": ms32,
-                        "plain_ms_f32": plain32})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": max_err[name]}
+        if name in ("peel_rows", "sym_spmm"):
+            (ms, plain), (ms32, plain32) = (stats[name]["f64"],
+                                            stats[name]["f32"])
+            entry.update(ms=ms, plain_ms=plain, ms_f32=ms32,
+                         plain_ms_f32=plain32)
+        elif name == "sliced_wide_mm":
+            ms, plain, cublas = stats[name]
+            entry.update(ms=ms, plain_ms=plain, cublas_ms=cublas)
+        else:
+            ms, plain = stats[name]
+            entry.update(ms=ms, plain_ms=plain)
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"the ladders never launched {missing}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

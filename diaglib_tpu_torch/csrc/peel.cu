@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "peel.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -37,11 +39,7 @@ peel_kernel(const void* __restrict__ src, const float* __restrict__ mid_in,
   if (idx >= numel) return;
   float hi, mid, lo;
   if (MODE == 0) {
-    const double t = static_cast<const double*>(src)[idx];
-    hi = __double2float_rn(t);
-    const double d = __dsub_rn(t, (double)hi);
-    mid = __double2float_rn(d);
-    lo = __double2float_rn(__dsub_rn(d, (double)mid));
+    peel::split_f64(static_cast<const double*>(src)[idx], hi, mid, lo);
   } else if (MODE == 1) {
     hi = static_cast<const float*>(src)[idx];
     mid = 0.0f;
@@ -52,21 +50,8 @@ peel_kernel(const void* __restrict__ src, const float* __restrict__ mid_in,
     lo = lo_in[idx];
   }
   for (int i = 0; i < nx; ++i) {
-    const int sh = bits * (i + 1);                 // < 127, checked by caller
-    const float w = __int_as_float((127 - sh) << 23);     // 2^-sh, exact
-    const float inv = __int_as_float((127 + sh) << 23);   // 2^sh, exact
-    float q = rintf(__fmul_rn(hi, inv));
-    hi = __fsub_rn(hi, __fmul_rn(q, w));
-    if (sh >= 24) {
-      const float q2 = rintf(__fmul_rn(mid, inv));
-      mid = __fsub_rn(mid, __fmul_rn(q2, w));
-      q = __fadd_rn(q, q2);
-    }
-    if (sh >= 48) {
-      const float q3 = rintf(__fmul_rn(lo, inv));
-      lo = __fsub_rn(lo, __fmul_rn(q3, w));
-      q = __fadd_rn(q, q3);
-    }
+    // bits * (i + 1) < 127, checked by the caller
+    const float q = peel::step(bits * (i + 1), hi, mid, lo);
     out[i * numel + idx] = static_cast<int8_t>(__float2int_rn(q));
   }
 }

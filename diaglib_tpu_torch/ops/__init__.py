@@ -1,8 +1,21 @@
-"""Operators: the BSR container, integer slicing and the symmetric sliced
-BSR store with its CUDA kernels."""
+"""Operators: the BSR container and its SpMM kernel, integer slicing and
+the symmetric sliced BSR store with its CUDA kernels."""
 
-from .bsr import BSRMatrix, bsr_diagonal, bsr_to_dense, random_bsr_spd
-from .bsr_sliced_sym import SymSlicedBSR, slice_bsr_sym, sym_sliced_matvec
+from .bsr import (
+    BSRMatrix,
+    bsr_diagonal,
+    bsr_from_dense,
+    bsr_matvec,
+    bsr_to_dense,
+    random_bsr_spd,
+)
+from .bsr_sliced_sym import (
+    SymSlicedBSR,
+    slice_bsr_sym,
+    sliced_matvec_any,
+    sym_sliced_matvec,
+)
 
-__all__ = ["BSRMatrix", "bsr_diagonal", "bsr_to_dense", "random_bsr_spd",
-           "SymSlicedBSR", "slice_bsr_sym", "sym_sliced_matvec"]
+__all__ = ["BSRMatrix", "bsr_diagonal", "bsr_from_dense", "bsr_matvec",
+           "bsr_to_dense", "random_bsr_spd", "SymSlicedBSR", "slice_bsr_sym",
+           "sliced_matvec_any", "sym_sliced_matvec"]

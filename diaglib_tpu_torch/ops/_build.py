@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``_build/lib<name>-<hash>.so``, compiled by ``nvcc`` for
-``sm_90a`` and loaded with ctypes.  The hash is of the source, so an edited
-source is rebuilt and a built one is reused.  All sources compile in
+``sm_90a`` and loaded with ctypes.  The hash is of the source and the shared
+``csrc/*.cuh`` headers, so an edited source is rebuilt and a built one is
+reused.  All sources compile in
 parallel, one ``nvcc`` each, the first time any kernel is asked for; nothing
 is built on import, so the package imports where there is no ``nvcc``.
 
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the shared headers count: a source that includes an edited header is
+    # rebuilt too
+    data = src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{src.stem}-{digest}.so"
 
 

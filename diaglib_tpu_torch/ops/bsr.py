@@ -1,18 +1,29 @@
-"""Block-sparse-row (BSR) matrix container (port of the container parts of
-``diaglib_tpu/ops/bsr.py``).
+"""Block-sparse-row (BSR) operator (port of ``diaglib_tpu/ops/bsr.py``).
 
 Vectors are rows (k, n) as everywhere in this library; entry e stores the
-block A(rows[e], cols[e]) TRANSPOSED, ready for ``x_blk @ blocks_t[e]``.
+block A(rows[e], cols[e]) TRANSPOSED, ready for ``x_blk @ blocks_t[e]``,
+so the matvec is
+
+    y[:, r*B:(r+1)*B] = sum over e in row r of x[:, c_e*B:(c_e+1)*B] @ T_e.
+
+:func:`bsr_spmm` is the wrapper of the CUDA kernel ``csrc/bsr_spmm.cu``
+(kernel K4, float32 and bfloat16); on CPU tensors, and for float64 in
+:func:`bsr_matvec`, the plain torch product :func:`bsr_spmm_plain` runs, as
+the reference computes float64 outside its kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-__all__ = ["BSRMatrix", "bsr_to_dense", "bsr_diagonal", "random_bsr_spd",
+from . import _build
+
+__all__ = ["BSRMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_diagonal",
+           "bsr_matvec", "bsr_spmm", "bsr_spmm_plain", "random_bsr_spd",
            "bsr_from_arrays"]
 
 
@@ -43,17 +54,78 @@ class BSRMatrix:
         return self.nnzb * self.block * self.block
 
 
-def bsr_from_arrays(d: dict, device=None) -> BSRMatrix:
-    """BSRMatrix from a dict of the JAX dataclass's fields (as numpy arrays
-    or numbers, static fields included), e.g.
-    ``{f.name: np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)}``."""
+def as_arrays(obj) -> dict:
+    """The fields of a dataclass instance (for example one of the JAX
+    package's operators) as a dict of numpy arrays and numbers; a dict is
+    returned as it is."""
+    if isinstance(obj, dict):
+        return obj
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def bsr_from_arrays(d, device=None, dtype=None) -> BSRMatrix:
+    """BSRMatrix from the JAX dataclass's fields: a dict of numpy arrays or
+    numbers (static fields included), or the dataclass itself (see
+    :func:`as_arrays`).  ``dtype`` converts the blocks."""
+    d = as_arrays(d)
+
     def t(name, dtype=None):
         return torch.as_tensor(np.array(d[name]), dtype=dtype, device=device)
 
-    return BSRMatrix(blocks_t=t("blocks_t"), rows=t("rows", torch.int32),
-                     cols=t("cols", torch.int32),
-                     row_start=t("row_start", torch.int32), n=int(d["n"]),
-                     block=int(d["block"]))
+    m = BSRMatrix(blocks_t=t("blocks_t", dtype), rows=t("rows", torch.int32),
+                  cols=t("cols", torch.int32),
+                  row_start=t("row_start", torch.int32), n=int(d["n"]),
+                  block=int(d["block"]))
+    nbr = m.n // m.block if m.block else 0
+    if (m.block <= 0 or m.n % m.block
+            or tuple(m.blocks_t.shape) != (m.rows.shape[0], m.block, m.block)
+            or m.cols.shape != m.rows.shape or m.row_start.shape != (nbr,)
+            or (m.nnzb and not (int(m.rows.min()) >= 0
+                                and int(m.rows.max()) < nbr
+                                and int(m.cols.min()) >= 0
+                                and int(m.cols.max()) < nbr
+                                and bool((m.rows[1:] >= m.rows[:-1]).all())))
+            or (nbr and not (int(m.row_start.min()) >= 0
+                             and int(m.row_start.max()) <= m.nnzb))):
+        raise ValueError("bsr_from_arrays: malformed BSR arrays")
+    return m
+
+
+def bsr_from_dense(a, block: int) -> BSRMatrix:
+    """Build a BSR matrix from a dense array (numpy or torch), dropping
+    all-zero blocks.  An empty block row gets one zero diagonal block, as
+    in the reference, so the arrays equal the reference's (kernel K4 needs
+    no such entry: an empty row writes zeros)."""
+    dev = a.device if isinstance(a, torch.Tensor) else None
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    n = a.shape[0]
+    if n % block or a.shape[0] != a.shape[1]:
+        raise ValueError("dense matrix must be square with n % block == 0")
+    nbr = n // block
+    rows, cols, blocks = [], [], []
+    for r in range(nbr):
+        found = False
+        for c in range(nbr):
+            blk = a[r * block:(r + 1) * block, c * block:(c + 1) * block]
+            if np.any(blk != 0.0):
+                rows.append(r)
+                cols.append(c)
+                blocks.append(blk.T)
+                found = True
+        if not found:
+            rows.append(r)
+            cols.append(r)
+            blocks.append(np.zeros((block, block), a.dtype))
+    return BSRMatrix(
+        blocks_t=torch.as_tensor(np.stack(blocks), device=dev),
+        rows=torch.as_tensor(np.asarray(rows, np.int32), device=dev),
+        cols=torch.as_tensor(np.asarray(cols, np.int32), device=dev),
+        row_start=torch.as_tensor(np.searchsorted(
+            np.asarray(rows), np.arange(nbr)).astype(np.int32), device=dev),
+        n=n,
+        block=block,
+    )
 
 
 def bsr_to_dense(m: BSRMatrix) -> torch.Tensor:
@@ -76,6 +148,110 @@ def bsr_diagonal(m: BSRMatrix) -> torch.Tensor:
                     device=m.blocks_t.device)
     d.index_add_(0, m.rows.long(), contrib)
     return d.reshape(-1)
+
+
+_PLAIN_CHUNK = 64     # entries per batched product in bsr_spmm_plain
+
+
+def bsr_spmm_plain(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel K4: ``y = x @ A^T``.
+
+    Gathers x's block columns, multiplies them by the blocks a chunk of
+    entries at a time and adds the products into their block rows.  It
+    computes in float64 when x or the blocks are float64 and in float32
+    otherwise (bfloat16 widened), and returns x's dtype.
+    """
+    B = m.block
+    k = x.shape[0]
+    nbr = m.n // B
+    acc = (torch.float64 if torch.float64 in (x.dtype, m.blocks_t.dtype)
+           else torch.float32)
+    xb = x.to(acc).reshape(k, nbr, B).transpose(0, 1)        # (nbr, k, B)
+    out = torch.zeros((nbr, k, B), dtype=acc, device=x.device)
+    for s in range(0, m.nnzb, _PLAIN_CHUNK):
+        e = slice(s, s + _PLAIN_CHUNK)
+        prods = xb[m.cols[e].long()] @ m.blocks_t[e].to(acc)  # (E, k, B)
+        out.index_add_(0, m.rows[e].long(), prods)
+    return out.transpose(0, 1).reshape(k, m.n).to(x.dtype)
+
+
+_K4_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _spmm_lib():
+    lib = _build.library("bsr_spmm")
+    if not getattr(lib, "_typed", False):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.bsr_spmm.argtypes = [i32, i32, p, p, p, p, p] + [i32] * 5 + [p]
+        lib.bsr_spmm.restype = i32
+        lib.bsr_spmm_error_string.argtypes = [i32]
+        lib.bsr_spmm_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def bsr_spmm(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``y = x @ A^T`` for float32 / bfloat16 x and blocks (kernel K4).
+
+    On CPU tensors this is :func:`bsr_spmm_plain`; on CUDA tensors it
+    launches ``csrc/bsr_spmm.cu`` (float32 accumulation, one CTA per block
+    row and column tile) or raises.  y has x's dtype.
+    """
+    if x.device.type == "cpu":
+        return bsr_spmm_plain(m, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_spmm: unsupported device {x.device}")
+    if x.dtype not in _K4_TYPES or m.blocks_t.dtype not in _K4_TYPES:
+        raise ValueError(f"bsr_spmm: x {x.dtype} and blocks "
+                         f"{m.blocks_t.dtype} must be float32 or bfloat16")
+    for name, t, dt in (("blocks_t", m.blocks_t, m.blocks_t.dtype),
+                        ("cols", m.cols, torch.int32),
+                        ("row_start", m.row_start, torch.int32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"bsr_spmm: {name} must be a contiguous {dt} "
+                             f"tensor on {x.device}")
+    B, n = m.block, m.n
+    nbr = n // B if B else 0
+    if (x.ndim != 2 or x.shape[1] != n or B <= 0 or n % B
+            or m.row_start.shape != (nbr,) or m.cols.shape != (m.nnzb,)
+            or max(n, m.nnzb, x.shape[0]) >= 2 ** 31):
+        raise ValueError(f"bsr_spmm: x {tuple(x.shape)} against n={n}, "
+                         f"B={B}, nnzb={m.nnzb}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    k = x.shape[0]
+    if k == 0:
+        return y
+    lib = _spmm_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.bsr_spmm(_K4_TYPES[x.dtype], _K4_TYPES[m.blocks_t.dtype],
+                       x.data_ptr(), m.blocks_t.data_ptr(), m.cols.data_ptr(),
+                       m.row_start.data_ptr(), y.data_ptr(), k, n, B, nbr,
+                       m.nnzb, stream)
+    if err:
+        raise RuntimeError(
+            f"bsr_spmm kernel: {lib.bsr_spmm_error_string(err).decode()}")
+    bsr_spmm.launches += 1
+    return y
+
+
+bsr_spmm.launches = 0
+
+
+def bsr_matvec(m: BSRMatrix):
+    """Row-block matvec closure ``x: (k, n) -> (k, n)`` for the solvers.
+
+    float32 and bfloat16 blocks go to kernel K4 (:func:`bsr_spmm`, its
+    plain version on the CPU); float64 blocks to the plain float64 segment
+    product :func:`bsr_spmm_plain` on the blocks' device, as the reference
+    computes float64 outside its kernel.
+    """
+    def mv(x):
+        if m.blocks_t.dtype == torch.float64:
+            return bsr_spmm_plain(m, x)
+        return bsr_spmm(m, x)
+
+    return mv
 
 
 def random_bsr_spd(n: int, block: int, blocks_per_row: int, seed: int,

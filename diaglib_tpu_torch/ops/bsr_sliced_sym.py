@@ -28,12 +28,13 @@ import numpy as np
 import torch
 
 from . import _build
-from .bsr import BSRMatrix, bsr_diagonal
+from .bsr import BSRMatrix, as_arrays, bsr_diagonal
 from .bsr_sliced import _BITS, _combine_levels, _slice_x
 from .slicing import combine_weights, pow2_grid, slice_scaled
 
 __all__ = ["SymSlicedBSR", "slice_bsr_sym", "sym_sliced_matvec",
-           "sym_spmm", "sym_spmm_plain", "sym_store_from_arrays"]
+           "sliced_matvec_any", "sym_spmm", "sym_spmm_plain",
+           "sym_store_from_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,9 +89,12 @@ class SymSlicedBSR:
             self.slices1, self.rows1, self.cols1))
 
 
-def sym_store_from_arrays(d: dict, device=None) -> SymSlicedBSR:
-    """SymSlicedBSR from a dict of the JAX dataclass's fields (numpy arrays
-    or numbers, static fields included)."""
+def sym_store_from_arrays(d, device=None) -> SymSlicedBSR:
+    """SymSlicedBSR from the JAX dataclass's fields: a dict of numpy arrays
+    or numbers (static fields included), or the dataclass itself (for
+    example each store of the JAX package's ``bsr_gen_problem`` pair)."""
+    d = as_arrays(d)
+
     def t(name, dtype=None):
         return torch.as_tensor(np.array(d[name]), dtype=dtype, device=device)
 
@@ -379,3 +383,16 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
         return y.to(dtype)
 
     return mv
+
+
+def sliced_matvec_any(store, *, dtype=torch.float64, nx: int | None = None,
+                      nlev: int | None = None):
+    """Tier matvec closure for either sliced-store flavor: the symmetric
+    :class:`SymSlicedBSR` (kernel K1) or the general sliced store, whose
+    kernel (K5) is not ported yet."""
+    if isinstance(store, SymSlicedBSR):
+        return sym_sliced_matvec(store, dtype=dtype, nx=nx, nlev=nlev)
+    raise NotImplementedError(
+        "the general sliced BSR store needs kernel K5 "
+        "(diaglib_tpu/ops/bsr_sliced.py::_sliced_kernel), not yet ported to "
+        "diaglib_tpu_torch")

@@ -25,7 +25,8 @@ from . import _build
 
 __all__ = ["pow2_grid", "slice_operand", "slice_scaled",
            "slice_scaled_components", "combine_weights", "peel_rows",
-           "peel_rows_plain"]
+           "peel_rows_plain", "wide_feasible", "sliced_wide_mm",
+           "sliced_wide_mm_plain"]
 
 _BITS = 6
 _SLICES = 9  # 54 bits >= f64's 53-bit mantissa
@@ -181,13 +182,19 @@ def slice_operand(x: torch.Tensor, n_slices: int = _SLICES,
     doubled (|t| <= 1/2) so the top plane stays inside int8.  Float32 ``x``
     is peeled from float32 (mid = lo = 0), float64 from its triple.
     """
+    t, scale = _row_grid(x, bits)
+    return peel_rows(t, n_slices, bits), scale
+
+
+def _row_grid(x: torch.Tensor, bits: int):
+    """(t, scale) of slice_operand: x's rows divided by their grid."""
     scale = pow2_grid(x.abs().amax(dim=-1, keepdim=True))
     if bits >= 7:
         scale = 2.0 * scale
     # exact: a power-of-two division, done in float64 so that no float32
     # reciprocal of a tiny grid overflows
     t = (x.to(torch.float64) / scale).to(x.dtype)
-    return peel_rows(t, n_slices, bits), scale
+    return t, scale
 
 
 def combine_weights(n_levels: int, bits: int = _BITS,
@@ -196,3 +203,138 @@ def combine_weights(n_levels: int, bits: int = _BITS,
     return torch.tensor([2.0 ** (-bits * (lev + 2))
                          for lev in range(n_levels)], dtype=dtype,
                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# wide-output small-K contraction (the solvers' rotations and projections)
+# ---------------------------------------------------------------------------
+
+_WIDE_BITS = 7        # half grid, |q| <= 64
+_WIDE_SLICES = 8      # 7 * 8 - 1 = 55 >= 53 mantissa bits
+_WIDE_LEVELS = 9      # levels i + p < 9 are kept
+
+
+def _fits_int32(kdim: int, bits: int = _WIDE_BITS) -> bool:
+    """The reference's exact-int32 bound: 2*(bits-1)+1 bits a product."""
+    return kdim * (1 << (2 * (bits - 1) + 1)) <= (1 << 31)
+
+
+def wide_feasible(m: int, kdim: int, n: int, n_slices: int = _WIDE_SLICES,
+                  bits: int = _WIDE_BITS) -> bool:
+    """True iff :func:`sliced_wide_mm` can run ``(m, kdim) @ (kdim, n)``
+    exactly: the int32 budget of the (4-padded) contraction holds.  The
+    reference also asks for a TPU lane tile that fits VMEM; the CUDA kernel
+    stages the contraction in chunks, so any K within the budget runs."""
+    return _fits_int32(kdim + (-kdim) % 4, bits)
+
+
+def _wide_operands(a: torch.Tensor, b: torch.Tensor, peel):
+    """The kernel's inputs: a's planes ``(8, m, kp)`` (K zero-padded to a
+    multiple of 4), its row grid ``sa`` (m, 1) and b's column grid ``sb``
+    (1, n), ``sb = 2 * pow2_grid(max|b| per column)``."""
+    m, kdim = a.shape
+    t, sa = _row_grid(a, _WIDE_BITS)
+    kpad = (-kdim) % 4
+    if kpad:
+        t = torch.nn.functional.pad(t, (0, kpad))
+    a_sl = peel(t, _WIDE_SLICES, _WIDE_BITS)
+    sb = 2.0 * pow2_grid(b.abs().amax(dim=0, keepdim=True))
+    return a_sl, sa, sb
+
+
+def _wide_check(a, b):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"sliced_wide_mm: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.float64 or b.dtype != torch.float64:
+        raise ValueError("sliced_wide_mm: float64 operands only")
+    if a.device != b.device:
+        raise ValueError("sliced_wide_mm: operands on two devices")
+    if not _fits_int32(a.shape[1]):
+        raise ValueError(f"K={a.shape[1]} overflows exact int32 "
+                         "accumulation")
+
+
+def sliced_wide_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel K3: exact-slice float64 ``a @ b``.
+
+    b is cut into the same 8 planes per element as the kernel cuts it
+    (peel_rows_plain of b / sb); each level sum ``v_L = sum_{i+p=L} a_i @
+    q_p`` is a float64 matmul of integers below 2^53, so it is exact; the
+    levels are combined deepest first and scaled by sa * sb exactly as the
+    kernel does, so the two agree bit for bit.
+    """
+    _wide_check(a, b)
+    m, n = a.shape[0], b.shape[1]
+    a_sl, sa, sb = _wide_operands(a, b, peel_rows_plain)
+    a_sl = a_sl[:, :, :a.shape[1]].to(torch.float64)      # (8, m, K)
+    q = peel_rows_plain(b / sb, _WIDE_SLICES, _WIDE_BITS)  # (8, K, n)
+    lev = [torch.zeros((m, n), dtype=torch.float64, device=a.device)
+           for _ in range(_WIDE_LEVELS)]
+    for p in range(_WIDE_SLICES):
+        qp = q[p].to(torch.float64)
+        for i in range(min(_WIDE_SLICES, _WIDE_LEVELS - p)):
+            lev[i + p] += a_sl[i] @ qp
+    y = torch.zeros((m, n), dtype=torch.float64, device=a.device)
+    for L in range(_WIDE_LEVELS - 1, -1, -1):
+        y = y + lev[L] * 2.0 ** (-_WIDE_BITS * (L + 2))
+    return y * sa * sb
+
+
+def _wide_lib():
+    lib = _build.library("wide_mm")
+    if not getattr(lib, "_typed", False):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.wide_mm.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
+        lib.wide_mm.restype = i32
+        lib.wide_mm_error_string.argtypes = [i32]
+        lib.wide_mm_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact float64 ``a @ b`` for small-K, wide-output contractions
+    (kernel K3).
+
+    ``a: (m, K)`` small (reduced eigenvectors, an overlap), ``b: (K, n)``
+    wide (the expansion space).  a is sliced into 8 int8 planes on its
+    per-row grid (kernel K2 on the card), b into 8 planes per column inside
+    the kernel; every plane product is an exact int32 level sum.  Accuracy:
+    both operands truncated 2^-55 below their row / column scales, no
+    rounding inside the contraction.  On CPU tensors this is
+    :func:`sliced_wide_mm_plain`; on CUDA tensors it launches
+    ``csrc/wide_mm.cu`` (bit-identical) or raises.
+    """
+    _wide_check(a, b)
+    if a.device.type == "cpu":
+        return sliced_wide_mm_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"sliced_wide_mm: unsupported device {a.device}")
+    m, kdim = a.shape
+    n = b.shape[1]
+    # the kernel's grid covers 8 rows a CTA in y (at most 65535 CTAs) and
+    # takes its sizes as int32
+    if m > 8 * 65535 or n >= 2 ** 31:
+        raise ValueError(f"sliced_wide_mm: shapes too large ({m}, {kdim}, "
+                         f"{n})")
+    a_sl, sa, sb = _wide_operands(a, b, peel_rows)
+    b = b.contiguous()
+    sa = sa.reshape(m).contiguous()
+    sb = sb.reshape(n).contiguous()
+    out = torch.empty((m, n), dtype=torch.float64, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _wide_lib()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.wide_mm(a_sl.data_ptr(), sa.data_ptr(), b.data_ptr(),
+                      sb.data_ptr(), out.data_ptr(), m, kdim,
+                      a_sl.shape[2], n, stream)
+    if err:
+        raise RuntimeError(
+            f"wide_mm kernel: {lib.wide_mm_error_string(err).decode()}")
+    sliced_wide_mm.launches += 1
+    return out
+
+
+sliced_wide_mm.launches = 0

@@ -1,5 +1,14 @@
 """Orthogonalization."""
 
-from .core import norm_est, ortho_cd, ortho_qr, ortho_vs_x
+from .core import (
+    b_ortho,
+    b_ortho_svd,
+    b_ortho_vs_x,
+    norm_est,
+    ortho_cd,
+    ortho_qr,
+    ortho_vs_x,
+)
 
-__all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x"]
+__all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x", "b_ortho",
+           "b_ortho_svd", "b_ortho_vs_x"]

@@ -1,4 +1,4 @@
-"""Hardened orthogonalization (port of the standard-metric part of
+"""Hardened orthogonalization (port of the standard- and B-metric parts of
 ``diaglib_tpu/ortho/core.py``).
 
 Every routine works on row-major vector blocks ``U: (k, n)`` with an
@@ -10,6 +10,13 @@ ladders and tolerances.
 * ``ortho_cd``   — shifted Cholesky + iterative refinement + growth model.
 * ``ortho_qr``   — QR fallback (also applies R^{-1} to a second set).
 * ``ortho_vs_x`` — project out an orthonormal X, re-orthonormalize, repeat.
+* ``b_ortho``    — B-orthonormalize U given BU (Cholesky, SVD rescue).
+* ``b_ortho_svd`` — the metric^{-1/2} SVD branch with a relative cut.
+* ``b_ortho_vs_x`` — B-orthogonalize U against X, then orthonormalize.
+
+The projections and rotations go through ``utils.mm``, so on the card
+their float64 wide products take the wide-rotation kernel when the
+solver's routing has it on.
 """
 
 from __future__ import annotations
@@ -18,10 +25,11 @@ import math
 
 import torch
 
-from ..utils.masking import masked_cholesky
-from ..utils.mm import mm, mmT
+from ..utils.masking import masked_cholesky, masked_svd
+from ..utils.mm import mm, mmT, mTm
 
-__all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x"]
+__all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x", "b_ortho",
+           "b_ortho_svd", "b_ortho_vs_x"]
 
 _MAXIT = 10
 
@@ -182,3 +190,71 @@ def ortho_vs_x(x: torch.Tensor, u: torch.Tensor, xmask=None, umask=None,
         return uu - mm(mmT(uu, xm), xm)
 
     return _iterate_vs_x(project, xm, u, umask, max_iter)
+
+
+def b_ortho(u: torch.Tensor, bu: torch.Tensor, mask=None):
+    """B-orthonormalize u given ``bu = B u``.
+
+    The rows are first normalized (exact in span, and it keeps the metric
+    O(1) when rows arrive with very different norms); the metric
+    ``u bu^T`` is Cholesky-factored and L^{-1} applied to both u and bu.
+    When the Cholesky fails (a numerically rank-deficient block),
+    :func:`b_ortho_svd` takes over as the rescue path, and ``ok`` comes
+    back False so the solver's ``ortho_ok`` records it.
+
+    Returns ``(u, bu, ok)``; masked rows are zero.
+    """
+    k = u.shape[0]
+    mask = _rowmask(mask, k, u.device)
+    norms = torch.linalg.norm(u, dim=1)
+    inv = torch.where(norms > 0.0,
+                      1.0 / torch.where(norms > 0.0, norms, 1.0), 1.0)
+    u = u * inv[:, None]
+    bu = bu * inv[:, None]
+    metric = mmT(u, bu)
+    L, failed = masked_cholesky(metric, mask)
+    if failed:
+        u_new, bu_new = b_ortho_svd(u, bu, mask)
+    else:
+        u_new = torch.linalg.solve_triangular(L, u, upper=False)
+        bu_new = torch.linalg.solve_triangular(L, bu, upper=False)
+    u_new = torch.where(mask[:, None], u_new, 0.0)
+    bu_new = torch.where(mask[:, None], bu_new, 0.0)
+    return u_new, bu_new, not failed
+
+
+def b_ortho_svd(u: torch.Tensor, bu: torch.Tensor, mask=None,
+                tol_svd: float = 1.0e-5):
+    """Apply metric^{-1/2} to u and bu, dropping singular directions below
+    ``tol_svd`` RELATIVE to the largest singular value (the reference's
+    disabled ``use_svd`` branch, with the reference package's relative
+    cut).  Returns ``(u, bu)``."""
+    k = u.shape[0]
+    mask = _rowmask(mask, k, u.device)
+    metric = mmT(u, bu)
+    uu, s, vt = masked_svd(metric, mask)
+    s_floor = tol_svd * torch.where(mask, s, 0.0).max()
+    s_inv = torch.where(s > s_floor,
+                        1.0 / torch.sqrt(torch.maximum(s, s_floor)), 0.0)
+    m_inv_half = uu @ (s_inv[:, None] * vt)
+    u_new = mTm(m_inv_half, u)
+    bu_new = mTm(m_inv_half, bu)
+    u_new = torch.where(mask[:, None], u_new, 0.0)
+    bu_new = torch.where(mask[:, None], bu_new, 0.0)
+    return u_new, bu_new
+
+
+def b_ortho_vs_x(x: torch.Tensor, bx: torch.Tensor, u: torch.Tensor,
+                 xmask=None, umask=None, max_iter: int = _MAXIT):
+    """B-orthogonalize u against x (metric overlap ``u bx^T``), then
+    orthonormalize u; iterate as :func:`ortho_vs_x`.  Returns
+    ``(u, done)``."""
+    xmask = _rowmask(xmask, x.shape[0], x.device)
+    umask = _rowmask(umask, u.shape[0], u.device)
+    xm = torch.where(xmask[:, None], x, 0.0)
+    bxm = torch.where(xmask[:, None], bx, 0.0)
+
+    def project(uu):
+        return uu - mm(mmT(uu, bxm), xm)
+
+    return _iterate_vs_x(project, bxm, u, umask, max_iter)

@@ -1,6 +1,8 @@
 """Eigensolver drivers."""
 
-from .davidson import davidson
-from .mixed import davidson_ladder
+from .davidson import davidson, gen_david
+from .lobpcg import lobpcg
+from .mixed import davidson_ladder, gen_david_ladder, lobpcg_ladder
 
-__all__ = ["davidson", "davidson_ladder"]
+__all__ = ["davidson", "gen_david", "lobpcg", "davidson_ladder",
+           "gen_david_ladder", "lobpcg_ladder"]

@@ -1,5 +1,5 @@
-"""Block Davidson-Liu eigensolver, standard problem (port of the standard
-path of ``diaglib_tpu/solvers/davidson.py``).
+"""Block Davidson-Liu eigensolvers, standard and generalized (port of
+``diaglib_tpu/solvers/davidson.py``).
 
 The loop is eager Python over the same state as the JAX package's
 ``lax.while_loop``: the expansion space lives in a fixed ``(lda_pad, n)``
@@ -19,6 +19,12 @@ Semantics kept from the reference:
   matrix's diagonal with their eigenvalues;
 * dual tolerance: rms = ||r||/sqrt(n) < tol and max|r| < 10*tol;
 * ``ortho_ok``, per-iteration histories and ``n_matvec`` counting.
+
+Generalized path (``gen_david``, A x = lambda B x): the expansion space is
+kept B-orthonormal, so the reduced problem stays a standard symmetric one;
+``bspace`` holds B times the space, the residual uses B times the Ritz
+vectors, and a restart re-B-orthonormalizes the Ritz block with ``bspace``
+kept consistent (the reference's fix of the Fortran restart).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import math
 
 import torch
 
-from ..ortho.core import ortho_vs_x
+from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_vs_x
 from ..types import SolverOptions, SolverResult
 from ..utils.guess import check_guess
 from ..utils.masking import (
@@ -40,7 +46,7 @@ from ..utils.masking import (
 from ..utils.mm import mmT, mTm, routing_for
 from ..utils.reduced import resolve
 
-__all__ = ["davidson"]
+__all__ = ["davidson", "gen_david"]
 
 
 def davidson(matvec, precnd, evec_guess: torch.Tensor,
@@ -59,7 +65,27 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
     Returns a SolverResult; ``eig``/``evec`` hold the n_max Ritz pairs
     (shift removed from eig).
     """
-    routing_for(options)
+    with routing_for(options, "davidson"):
+        return _davidson_impl(matvec, precnd, None, evec_guess, options,
+                              generator)
+
+
+def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
+              options: SolverOptions, *,
+              generator: torch.Generator | None = None) -> SolverResult:
+    """Generalized Davidson for A x = lambda B x with a B-orthonormal
+    expansion space.
+
+    ``bvec`` applies the SPD metric B to a row block; the other arguments
+    are :func:`davidson`'s.  The returned eigenvectors are B-orthonormal.
+    """
+    with routing_for(options, "gen_david"):
+        return _davidson_impl(matvec, precnd, bvec, evec_guess, options,
+                              generator)
+
+
+def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator):
+    gen_eig = bvec is not None
     resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
     lda = options.dim_dav * n_max
@@ -75,9 +101,14 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
     targ = rows_max < n_targ
 
     guess = check_guess(evec_guess, generator)
+    ortho_ok = True
+    if gen_eig:
+        guess, bguess, ortho_ok = b_ortho(guess, bvec(guess))
     space = scatter_rows(torch.zeros((lda_pad, n), dtype=dtype, device=dev),
                          guess, 0)
     aspace = torch.zeros((lda_pad, n), dtype=dtype, device=dev)
+    bspace = (scatter_rows(torch.zeros_like(space), bguess, 0) if gen_eig
+              else None)
     a_red = torch.zeros((lda_pad, lda_pad), dtype=dtype, device=dev)
     ldu, n_act, n_rst, m_dim = 0, n_max, 0, 1
     eig = torch.zeros((n_max,), dtype=dtype, device=dev)
@@ -85,7 +116,7 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
     done = torch.zeros((n_max,), dtype=torch.bool, device=dev)
     rms = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
     rmx = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
-    ok, ortho_ok, n_matvec, it = False, True, 0, 0
+    ok, n_matvec, it = False, 0, 0
     eig_h = torch.zeros((max_iter, n_max), dtype=dtype, device=dev)
     rms_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
     max_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
@@ -115,7 +146,8 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
         eig = e_red[:n_max]
         c = c_full[:, :n_max]                      # (lda_pad, n_max)
         evec = mTm(c, space)
-        r = mTm(c, aspace) - eig[:, None] * evec
+        metric_evec = mTm(c, bspace) if gen_eig else evec
+        r = mTm(c, aspace) - eig[:, None] * metric_evec
 
         active = ~done & targ
         rms = torch.where(active, torch.linalg.norm(r, dim=1) / sqrtn, rms)
@@ -144,14 +176,29 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
             pre = precnd(shift, rblk)
             pre[n_act_new:] = 0
             umask = rows_max < n_act_new
-            unew, o_done = ortho_vs_x(space, pre, xmask=col_ok, umask=umask)
+            if gen_eig:
+                unew, o_done = b_ortho_vs_x(space, bspace, pre, xmask=col_ok,
+                                            umask=umask)
+                bnew = torch.where(umask[:, None], bvec(unew), 0.0)
+                unew, bnew, b_ok = b_ortho(unew, bnew, umask)
+                o_done = o_done and b_ok
+                bspace = scatter_rows(bspace, bnew, ldu_new)
+            else:
+                unew, o_done = ortho_vs_x(space, pre, xmask=col_ok,
+                                          umask=umask)
             space = scatter_rows(space, unew, ldu_new)
             ldu, n_act, n_rst, m_dim = ldu_new, n_act_new, 0, m_dim + 1
             ortho_ok = ortho_ok and o_done
         else:
-            # restart: collapse onto the Ritz vectors; seed the locked
-            # eigenvalues so their matvecs are skipped next iteration
-            space = scatter_rows(torch.zeros_like(space), evec, 0)
+            # restart: collapse onto the Ritz vectors (re-B-orthonormalized
+            # on the generalized path, bspace kept with them); seed the
+            # locked eigenvalues so their matvecs are skipped next iteration
+            ev = evec
+            if gen_eig:
+                ev, bev, b_ok = b_ortho(evec, metric_evec)
+                bspace = scatter_rows(torch.zeros_like(bspace), bev, 0)
+                ortho_ok = ortho_ok and b_ok
+            space = scatter_rows(torch.zeros_like(space), ev, 0)
             aspace = torch.zeros_like(aspace)
             seed = torch.zeros((lda_pad,), dtype=dtype, device=dev)
             seed[:n_frozen] = eig[:n_frozen]

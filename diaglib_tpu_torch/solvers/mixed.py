@@ -1,11 +1,13 @@
-"""The float32 -> float64 Davidson ladder (port of ``davidson_ladder`` of
+"""The float32 -> float64 solve ladders (port of ``davidson_ladder``,
+``lobpcg_ladder`` and ``gen_david_ladder`` of
 ``diaglib_tpu/solvers/mixed.py``).
 
-1. Run Davidson in float32 until the residuals reach the float32 noise
+1. Run the solver in float32 until the residuals reach the float32 noise
    floor (``lo_tol``, at most ``lo_iter`` iterations); it need not
    converge.
-2. Warm-start the float64 Davidson from the float32 Ritz vectors;
-   ``check_guess`` re-orthonormalizes them in float64.
+2. Warm-start the float64 solver from the float32 Ritz vectors;
+   ``check_guess`` (and, with a metric, ``b_ortho``) re-orthonormalizes
+   them in float64.
 
 The result is the float64 stage's, with both stages' iteration and matvec
 counts added up.
@@ -18,9 +20,10 @@ import dataclasses
 import torch
 
 from ..types import SolverOptions, SolverResult
-from .davidson import davidson
+from .davidson import davidson, gen_david
+from .lobpcg import lobpcg
 
-__all__ = ["davidson_ladder"]
+__all__ = ["davidson_ladder", "lobpcg_ladder", "gen_david_ladder"]
 
 
 def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
@@ -33,11 +36,14 @@ def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
 
 def _two_stage(solver, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                evec_guess, options: SolverOptions, lo_tol, lo_iter,
-               generator):
+               generator, bvec_lo=None, bvec_hi=None):
+    lo_kw = dict(bvec=bvec_lo) if bvec_lo is not None else {}
+    hi_kw = dict(bvec=bvec_hi) if bvec_hi is not None else {}
     lo = solver(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
-                _lo_options(options, lo_tol, lo_iter), generator=generator)
+                _lo_options(options, lo_tol, lo_iter), generator=generator,
+                **lo_kw)
     hi = solver(matvec_hi, precnd_hi, lo.evec.to(torch.float64), options,
-                generator=generator)
+                generator=generator, **hi_kw)
     return SolverResult(
         eig=hi.eig,
         evec=hi.evec,
@@ -68,3 +74,35 @@ def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
     """
     return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                       evec_guess, options, lo_tol, lo_iter, generator)
+
+
+def lobpcg_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
+                  evec_guess: torch.Tensor, options: SolverOptions, *,
+                  lo_tol: float = 2e-6, lo_iter: int | None = None,
+                  generator: torch.Generator | None = None, bvec_lo=None,
+                  bvec_hi=None) -> SolverResult:
+    """float32-then-float64 LOBPCG; pass ``bvec_lo``/``bvec_hi`` for the
+    generalized problem.  Arguments and result as :func:`davidson_ladder`.
+    """
+    return _two_stage(lobpcg, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
+                      evec_guess, options, lo_tol, lo_iter, generator,
+                      bvec_lo=bvec_lo, bvec_hi=bvec_hi)
+
+
+def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
+                     bvec_hi, evec_guess: torch.Tensor,
+                     options: SolverOptions, *, lo_tol: float = 2e-6,
+                     lo_iter: int | None = None,
+                     generator: torch.Generator | None = None
+                     ) -> SolverResult:
+    """float32-then-float64 generalized Davidson.  The float64 stage
+    B-orthonormalizes the warm-start block from scratch, so the float32
+    basis's metric errors do not reach the float64 result.  The result is
+    the float64 stage's with both stages' counts added up."""
+    lo = gen_david(matvec_lo, precnd_lo, bvec_lo,
+                   evec_guess.to(torch.float32),
+                   _lo_options(options, lo_tol, lo_iter), generator=generator)
+    hi = gen_david(matvec_hi, precnd_hi, bvec_hi, lo.evec.to(torch.float64),
+                   options, generator=generator)
+    return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
+                               n_matvec=lo.n_matvec + hi.n_matvec)

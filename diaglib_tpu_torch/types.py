@@ -34,9 +34,15 @@ class SolverOptions:
     reduced_solver: "auto" and "device" solve the reduced problems with
               ``torch.linalg``; "host" and "jacobi" are not ported yet.
     verbose:  print one progress line per iteration.
-    wide_mm:  the int8 wide-rotation kernel route; "auto" and "never" are
-              plain matmuls in the operands' dtype, "always" is not ported.
-    sliced_mm: the integer-sliced long-contraction route; as ``wide_mm``.
+    wide_mm:  routing of the float64 Ritz rotations and ortho projections
+              to the exact int8 wide-rotation kernel (kernel K3,
+              ``ops.slicing.sliced_wide_mm``): "auto" (the per-driver
+              default of ``utils.mm._WIDE_DEFAULTS``, on for every driver),
+              "always", "never".  The kernel runs on CUDA tensors only; on
+              the CPU every mode is a plain matmul.
+    sliced_mm: the integer-sliced long-contraction route: "auto" and
+              "never" are plain matmuls ("never" also turns the wide route
+              off, as in the reference); "always" is not ported yet.
     """
 
     n_targ: int

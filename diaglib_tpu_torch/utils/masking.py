@@ -13,7 +13,7 @@ import torch
 from . import reduced
 
 __all__ = ["prefix_mask", "gather_rows", "scatter_rows", "masked_cholesky",
-           "masked_eigh_prefix", "prefix_lock"]
+           "masked_eigh", "masked_eigh_prefix", "masked_svd", "prefix_lock"]
 
 
 def prefix_mask(k: int, count: int, device=None) -> torch.Tensor:
@@ -55,6 +55,48 @@ def masked_cholesky(a: torch.Tensor, mask: torch.Tensor):
     chol, info = torch.linalg.cholesky_ex(a_m)
     failed = bool(info != 0) or not bool(torch.isfinite(chol).all())
     return chol, failed
+
+
+def _pad_value(a: torch.Tensor, outer: torch.Tensor) -> torch.Tensor:
+    """Gershgorin-style strict upper bound on |eigenvalues| of the masked
+    part."""
+    return torch.where(outer, a, 0.0).abs().sum(dim=1).max() + 1.0
+
+
+def masked_eigh(a: torch.Tensor, mask: torch.Tensor,
+                method: str = "device"):
+    """eigh of the masked symmetric matrix.
+
+    Masked rows and columns are replaced by a diagonal pad above the
+    genuine spectrum, so the genuine eigenpairs come first (ascending) and
+    their eigenvectors are exactly zero on masked rows (the padded matrix
+    is block diagonal).  ``method`` as utils.reduced.
+    """
+    outer = mask[:, None] & mask[None, :]
+    pad = _pad_value(a, outer)
+    a_m = torch.where(outer, a, 0.0) + torch.diag(
+        torch.where(mask, 0.0, pad).to(a.dtype))
+    return reduced.eigh(a_m, method)
+
+
+def masked_svd(a: torch.Tensor, mask: torch.Tensor, method: str = "device"):
+    """SVD of the masked square matrix, genuine triplets leading.
+
+    Masked rows and columns are padded with a diagonal strictly above the
+    genuine spectrum (a Frobenius bound + 2), so that no pad singular value
+    falls among the genuine ones; the triplets are then stably re-sorted by
+    genuineness (a left singular vector supported on valid rows is
+    genuine), which gives the SVD of the compacted matrix at the leading
+    positions.
+    """
+    outer = mask[:, None] & mask[None, :]
+    a_v = torch.where(outer, a, 0.0)
+    pad = torch.sqrt((a_v * a_v).sum()) + 2.0
+    a_m = a_v + torch.diag(torch.where(mask, 0.0, pad).to(a.dtype))
+    u, s, vt = reduced.svd(a_m, method)
+    score = (torch.where(mask[:, None], u, 0.0) ** 2).sum(dim=0)
+    order = torch.argsort((score <= 0.5).to(torch.int8), stable=True)
+    return u[:, order], s[order], vt[order, :]
 
 
 def masked_eigh_prefix(a: torch.Tensor, ldu: int, method: str = "device"):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve", "eigh"]
+__all__ = ["resolve", "eigh", "svd"]
 
 _METHODS = ("auto", "device", "host", "jacobi")
 
@@ -30,3 +30,9 @@ def eigh(a: torch.Tensor, method: str = "device"):
     """Eigenvalues ascending and eigenvectors of symmetric ``a``."""
     resolve(method)
     return torch.linalg.eigh(a)
+
+
+def svd(a: torch.Tensor, method: str = "device"):
+    """Full SVD ``(u, s, vt)`` of ``a``, singular values descending."""
+    resolve(method)
+    return torch.linalg.svd(a)

@@ -96,7 +96,6 @@ def test_davidson_zero_guess_uses_generator(matrix):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("wide_mm", "always", NotImplementedError),
     ("sliced_mm", "always", NotImplementedError),
     ("reduced_solver", "jacobi", NotImplementedError),
     ("reduced_solver", "host", NotImplementedError),

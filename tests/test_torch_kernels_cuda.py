@@ -5,16 +5,27 @@ no JAX, so they also run where only the port's dependencies are installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Every kernel output here is integer (planes, int32 level sums) and must be
-bitwise equal to the plain version; the float64 matvec is held to the
-dense oracle at 1e-14 max|y|.
+The peel (K2), the symmetric sliced SpMM (K1) and the wide-rotation
+product (K3) must be bitwise equal to their plain versions (integer planes
+and level sums; K3 also combines its levels in the plain version's order);
+the float64 matvec and K3 are held to float64 oracles at 1e-14 max|y|.
+The plain BSR SpMM (K4) sums in another order than its plain version:
+float32 within 1e-5 max|y| (the reference's kernel bound), bfloat16 within
+one bfloat16 rounding step.
 """
 
 import pytest
 import torch
 
 from diaglib_tpu_torch.ops import slicing
-from diaglib_tpu_torch.ops.bsr import bsr_to_dense, random_bsr_spd
+from diaglib_tpu_torch.ops.bsr import (
+    BSRMatrix,
+    bsr_from_dense,
+    bsr_spmm,
+    bsr_spmm_plain,
+    bsr_to_dense,
+    random_bsr_spd,
+)
 from diaglib_tpu_torch.ops.bsr_sliced import _slice_x
 from diaglib_tpu_torch.ops.bsr_sliced_sym import (
     slice_bsr_sym,
@@ -124,3 +135,76 @@ def test_wrappers_check_their_inputs(dev, small_store):
     with pytest.raises(ValueError):
         sym_spmm(xs, s.slices, s.rows.long(), s.cols, acc, nx=8, na=8,
                  nlev=9, plane_off=0)
+    m, _ = small_store
+    with pytest.raises(ValueError):        # K4 takes float32 / bfloat16
+        bsr_spmm(BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start,
+                           m.n, m.block),
+                 torch.zeros((2, m.n), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):        # K3 takes float64
+        slicing.sliced_wide_mm(torch.zeros((2, 8), device=dev),
+                               torch.zeros((8, 8192), device=dev))
+
+
+@pytest.mark.parametrize("m,k,n", [(15, 165, 65536), (1, 13, 8192),
+                                   (64, 170, 8448), (9, 1500, 8192)])
+def test_wide_mm_bit_equal(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    a = torch.randn((m, k), generator=g, dtype=torch.float64, device=dev)
+    a = a * torch.exp(2.0 * torch.randn((m, k), generator=g,
+                                        dtype=torch.float64, device=dev))
+    b = torch.randn((k, n), generator=g, dtype=torch.float64, device=dev)
+    b[:, 1] = 0.0
+    before = slicing.sliced_wide_mm.launches
+    got = slicing.sliced_wide_mm(a, b)
+    torch.cuda.synchronize()
+    assert slicing.sliced_wide_mm.launches == before + 1
+    assert torch.equal(got, slicing.sliced_wide_mm_plain(a, b))
+    ref = a @ b
+    assert float((got - ref).abs().max()) <= 1e-14 * float(ref.abs().max())
+    assert float(got[:, 1].abs().max()) == 0.0
+    # the mTm layout: a transposed view
+    at = a.T.contiguous()
+    assert torch.equal(slicing.sliced_wide_mm(at.T, b), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_spmm_matches_plain(dev, dtype):
+    m = random_bsr_spd(4096, 128, 4, seed=6, dtype=torch.float32, device=dev)
+    m = BSRMatrix(m.blocks_t.to(dtype), m.rows, m.cols, m.row_start, m.n,
+                  m.block)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((19, 4096), generator=g, dtype=torch.float32,
+                    device=dev).to(dtype)
+    before = bsr_spmm.launches
+    got = bsr_spmm(m, x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + 1 and got.dtype == dtype
+    want = bsr_spmm_plain(m, x)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max())
+
+
+def test_bsr_spmm_empty_block_row(dev):
+    B = 32
+    dense = torch.zeros((8 * B, 8 * B), dtype=torch.float32)
+    g = torch.Generator().manual_seed(8)
+    for r in (0, 2, 3, 5, 7):
+        dense[r * B:(r + 1) * B, r * B:(r + 1) * B] = torch.randn(
+            (B, B), generator=g)
+    m = bsr_from_dense(dense.to(dev), B)
+    keep = (m.blocks_t != 0).flatten(1).any(dim=1)
+    rows = m.rows[keep]
+    bare = BSRMatrix(m.blocks_t[keep].contiguous(), rows,
+                     m.cols[keep].contiguous(),
+                     torch.searchsorted(rows, torch.arange(
+                         8, dtype=torch.int32, device=dev)).to(torch.int32),
+                     m.n, B)
+    x = torch.randn((3, 8 * B), generator=g).to(dev)
+    y = bsr_spmm(bare, x)
+    torch.cuda.synchronize()
+    for r in (1, 4, 6):
+        assert float(y[:, r * B:(r + 1) * B].abs().max()) == 0.0
+    ref = x.double() @ dense.double().to(dev).T
+    assert float((y.double() - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
