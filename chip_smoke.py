@@ -11,33 +11,47 @@ Phases (any failure raises and the script exits non-zero):
    one process per source, in parallel;
 3. operators: random_bsr_spd(65536, 512, 8) on the card (the configuration
    bench.py headlines and the README's plain-BSR operator), its symmetric
-   int8 store, a float64 copy of its blocks, and bsr_gen_problem(65536,
-   512, 8), the generalized flagship's (A, B) pair of stores;
+   int8 store, its general int8 store (slice_bsr, 4 GB, for the K5 check),
+   a float64 copy of its blocks, bsr_gen_problem(65536, 512, 8), the
+   generalized flagship's (A, B) pair of stores, and
+   bsr_nonsym_similarity(65536, 512, 8), the nonsymmetric flagship's S, T
+   and T^T stores (its S is the operator above);
 4. kernels: each kernel against its plain torch version on the card at the
-   shapes the paths give it, with median times of kernel and plain version:
+   shapes the paths give it, with median times of kernel and plain version
+   and the least time the card could take for the same work (bound):
    the peel (K2) at (15, 65536) and the symmetric SpMM (K1) on the store,
    both precision tiers, bit for bit; the wide-rotation product (K3) at
    (15, 165) @ (165, 65536) in the mm and mTm layouts, bit for bit, and
    against cuBLAS float64 (1e-14 max|y|, its time too); the plain BSR SpMM
-   (K4) on the float32 operator at k = 15 (1e-5 max|y|); and the float64
-   sliced matvec against a dense float64 oracle at n = 2048 (1e-14 max|y|);
-5. ladders at full width (10 roots, n_max 15, tol 1e-10, max_dav 10, zero
-   guess from a seeded generator), each run once to warm up and once with
-   every kernel's launch count set to 0 just before and read just after:
-   (a) lobpcg_ladder on the symmetric store (lo_iter 70);
+   (K4) on the float32 operator at k = 15 (1e-5 max|y|), beside a
+   torch.sparse_bsr_tensor product; the general sliced SpMM (K5) bit for
+   bit, both tiers, on the general store at k = 15 (15 entries a block
+   row) and on the T band store at k = 10 (one entry a row, the
+   nonsymmetric ladder's shape); and the float64 symmetric and general
+   sliced matvecs against a dense float64 oracle at n = 2048 (1e-14
+   max|y|);
+5. ladders at full width (10 roots, tol 1e-10, max_dav 10, zero guess from
+   a seeded generator), each run once to warm up and once with every
+   kernel's launch count set to 0 just before and read just after:
+   (a) lobpcg_ladder on the symmetric store (n_max 15, lo_iter 70);
    (b) gen_david_ladder on the generalized pair through sliced_matvec_any,
-       float32 and float64 tiers of both A and B (lo_iter 60);
+       float32 and float64 tiers of both A and B (n_max 15, lo_iter 60);
    (c) davidson_ladder over bsr_matvec of the float32 and float64 blocks
-       (lo_iter 35);
-   (d) davidson_ladder on the symmetric store (lo_iter 35) under
-       wide_mm="auto" and once more under "never": eigenvalues within
-       1e-10, iterations within 2.
-   Each returned set of 10 pairs must be ok, with residuals recomputed by a
-   plain float64 BSR product of the original blocks: rms < 1e-10, max <
-   1e-9 (A x - lambda B x for (b), whose vectors must also be
-   B-orthonormal to 1e-10);
+       (n_max 15, lo_iter 35);
+   (d) davidson_ladder on the symmetric store (n_max 15, lo_iter 35)
+       under wide_mm="auto" and once more under "never": eigenvalues within
+       1e-10, iterations within 2;
+   (e) nonsym_ladder, side "c", on R = E_- S E_+ (n_max 10, max_iter 150,
+       lo_tol 2e-6, lo_iter 60).
+   Each returned set of 10 pairs must be ok, with residuals recomputed by
+   plain float64 BSR products of the original blocks: rms < 1e-10, max <
+   1e-9 (A x - lambda B x for (b), whose vectors must also be B-orthonormal
+   to 1e-10; both R x - lambda x and R^T y - lambda y for (e), whose
+   vectors must be biorthonormal to 1e-10 and whose eigenvalues must lie
+   within 1e-7 of (d)'s, R being similar to S);
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
-   the timed runs of 5; every kernel must have run there.
+   the timed runs of 5 and each kernel's times and bound; every kernel must
+   have run there.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -55,7 +69,10 @@ ROOT = Path(__file__).resolve().parent
 
 N, BLOCK, BPR = 65536, 512, 8
 N_TARG, N_MAX = 10, 15
+NS_MAX = 10                        # the nonsymmetric ladder's n_max
 K3_M, K3_K = N_MAX, 11 * N_MAX     # the f64 Davidson rotation: lda_pad = 165
+# the card's published peaks (H100 SXM data sheet, dense), for the bounds
+HBM_BPS, INT8_OPS, F32_FLOPS = 3.35e12, 1.979e15, 67e12
 
 
 def log(msg):
@@ -79,6 +96,19 @@ def time_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, ops, rate):
+    """(bound_ms, bound_by): the larger of moving ``nbytes`` at the memory
+    rate and doing ``ops`` at ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def n_pairs(nx, na, nlev, plane_off=0):
+    """Plane pairs (x plane ix, stored plane i) whose level is below nlev."""
+    return sum(1 for i in range(na) for ix in range(nx)
+               if plane_off + i + ix < nlev)
 
 
 def plain_bsr_matvec(m, x, chunk=64):
@@ -126,9 +156,12 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
         max_err["peel_rows"] = max(max_err["peel_rows"], err)
         if not torch.equal(got, want):
             raise AssertionError(f"peel kernel != plain ({tier}), max {err}")
+        numel = t.numel()
         stats["peel_rows"][tier] = (
             time_ms(lambda: slicing.peel_rows(t, nx, 7), 50),
-            time_ms(lambda: slicing.peel_rows_plain(t, nx, 7), 20))
+            time_ms(lambda: slicing.peel_rows_plain(t, nx, 7), 20),
+            *bound(numel * t.element_size() + nx * numel, 4 * nx * numel,
+                   F32_FLOPS))
 
         xs, _ = _slice_x(xu, nx)
         k = N_MAX
@@ -155,13 +188,24 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
         if not torch.equal(got, want):
             raise AssertionError(f"sym_spmm kernel != plain ({tier}), "
                                  f"max {err}")
+        # bound: the used planes once, x's planes once, the accumulator
+        # read and written once; products of both directions off the
+        # diagonal
+        nbytes = xs.numel() + 2 * nlev * k * N * 4
+        ops = 0
+        for rows, cols, sl, na, off in buckets:
+            nbytes += rows.shape[0] * BLOCK * na * BLOCK
+            dirs = rows.shape[0] + int((rows != cols).sum())
+            ops += 2 * n_pairs(nx, na, nlev, off) * dirs * k * BLOCK * BLOCK
         stats["sym_spmm"][tier] = (
             time_ms(lambda: levels(sym.sym_spmm), 10),
-            time_ms(lambda: levels(sym.sym_spmm_plain), 3))
+            time_ms(lambda: levels(sym.sym_spmm_plain), 3),
+            *bound(nbytes, ops, INT8_OPS))
         for name in ("peel_rows", "sym_spmm"):
-            ms, plain = stats[name][tier]
+            ms, plain, b_ms, b_by = stats[name][tier]
             log(f"[kernels] {name} {tier}: kernel == plain, kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms (median, {card})")
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}) (median, {card})")
 
 
 def check_kernel_k3(dev, card, stats, max_err):
@@ -191,17 +235,22 @@ def check_kernel_k3(dev, card, stats, max_err):
         if not rel <= 1e-14:
             raise AssertionError(f"wide_mm vs cuBLAS {rel:.3e} > 1e-14")
     a = c.T.contiguous()
+    # bound: a, b and the product once; 43 int8 plane pairs of products
     stats["sliced_wide_mm"] = (
         time_ms(lambda: slicing.sliced_wide_mm(a, b), 20),
         time_ms(lambda: slicing.sliced_wide_mm_plain(a, b), 5),
+        *bound(8 * (K3_M * K3_K + K3_K * N + K3_M * N),
+               2 * n_pairs(8, 8, 9) * K3_M * K3_K * N, INT8_OPS),
         time_ms(lambda: a @ b, 20))
-    ms, plain, cublas = stats["sliced_wide_mm"]
+    ms, plain, b_ms, b_by, cublas = stats["sliced_wide_mm"]
     log(f"[kernels] sliced_wide_mm: kernel {ms:.4f} ms (a peel included), "
-        f"plain {plain:.4f} ms, cuBLAS f64 {cublas:.4f} ms (median, {card})")
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), cuBLAS f64 "
+        f"{cublas:.4f} ms (median, {card})")
 
 
 def check_kernel_k4(m32, dev, card, stats, max_err):
-    """K4 on the float32 operator at k = 15 against its plain version."""
+    """K4 on the float32 operator at k = 15 against its plain version, and
+    the same product as one torch.sparse_bsr_tensor call."""
     import torch
 
     from diaglib_tpu_torch.ops import bsr
@@ -214,13 +263,104 @@ def check_kernel_k4(m32, dev, card, stats, max_err):
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     max_err["bsr_spmm"] = max(max_err["bsr_spmm"], err)
-    stats["bsr_spmm"] = (time_ms(lambda: bsr.bsr_spmm(m32, x), 20),
-                         time_ms(lambda: bsr.bsr_spmm_plain(m32, x), 5))
-    ms, plain = stats["bsr_spmm"]
+    library = None
+    try:
+        nbr = N // BLOCK
+        crow = torch.searchsorted(m32.rows.long(), torch.arange(
+            nbr + 1, device=dev)).to(torch.int32)
+        a = torch.sparse_bsr_tensor(
+            crow, m32.cols, m32.blocks_t.transpose(1, 2).contiguous(),
+            size=(N, N), dtype=torch.float32, device=dev)
+        xt = x.T.contiguous()
+        lib_y = (a @ xt).T
+        torch.cuda.synchronize()
+        lib_rel = float((lib_y - want).abs().max()) / float(want.abs().max())
+        library = time_ms(lambda: a @ xt, 20)
+        log(f"[kernels] bsr_spmm library: torch.sparse_bsr_tensor @ dense "
+            f"{library:.4f} ms, vs plain {lib_rel:.3e} of max|y|")
+        del a
+    except Exception as exc:    # the product is a yardstick, not a phase
+        log(f"[kernels] bsr_spmm library: torch.sparse_bsr_tensor product "
+            f"could not run: {type(exc).__name__}: {exc}")
+    stats["bsr_spmm"] = (
+        time_ms(lambda: bsr.bsr_spmm(m32, x), 20),
+        time_ms(lambda: bsr.bsr_spmm_plain(m32, x), 5),
+        *bound(m32.nnzb * BLOCK * BLOCK * 4 + 2 * N_MAX * N * 4,
+               2 * N_MAX * m32.nnzb * BLOCK * BLOCK, F32_FLOPS),
+        library)
+    ms, plain, b_ms, b_by, _ = stats["bsr_spmm"]
     log(f"[kernels] bsr_spmm f32 k={N_MAX}: vs plain {rel:.3e} of max|y|, "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median, {card})")
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) (median, {card}); blocks {m32.nnzb} x "
+        f"{BLOCK * BLOCK * 4} B = {m32.nnzb * BLOCK * BLOCK * 4 / 1e9:.3f} "
+        f"GB, {m32.nnzb * BLOCK * BLOCK * 4 / ms / 1e6:.1f} GB/s")
     if not rel <= 1e-5:
         raise AssertionError(f"bsr_spmm vs plain {rel:.3e} > 1e-5")
+
+
+def check_kernel_k5(stores, dev, card, stats, max_err):
+    """K5 against its plain version, bit for bit, both tiers, on each
+    ``(tag, store, k)``: the multi-entry general store and the T band."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+
+    for tag, st, k in stores:
+        g = torch.Generator(device=dev).manual_seed(6)
+        x = torch.randn((k, N), generator=g, dtype=torch.float64, device=dev)
+        for tier, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            nx, na, nlev = bs._tier_params(st.na, dt, None, None)
+            xs, _ = bs._slice_x(x.to(dt), nx)
+            args = (xs, st.slices, st.rows, st.cols, st.row_start)
+            got = bs.sliced_spmm(*args, nx=nx, na=na, nlev=nlev)
+            want = bs.sliced_spmm_plain(*args, nx=nx, na=na, nlev=nlev)
+            torch.cuda.synchronize()
+            err = float((got.long() - want.long()).abs().max())
+            max_err["sliced_spmm"] = max(max_err["sliced_spmm"], err)
+            if not (torch.equal(got, want) and bool(want.ne(0).any())):
+                raise AssertionError(f"sliced_spmm kernel != plain ({tag} "
+                                     f"{tier}), max {err}")
+            # bound: the used planes, x's planes and the levels once each
+            stats["sliced_spmm"][(tag, tier)] = (
+                time_ms(lambda: bs.sliced_spmm(*args, nx=nx, na=na,
+                                               nlev=nlev), 10),
+                time_ms(lambda: bs.sliced_spmm_plain(*args, nx=nx, na=na,
+                                                     nlev=nlev), 3),
+                *bound(st.nnzb * BLOCK * na * BLOCK + xs.numel()
+                       + nlev * k * N * 4,
+                       2 * n_pairs(nx, na, nlev) * st.nnzb * k * BLOCK
+                       * BLOCK, INT8_OPS))
+            ms, plain, b_ms, b_by = stats["sliced_spmm"][(tag, tier)]
+            log(f"[kernels] sliced_spmm {tag} ({st.nnzb} entries, "
+                f"{st.max_bpr}/row) k={k} {tier}: kernel == plain, kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}) (median, {card})")
+
+
+def check_small_matvecs(dev):
+    """The float64 symmetric and general sliced matvecs against a dense
+    float64 oracle at n = 2048."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
+    from diaglib_tpu_torch.ops.bsr import bsr_to_dense, random_bsr_spd
+
+    small = random_bsr_spd(2048, 256, 4, seed=1, dtype=torch.float32,
+                           device=dev)
+    dense = bsr_to_dense(small).double()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((N_MAX, 2048), generator=g, dtype=torch.float64,
+                    device=dev)
+    ref = x @ dense.T
+    for tag, mv in (("symmetric", sym.sym_sliced_matvec(
+            sym.slice_bsr_sym(small))), ("general", bs.sliced_bsr_matvec(
+                bs.slice_bsr(small)))):
+        rel = float((mv(x) - ref).abs().max() / ref.abs().max())
+        log(f"[kernels] f64 {tag} sliced matvec n=2048 B=256 vs dense f64: "
+            f"max err {rel:.3e} of max|y|")
+        if not rel <= 1e-14:
+            raise AssertionError(f"f64 {tag} matvec error {rel:.3e} > 1e-14")
 
 
 def check_pairs(tag, res, a_bsr, b_bsr=None):
@@ -248,6 +388,53 @@ def check_pairs(tag, res, a_bsr, b_bsr=None):
             res.eig).all()) and tuple(res.evec.shape) == (N_MAX, N)):
         raise AssertionError(f"{tag}: residuals of the returned pairs above "
                              "tol")
+
+
+def check_nonsym_pairs(tag, res, s_bsr, t_bsr, tt_bsr, eig_sym):
+    """The nonsymmetric ladder's pairs against plain float64 BSR products
+    of S, T and T^T (the 4-term series): right and left residuals,
+    biorthonormality, and the eigenvalues against the symmetric ladder's
+    on S."""
+    import torch
+
+    def series(bsr_t, x, sign):
+        term, acc = x, x
+        for j in range(1, 5):
+            term = plain_bsr_matvec(bsr_t, term) * (sign / j)
+            acc = acc + term
+        return acc
+
+    def r_mv(x):
+        return series(t_bsr, plain_bsr_matvec(s_bsr, series(t_bsr, x, 1.0)),
+                      -1.0)
+
+    def rt_mv(x):
+        return series(tt_bsr, plain_bsr_matvec(s_bsr, series(tt_bsr, x,
+                                                             -1.0)), 1.0)
+
+    if not res.ok:
+        raise AssertionError(f"{tag}: the ladder did not converge")
+    lam = res.eig[:N_TARG, None]
+    out = {}
+    for side, mv, ev in (("right", r_mv, res.evec_r[:N_TARG]),
+                         ("left", rt_mv, res.evec_l[:N_TARG])):
+        r = mv(ev) - lam * ev
+        out[side] = (float((r.norm(dim=1) / N ** 0.5).max()),
+                     float(r.abs().max()))
+    biortho = float((res.evec_l[:N_TARG] @ res.evec_r[:N_TARG].T
+                     - torch.eye(N_TARG, dtype=torch.float64,
+                                 device=lam.device)).abs().max())
+    d_eig = float((res.eig[:N_TARG] - eig_sym[:N_TARG]).abs().max())
+    log(f"[{tag}] eig[:3]={res.eig[:3].tolist()} plain-product residuals: "
+        f"right max rms {out['right'][0]:.3e} max |r| {out['right'][1]:.3e}, "
+        f"left max rms {out['left'][0]:.3e} max |r| {out['left'][1]:.3e}; "
+        f"biorthonormality {biortho:.3e}; vs symmetric ladder on S "
+        f"{d_eig:.3e}")
+    if not (all(rms < 1e-10 and rmax < 1e-9 for rms, rmax in out.values())
+            and biortho < 1e-10 and d_eig < 1e-7
+            and bool(torch.isfinite(res.eig).all())
+            and tuple(res.evec_r.shape) == (NS_MAX, N)):
+        raise AssertionError(f"{tag}: the returned pairs fail the checks")
 
 
 def main():
@@ -281,11 +468,20 @@ def main():
         davidson_ladder,
         gen_david_ladder,
         lobpcg_ladder,
+        nonsym_ladder,
     )
     from diaglib_tpu_torch.ops import _build, bsr, slicing
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
     from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
-    from diaglib_tpu_torch.ops.bsr import bsr_to_dense, random_bsr_spd
-    from diaglib_tpu_torch.problems import bsr_gen_problem, diag_precnd
+    from diaglib_tpu_torch.ops.bsr import random_bsr_spd
+    from diaglib_tpu_torch.problems import (
+        _band_bsr,
+        _bsr_transpose_band,
+        bsr_gen_problem,
+        bsr_nonsym_similarity,
+        diag_precnd,
+        nonsym_similarity_ops,
+    )
 
     # ---- 2. build ----
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
@@ -304,6 +500,11 @@ def main():
         f"({t1 - t0:.2f} s); symmetric store: {store.slices.shape[0]} + "
         f"{store.slices1.shape[0]} entries, {store.nbytes / 2**30:.3f} GiB "
         f"({t2 - t1:.2f} s)")
+    general = bs.slice_bsr(m)
+    torch.cuda.synchronize()
+    log(f"[operator] general store: {general.nnzb} entries, "
+        f"{general.max_bpr}/row, {general.nbytes / 1e9:.3f} GB "
+        f"({time.perf_counter() - t2:.2f} s)")
     m64 = bsr.BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start,
                         m.n, m.block)
     t0 = time.perf_counter()
@@ -320,34 +521,45 @@ def main():
             and torch.equal(gen_a.diagonal, store.diagonal)):
         raise AssertionError("the residual oracles are not "
                              "bsr_gen_problem's (A, B)")
+    t0 = time.perf_counter()
+    ns_stores, ns_diag = bsr_nonsym_similarity(N, BLOCK, BPR, seed=0,
+                                               device=dev)
+    torch.cuda.synchronize()
+    # the T oracle: the same _band_bsr call bsr_nonsym_similarity makes
+    # (seed + 1)
+    t_bsr = _band_bsr(N, BLOCK, 1, 0.01, device=dev)
+    tt_bsr = _bsr_transpose_band(t_bsr)
+    log(f"[operator] bsr_nonsym_similarity({N}, {BLOCK}, {BPR}): T and T^T "
+        f"stores {ns_stores[1].nnzb} entries each, "
+        f"{ns_stores[1].nbytes / 1e9:.3f} GB each "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not (torch.equal(ns_diag, store.diagonal)
+            and torch.equal(ns_stores[0].slices, store.slices)
+            and torch.equal(bs.slice_bsr(t_bsr).slices, ns_stores[1].slices)
+            and torch.equal(bs.slice_bsr(tt_bsr).slices,
+                            ns_stores[2].slices)):
+        raise AssertionError("the residual oracles are not "
+                             "bsr_nonsym_similarity's (S, T, T^T)")
 
     # ---- 4. kernels against their plain versions ----
-    stats = {"peel_rows": {}, "sym_spmm": {}}
+    stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_spmm": {}}
     max_err = {"peel_rows": 0.0, "sym_spmm": 0.0, "sliced_wide_mm": 0.0,
-               "bsr_spmm": 0.0}
+               "bsr_spmm": 0.0, "sliced_spmm": 0.0}
     check_kernels_k1_k2(store, dev, card, stats, max_err)
     check_kernel_k3(dev, card, stats, max_err)
     check_kernel_k4(m, dev, card, stats, max_err)
-
-    small = random_bsr_spd(2048, 256, 4, seed=1, dtype=torch.float32,
-                           device=dev)
-    small_store = sym.slice_bsr_sym(small)
-    g = torch.Generator(device=dev).manual_seed(5)
-    xs_small = torch.randn((N_MAX, 2048), generator=g, dtype=torch.float64,
-                           device=dev)
-    y = sym.sym_sliced_matvec(small_store)(xs_small)
-    ref = xs_small @ bsr_to_dense(small).double().T
-    rel = float((y - ref).abs().max() / ref.abs().max())
-    log(f"[kernels] f64 matvec n=2048 B=256 vs dense f64: max err "
-        f"{rel:.3e} of max|y|")
-    if not rel <= 1e-14:
-        raise AssertionError(f"f64 matvec error {rel:.3e} > 1e-14")
+    check_kernel_k5((("T band", ns_stores[1], NS_MAX),
+                     ("general", general, N_MAX)), dev, card, stats,
+                    max_err)
+    del general
+    check_small_matvecs(dev)
 
     # ---- 5. the ladders ----
     counters = {"peel_rows": slicing.peel_rows,
                 "sym_spmm": sym.sym_spmm,
                 "sliced_wide_mm": slicing.sliced_wide_mm,
-                "bsr_spmm": bsr.bsr_spmm}
+                "bsr_spmm": bsr.bsr_spmm,
+                "sliced_spmm": bs.sliced_spmm}
     launches = dict.fromkeys(counters, 0)
     opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
                          tol=1e-10, max_dav=10)
@@ -371,9 +583,16 @@ def main():
         counts = {k: fn.launches for k, fn in counters.items()}
         for k, v in counts.items():
             launches[k] += v
-        f64_iters = int(torch.isfinite(res.rms_history[:, 0]).sum())
+        if hasattr(res, "rms_history"):
+            f64_iters = int(torch.isfinite(res.rms_history[:, 0]).sum())
+            stages = f"f64 stage {f64_iters}"
+        else:
+            right, left = (int(torch.isfinite(h[:, 0]).sum()) for h in (
+                res.rms_history_r, res.rms_history_l))
+            stages = (f"f32 stage {res.n_iter - right - left}, f64 right "
+                      f"{right}, f64 left {left}")
         log(f"[{tag}] ok={res.ok} ortho_ok={res.ortho_ok} iterations="
-            f"{res.n_iter} (f64 stage {f64_iters}) n_matvec={res.n_matvec} "
+            f"{res.n_iter} ({stages}) n_matvec={res.n_matvec} "
             f"wall {wall_s:.3f} s (first run {warm_s:.3f} s) launches "
             f"{json.dumps(counts)} ({card})")
         return res, wall_s
@@ -398,7 +617,7 @@ def main():
         sym.sliced_matvec_any(gen_b), guess, opts, lo_tol=2e-6, lo_iter=60,
         generator=gen))
     check_pairs("gen_david_ladder", res, m, b_bsr)
-    del gen_a, gen_b
+    del gen_a, gen_b, b_bsr
 
     # (c) the plain-BSR Davidson ladder (K4 in the float32 stage)
     d = bsr.bsr_diagonal(m64)
@@ -427,6 +646,18 @@ def main():
     if not (d_eig <= 1e-10 and abs(ra.n_iter - rn.n_iter) <= 2):
         raise AssertionError("wide_mm='auto' and 'never' disagree")
 
+    # (e) the two-sided nonsymmetric ladder on R = E_- S E_+
+    ns_opts = SolverOptions(n_targ=N_TARG, n_max=NS_MAX, max_iter=150,
+                            tol=1e-10, max_dav=10)
+    ns_guess = torch.zeros((NS_MAX, N), dtype=torch.float64, device=dev)
+    ns_lo = nonsym_similarity_ops(ns_stores, dtype=f32)
+    ns_hi = nonsym_similarity_ops(ns_stores)
+    res, _ = timed("nonsym_ladder", lambda gen: nonsym_ladder(
+        *ns_lo, diag_precnd(ns_diag.to(f32)), *ns_hi, diag_precnd(ns_diag),
+        ns_guess, ns_opts, side="c", lo_tol=2e-6, lo_iter=60,
+        generator=gen))
+    check_nonsym_pairs("nonsym_ladder", res, m, t_bsr, tt_bsr, ra.eig)
+
     # ---- 6. kernel usage ----
     sources = {
         "peel_rows": ("diaglib_tpu_torch/csrc/peel.cu",
@@ -437,6 +668,8 @@ def main():
                            "diaglib_tpu/ops/slicing.py:456"),
         "bsr_spmm": ("diaglib_tpu_torch/csrc/bsr_spmm.cu",
                      "diaglib_tpu/ops/bsr.py:138"),
+        "sliced_spmm": ("diaglib_tpu_torch/csrc/sliced_spmm.cu",
+                        "diaglib_tpu/ops/bsr_sliced.py:167"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -444,16 +677,25 @@ def main():
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max_err[name]}
         if name in ("peel_rows", "sym_spmm"):
-            (ms, plain), (ms32, plain32) = (stats[name]["f64"],
-                                            stats[name]["f32"])
-            entry.update(ms=ms, plain_ms=plain, ms_f32=ms32,
-                         plain_ms_f32=plain32)
-        elif name == "sliced_wide_mm":
-            ms, plain, cublas = stats[name]
-            entry.update(ms=ms, plain_ms=plain, cublas_ms=cublas)
+            (ms, plain, b_ms, b_by), (ms32, plain32, b32, _) = (
+                stats[name]["f64"], stats[name]["f32"])
+            entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, ms_f32=ms32, plain_ms_f32=plain32,
+                         bound_ms_f32=b32)
+        elif name == "sliced_spmm":
+            # the main path's shape: the T band store at k = 10
+            ms, plain, b_ms, b_by = stats[name][("T band", "f64")]
+            entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+            for (tag, tier), (ms_, plain_, b_, _) in stats[name].items():
+                key = ("" if tag == "T band" else "general_") + tier
+                if key != "f64":
+                    entry.update({f"ms_{key}": ms_, f"plain_ms_{key}": plain_,
+                                  f"bound_ms_{key}": b_})
         else:
-            ms, plain = stats[name]
-            entry.update(ms=ms, plain_ms=plain)
+            ms, plain, b_ms, b_by, library = stats[name]
+            entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     missing = [k for k, v in launches.items() if v <= 0]

@@ -1,5 +1,5 @@
-"""Operators: the BSR container and its SpMM kernel, integer slicing and
-the symmetric sliced BSR store with its CUDA kernels."""
+"""Operators: the BSR container and its SpMM kernel, integer slicing, and
+the general and symmetric sliced BSR stores with their CUDA kernels."""
 
 from .bsr import (
     BSRMatrix,
@@ -9,6 +9,12 @@ from .bsr import (
     bsr_to_dense,
     random_bsr_spd,
 )
+from .bsr_sliced import (
+    SlicedBSR,
+    slice_bsr,
+    sliced_bsr_matvec,
+    sliced_store_from_arrays,
+)
 from .bsr_sliced_sym import (
     SymSlicedBSR,
     slice_bsr_sym,
@@ -17,5 +23,6 @@ from .bsr_sliced_sym import (
 )
 
 __all__ = ["BSRMatrix", "bsr_diagonal", "bsr_from_dense", "bsr_matvec",
-           "bsr_to_dense", "random_bsr_spd", "SymSlicedBSR", "slice_bsr_sym",
-           "sliced_matvec_any", "sym_sliced_matvec"]
+           "bsr_to_dense", "random_bsr_spd", "SlicedBSR", "slice_bsr",
+           "sliced_bsr_matvec", "sliced_store_from_arrays", "SymSlicedBSR",
+           "slice_bsr_sym", "sliced_matvec_any", "sym_sliced_matvec"]

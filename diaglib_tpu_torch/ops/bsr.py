@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import _build
 
 __all__ = ["BSRMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_diagonal",
@@ -265,7 +266,8 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, seed: int,
     ``n_low_modes`` diagonal entries pulled below the bulk so the low end of
     the spectrum is a set of separated eigenvalues.  The sparsity pattern is
     the JAX package's exactly; the values come from ``torch.Generator``
-    streams seeded with ``seed`` (not JAX's), made on ``device``.
+    streams seeded with ``seed`` (not JAX's), made on ``device`` (the CUDA
+    device by default; see :func:`~diaglib_tpu_torch._device.resolve_device`).
     """
     if n % block:
         raise ValueError("n must be divisible by block")
@@ -297,7 +299,7 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, seed: int,
     low_vals = np.linspace(0.5, 4.0, len(low_rows))
 
     # ---- device: block data ----
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     scale = float(off_scale / np.sqrt(B))

@@ -29,7 +29,15 @@ import torch
 
 from . import _build
 from .bsr import BSRMatrix, as_arrays, bsr_diagonal
-from .bsr_sliced import _BITS, _combine_levels, _slice_x
+from .bsr_sliced import (
+    _BITS,
+    SlicedBSR,
+    _combine_levels,
+    _fold,
+    _slice_x,
+    _tier_params,
+    sliced_bsr_matvec,
+)
 from .slicing import combine_weights, pow2_grid, slice_scaled
 
 __all__ = ["SymSlicedBSR", "slice_bsr_sym", "sym_sliced_matvec",
@@ -207,31 +215,6 @@ def slice_bsr_sym(m: BSRMatrix, na: int | None = None,
     )
 
 
-def _sym_tier(m_na: int, dtype, nx, nlev):
-    if dtype == torch.float64:
-        nx = 8 if nx is None else nx
-        na_used = m_na
-        nlev = min(na_used + nx - 1, 9) if nlev is None else nlev
-    else:
-        nx = 4 if nx is None else nx
-        na_used = min(m_na, 4)
-        nlev = min(4, na_used + nx - 1) if nlev is None else nlev
-    return nx, na_used, nlev
-
-
-def _fold(lev, prod, dst, nx, na, nlev, plane_off):
-    """Add the (E, nx, k, na, B) plane products into the (nlev, k, nbr, B)
-    level sums at block columns ``dst``, pair (ix, i) at level
-    plane_off + i + ix."""
-    for L in range(plane_off, nlev):
-        pairs = [(ix, L - plane_off - ix) for ix in range(nx)
-                 if 0 <= L - plane_off - ix < na]
-        if not pairs:
-            continue
-        s = sum(prod[:, ix, :, i, :] for ix, i in pairs)      # (E, k, B)
-        lev[L].index_add_(1, dst, s.transpose(0, 1))
-
-
 _PLAIN_CHUNK = 32   # entries per batched product in sym_spmm_plain
 
 
@@ -351,7 +334,7 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
     levels, combined in float64); float32 the fast tier (nx = 4, the top 4
     planes, 4 levels, combined in float32).
     """
-    nx, na_used, nlev = _sym_tier(m.na, dtype, nx, nlev)
+    nx, na_used, nlev = _tier_params(m.na, dtype, nx, nlev)
     if m.max_row_terms:
         pairs = min(nx, na_used)
         if (2 * (_BITS - 1) + math.ceil(
@@ -388,11 +371,10 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
 def sliced_matvec_any(store, *, dtype=torch.float64, nx: int | None = None,
                       nlev: int | None = None):
     """Tier matvec closure for either sliced-store flavor: the symmetric
-    :class:`SymSlicedBSR` (kernel K1) or the general sliced store, whose
-    kernel (K5) is not ported yet."""
+    :class:`SymSlicedBSR` (kernel K1) or the general
+    :class:`~diaglib_tpu_torch.ops.bsr_sliced.SlicedBSR` (kernel K5)."""
     if isinstance(store, SymSlicedBSR):
         return sym_sliced_matvec(store, dtype=dtype, nx=nx, nlev=nlev)
-    raise NotImplementedError(
-        "the general sliced BSR store needs kernel K5 "
-        "(diaglib_tpu/ops/bsr_sliced.py::_sliced_kernel), not yet ported to "
-        "diaglib_tpu_torch")
+    if isinstance(store, SlicedBSR):
+        return sliced_bsr_matvec(store, dtype=dtype, nx=nx, nlev=nlev)
+    raise TypeError(f"sliced_matvec_any: not a sliced store: {type(store)}")

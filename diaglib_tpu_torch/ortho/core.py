@@ -13,6 +13,8 @@ ladders and tolerances.
 * ``b_ortho``    — B-orthonormalize U given BU (Cholesky, SVD rescue).
 * ``b_ortho_svd`` — the metric^{-1/2} SVD branch with a relative cut.
 * ``b_ortho_vs_x`` — B-orthogonalize U against X, then orthonormalize.
+* ``svd_biortho`` — biorthonormalize a (left, right) pair of blocks.
+* ``biortho_vs_x`` — biorthogonalize a pair against a biorthonormal pair.
 
 The projections and rotations go through ``utils.mm``, so on the card
 their float64 wide products take the wide-rotation kernel when the
@@ -29,9 +31,10 @@ from ..utils.masking import masked_cholesky, masked_svd
 from ..utils.mm import mm, mmT, mTm
 
 __all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x", "b_ortho",
-           "b_ortho_svd", "b_ortho_vs_x"]
+           "b_ortho_svd", "b_ortho_vs_x", "svd_biortho", "biortho_vs_x"]
 
 _MAXIT = 10
+_MAXIT_BIORTHO = 20
 
 
 def _eps(dtype) -> float:
@@ -258,3 +261,51 @@ def b_ortho_vs_x(x: torch.Tensor, bx: torch.Tensor, u: torch.Tensor,
         return uu - mm(mmT(uu, bxm), xm)
 
     return _iterate_vs_x(project, bxm, u, umask, max_iter)
+
+
+def svd_biortho(u_l: torch.Tensor, u_r: torch.Tensor, mask=None):
+    """Biorthonormalize (u_l, u_r) through the SVD of their overlap
+    O = u_l u_r^T = U S V^T: u_l <- S^-1/2 U^T u_l, u_r <- S^-1/2 V^T u_r,
+    so that u_l u_r^T = I on the valid block.  Returns ``(u_l, u_r)``."""
+    k = u_l.shape[0]
+    mask = _rowmask(mask, k, u_l.device)
+    uu, s, vt = masked_svd(mmT(u_l, u_r), mask)
+    inv_sqrt = 1.0 / torch.sqrt(s)
+    u_l_new = inv_sqrt[:, None] * mTm(uu, u_l)
+    u_r_new = inv_sqrt[:, None] * mm(vt, u_r)
+    return (torch.where(mask[:, None], u_l_new, 0.0),
+            torch.where(mask[:, None], u_r_new, 0.0))
+
+
+def biortho_vs_x(xl: torch.Tensor, xr: torch.Tensor, ul: torch.Tensor,
+                 ur: torch.Tensor, xmask=None, umask=None,
+                 max_iter: int = _MAXIT_BIORTHO):
+    """Biorthogonalize (ul, ur) against the biorthonormal pair (xl, xr):
+    ``ur <- ur - (ur xl^T) xr`` and ``ul <- ul - (ul xr^T) xl``, then
+    orthonormalize each, repeating until both overlaps are below 2*eps
+    (estimated from ortho_cd's growth, or explicit after a QR fallback);
+    finish with :func:`svd_biortho`.  Returns ``(ul, ur, done)``."""
+    xmask = _rowmask(xmask, xl.shape[0], xl.device)
+    umask = _rowmask(umask, ul.shape[0], ul.device)
+    xlm = torch.where(xmask[:, None], xl, 0.0)
+    xrm = torch.where(xmask[:, None], xr, 0.0)
+    dtype = ul.dtype
+
+    def overlap_err(x, u, growth, cd_ok):
+        if cd_ok:
+            return growth * _eps(dtype)
+        overlap = mmT(x, u)
+        return float(torch.sqrt((overlap * overlap).sum()))
+
+    done = False
+    it = 0
+    while not done and it < max_iter:
+        ur_ = ur - mm(mmT(ur, xlm), xrm)
+        ul_ = ul - mm(mmT(ul, xrm), xlm)
+        ul, g_l, ok_l = _ortho_or_qr(ul_, umask)
+        ur, g_r, ok_r = _ortho_or_qr(ur_, umask)
+        done = (overlap_err(xrm, ul, g_l, ok_l) < _tol_ortho(dtype)
+                and overlap_err(xlm, ur, g_r, ok_r) < _tol_ortho(dtype))
+        it += 1
+    ul, ur = svd_biortho(ul, ur, umask)
+    return ul, ur, done

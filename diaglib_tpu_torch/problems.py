@@ -3,21 +3,28 @@
 
 Everything is row-major: operator callbacks map ``x: (k, n) -> (k, n)``.
 Random inputs come from ``torch.Generator`` streams, not JAX's: tests that
-compare with the JAX package pass JAX's matrices over as numpy.
+compare with the JAX package pass JAX's matrices over as numpy.  The
+generators make their tensors on the CUDA device unless ``device`` names
+another (``device="cpu"`` on a machine without a card).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["symm_matrix", "metric_matrix", "dense_matvec", "diag_precnd",
-           "bsr_gen_problem"]
+from ._device import resolve_device
+
+__all__ = ["symm_matrix", "metric_matrix", "nonsym_matrix", "dense_matvec",
+           "diag_precnd", "bsr_gen_problem", "bsr_nonsym_similarity",
+           "nonsym_similarity_ops", "nonsym_similarity_sided"]
 
 
 def symm_matrix(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
     """The Hilbert-like symmetric test matrix: a(i,i) = i+1,
     a(i,j) = 1/(i+j), 1-based."""
-    i = torch.arange(1, n + 1, dtype=dtype, device=device)
+    i = torch.arange(1, n + 1, dtype=dtype, device=resolve_device(device))
     a = 1.0 / (i[:, None] + i[None, :])
     a.diagonal().copy_(i + 1.0)
     return a
@@ -26,8 +33,64 @@ def symm_matrix(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
 def metric_matrix(n: int, generator: torch.Generator | None = None,
                   dtype=torch.float64, device=None) -> torch.Tensor:
     """Random SPD metric S = M^T M with M uniform in [0, 1)."""
-    m = torch.rand((n, n), generator=generator, dtype=dtype, device=device)
+    m = torch.rand((n, n), generator=generator, dtype=dtype,
+                   device=resolve_device(device))
     return m.T @ m
+
+
+def nonsym_matrix(n: int, generator: torch.Generator | None = None,
+                  variant: int = 4, dtype=torch.float64,
+                  device=None) -> torch.Tensor:
+    """Nonsymmetric test matrices of the reference's test_nonsym.
+
+    variant 1: P diag(3..n+2) P^{-1}, P = T^T T SPD from shifted random T
+      (real spectrum {i+2});
+    variant 2: symmetric + random perturbation in [0, 0.01] with zero
+      diagonal;
+    variant 3: plain symmetric (``symm_matrix``);
+    variant 4: similarity-transformed symmetric A = e^{-T} S e^{T} with
+      random T scaled to ||T||_F = 0.01 (the reference's default) — real
+      spectrum equal to eigh(S).
+    Random values come from ``generator`` (uniform in [0, 1)).
+    """
+    dev = resolve_device(device)
+    if variant == 3:
+        return symm_matrix(n, dtype, dev)
+
+    def rand():
+        return torch.rand((n, n), generator=generator, dtype=dtype,
+                          device=dev)
+
+    if variant == 1:
+        t = rand() + torch.diag(100.0 + torch.arange(1, n + 1, dtype=dtype,
+                                                     device=dev))
+        p = t.T @ t
+        d = torch.arange(1, n + 1, dtype=dtype, device=dev) + 2.0
+        # A = P diag(d) P^{-1}, P SPD: a Cholesky solve of (P D)^T
+        cf = torch.linalg.cholesky(p)
+        return torch.cholesky_solve((p * d[None, :]).T, cf).T
+    if variant == 2:
+        pert = 0.01 * rand()
+        pert = pert - torch.diag(torch.diagonal(pert))
+        return symm_matrix(n, dtype, dev) + pert
+    if variant == 4:
+        s = symm_matrix(n, dtype, dev)
+        t = rand()
+        t = t * (0.01 / torch.linalg.norm(t))
+        return _matexp_series(-t) @ s @ _matexp_series(t)
+    raise ValueError(f"unsupported nonsym variant {variant}")
+
+
+def _matexp_series(t: torch.Tensor, terms: int = 12) -> torch.Tensor:
+    """e^T by the truncated Taylor series, like the reference's ``matexp``.
+    With ||T|| = 0.01, 12 terms truncate at ~1e-33."""
+    n = t.shape[0]
+    acc = torch.eye(n, dtype=t.dtype, device=t.device)
+    term = torch.eye(n, dtype=t.dtype, device=t.device)
+    for k in range(1, terms + 1):
+        term = (term @ t) / k
+        acc = acc + term
+    return acc
 
 
 def bsr_gen_problem(n: int, block: int, blocks_per_row: int, seed: int,
@@ -46,14 +109,134 @@ def bsr_gen_problem(n: int, block: int, blocks_per_row: int, seed: int,
     from .ops.bsr import random_bsr_spd
     from .ops.bsr_sliced_sym import slice_bsr_sym
 
+    dev = resolve_device(device)
     a = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, seed,
-                                     dtype=torch.float32, device=device),
+                                     dtype=torch.float32, device=dev),
                       na=na)
     b = slice_bsr_sym(random_bsr_spd(n, block, metric_blocks_per_row,
                                      seed + 1, dtype=torch.float32,
                                      off_scale=0.1, n_low_modes=0,
-                                     device=device), na=na)
+                                     device=dev), na=na)
     return a, b
+
+
+def _band_bsr(n: int, block: int, seed: int, scale: float,
+              dtype=torch.float32, device=None):
+    """One-off-diagonal-band BSR matrix (block row r holds block
+    (r, r+1 mod nbr)) with iid normal blocks from a ``torch.Generator``
+    seeded with ``seed``, scaled to total Frobenius norm ~``scale``."""
+    from .ops.bsr import BSRMatrix
+
+    dev = resolve_device(device)
+    nbr = n // block
+    c = scale / math.sqrt(nbr * block * block)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = c * torch.randn((nbr, block, block), generator=gen, dtype=dtype,
+                             device=dev)
+    rows = torch.arange(nbr, dtype=torch.int32, device=dev)
+    return BSRMatrix(blocks_t=blocks.transpose(1, 2).contiguous(), rows=rows,
+                     cols=(rows + 1) % nbr, row_start=rows.clone(), n=n,
+                     block=block)
+
+
+def _bsr_transpose_band(t):
+    """Transpose of a one-band BSR from :func:`_band_bsr`: entry (r, r+1)
+    becomes (r+1, r), reordered so that rows stay ascending."""
+    from .ops.bsr import BSRMatrix
+
+    nbr = t.n // t.block
+    order = torch.argsort((t.rows.long() + 1) % nbr)
+    rows = torch.arange(nbr, dtype=torch.int32, device=t.rows.device)
+    return BSRMatrix(blocks_t=t.blocks_t[order].transpose(1, 2).contiguous(),
+                     rows=rows, cols=(rows - 1) % nbr, row_start=rows.clone(),
+                     n=t.n, block=t.block)
+
+
+def bsr_nonsym_similarity(n: int, block: int, blocks_per_row: int, seed: int,
+                          t_scale: float = 0.01, na: int | None = None,
+                          device=None):
+    """Flagship-scale nonsymmetric problem: a similarity-transformed
+    symmetric operator, matrix-free (the reference's variant-4
+    construction at production scale).
+
+    R = E_- S E_+ with S the symmetric sliced store of
+    ``random_bsr_spd(n, block, blocks_per_row, seed)``, E_± the order-4
+    truncated series of e^{±T}, and T the one-band BSR of
+    :func:`_band_bsr` from seed ``seed + 1``, scaled to ||T||_F ~
+    ``t_scale``.  E_- is the series of -T, not the inverse of E_+, so R is
+    similar to S only up to O(||T||^5/120) ~ 1e-19: its spectrum is real
+    and equals eig(S) to float64 precision.  The left operator is the
+    exact transpose R^T = E_+^T S E_-^T, applied through the general store
+    of T^T.
+
+    Returns ``(stores, diagonal)``: ``stores = (s, t, tt)``, a
+    :class:`~.ops.bsr_sliced_sym.SymSlicedBSR` and two
+    :class:`~.ops.bsr_sliced.SlicedBSR`, and S's diagonal for the
+    preconditioner (diag(R) = diag(S) + O(||T||)).
+    """
+    from .ops.bsr import random_bsr_spd
+    from .ops.bsr_sliced import slice_bsr
+    from .ops.bsr_sliced_sym import slice_bsr_sym
+
+    dev = resolve_device(device)
+    s = slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, seed,
+                                     dtype=torch.float32, device=dev), na=na)
+    t = _band_bsr(n, block, seed + 1, t_scale, device=dev)
+    st = slice_bsr(t, na=na)
+    stt = slice_bsr(_bsr_transpose_band(t), na=na)
+    return (s, st, stt), s.diagonal
+
+
+def _exp_apply(apply_t, x, sign, terms):
+    """E x for E the order-``terms`` series of e^{sign T}, T by rows."""
+    term, acc = x, x
+    for j in range(1, terms + 1):
+        term = apply_t(term) * (sign / j)
+        acc = acc + term
+    return acc
+
+
+def nonsym_similarity_ops(stores, dtype=torch.float64, terms: int = 4):
+    """(matvec, matvec_l) closures over the similarity stores at a tier:
+    R x = E_- S E_+ x and R^T x = E_+^T S E_-^T x, rowwise.  ``terms`` = 4
+    keeps the e^{±T} truncation at ||T||^5/120 ~ 1e-19 for ||T|| = 0.01."""
+    from .ops.bsr_sliced import sliced_bsr_matvec
+    from .ops.bsr_sliced_sym import sliced_matvec_any
+
+    s, st, stt = stores
+    smv = sliced_matvec_any(s, dtype=dtype)
+    tmv = sliced_bsr_matvec(st, dtype=dtype)
+    ttmv = sliced_bsr_matvec(stt, dtype=dtype)
+
+    def mv(x):
+        return _exp_apply(tmv, smv(_exp_apply(tmv, x, 1.0, terms)), -1.0,
+                          terms)
+
+    def mv_l(x):
+        return _exp_apply(ttmv, smv(_exp_apply(ttmv, x, -1.0, terms)), 1.0,
+                          terms)
+
+    return mv, mv_l
+
+
+def nonsym_similarity_sided(s_store, t_store, sign: float,
+                            dtype=torch.float64, terms: int = 4):
+    """One matvec closure for either side: ``t_store`` is the store of T
+    with ``sign`` +1 (the right operator R) or of T^T with ``sign`` -1 (the
+    left operator R^T).  The same computation as
+    :func:`nonsym_similarity_ops`."""
+    from .ops.bsr_sliced import sliced_bsr_matvec
+    from .ops.bsr_sliced_sym import sliced_matvec_any
+
+    smv = sliced_matvec_any(s_store, dtype=dtype)
+    tmv = sliced_bsr_matvec(t_store, dtype=dtype)
+    sign = float(sign)
+
+    def mv(x):
+        return _exp_apply(tmv, smv(_exp_apply(tmv, x, sign, terms)), -sign,
+                          terms)
+
+    return mv
 
 
 def dense_matvec(a: torch.Tensor):

@@ -1,5 +1,5 @@
 """The float32 -> float64 solve ladders (port of ``davidson_ladder``,
-``lobpcg_ladder`` and ``gen_david_ladder`` of
+``lobpcg_ladder``, ``gen_david_ladder`` and ``nonsym_ladder`` of
 ``diaglib_tpu/solvers/mixed.py``).
 
 1. Run the solver in float32 until the residuals reach the float32 noise
@@ -19,11 +19,13 @@ import dataclasses
 
 import torch
 
-from ..types import SolverOptions, SolverResult
+from ..types import NonsymResult, SolverOptions, SolverResult
 from .davidson import davidson, gen_david
 from .lobpcg import lobpcg
+from .nonsym import nonsym
 
-__all__ = ["davidson_ladder", "lobpcg_ladder", "gen_david_ladder"]
+__all__ = ["davidson_ladder", "lobpcg_ladder", "gen_david_ladder",
+           "nonsym_ladder"]
 
 
 def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
@@ -104,5 +106,32 @@ def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
                    _lo_options(options, lo_tol, lo_iter), generator=generator)
     hi = gen_david(matvec_hi, precnd_hi, bvec_hi, lo.evec.to(torch.float64),
                    options, generator=generator)
+    return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
+                               n_matvec=lo.n_matvec + hi.n_matvec)
+
+
+def nonsym_ladder(matvec_lo, matvec_l_lo, precnd_lo, matvec_hi, matvec_l_hi,
+                  precnd_hi, evec_guess: torch.Tensor,
+                  options: SolverOptions, *, side: str = "c",
+                  lo_tol: float = 2e-6, lo_iter: int | None = None,
+                  generator: torch.Generator | None = None,
+                  driver: str = "auto") -> NonsymResult:
+    """float32-then-float64 two-sided nonsymmetric Davidson.
+
+    The float32 stage runs one-sided (the right pass for sides 'c'/'s',
+    whose float64 stage re-derives its left side from the right vectors
+    anyway; the left pass for 'l'), and the float64 stage starts from its
+    eigenvectors, re-orthonormalized in float64 by ``check_guess``.
+    ``driver`` is forwarded to both stages (see :func:`nonsym`).  The
+    result is the float64 stage's with both stages' counts added up.
+    """
+    lo_side = "r" if side in ("s", "c") else side
+    lo = nonsym(matvec_lo, matvec_l_lo, precnd_lo,
+                evec_guess.to(torch.float32),
+                _lo_options(options, lo_tol, lo_iter), side=lo_side,
+                generator=generator, driver=driver)
+    lo_evec = lo.evec_l if side == "l" else lo.evec_r
+    hi = nonsym(matvec_hi, matvec_l_hi, precnd_hi, lo_evec.to(torch.float64),
+                options, side=side, generator=generator, driver=driver)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
                                n_matvec=lo.n_matvec + hi.n_matvec)

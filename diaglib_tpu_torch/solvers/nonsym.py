@@ -1,0 +1,443 @@
+"""Two-sided Davidson for real nonsymmetric matrices (port of
+``diaglib_tpu/solvers/nonsym.py``).
+
+One-sided Davidson passes (right with A, left with A^T) driven through a
+``side`` selector: 'r', 'l', or 's'/'c' (both, consecutively: a right
+pass, then a left pass seeded from the right eigenvectors), finished by a
+pairing-preserving biorthonormalization of (evec_l, evec_r).
+
+All O(n) work (matvecs, Gram matrices, Ritz vectors, residuals,
+orthogonalization) runs on the tensors' device.  The small nonsymmetric
+reduced eigenproblem runs on the host as LAPACK ``dgeev`` in float64, with
+the reference's two serial post-processing steps:
+
+* ``sort_eigenpairs``: ascending selection sort on the real parts, complex
+  pairs (|wi| > 1e-12) parked at the tail.  The targeted roots are the
+  lowest real eigenvalues;
+* root homing: overlaps of the previous and current reduced eigenvectors
+  build a max-overlap permutation with tie-breaking fallbacks (the
+  reference's intended logic, with correctly shaped arrays).
+
+The pass is an eager loop over the JAX package's ``step_pre`` /
+``step_post`` state, with the same fixed ``(lda_pad, n)`` buffers.  The
+reduced solve's input and output cross to the host each iteration; the
+previous reduced eigenvectors used by the homing stay there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ortho.core import ortho_cd, ortho_vs_x
+from ..types import NonsymResult, SolverOptions
+from ..utils.guess import check_guess
+from ..utils.masking import gather_rows, prefix_lock, prefix_mask, scatter_rows
+from ..utils.mm import mmT, mTm, routing_for
+
+__all__ = ["nonsym", "nonsym_pass", "NonsymPassResult", "nonsym_seed_left",
+           "nonsym_finalize"]
+
+_TOL_IM = 1.0e-12
+_DRIVERS = ("auto", "jit", "host", "device")
+
+
+def _host_reduced_eig(a_red, ldu, n_sort, do_homing, copy_r, copy_l, n_max,
+                      out_dtype=np.float64):
+    """dgeev + sort + root homing on the host (numpy), static shapes.
+
+    a_red: (L, L) with the leading ldu x ldu block valid (G[i,j] = s_i.A s_j).
+    Returns wr (L,), vr (L, L), vl (L, L), found_im flag; columns sorted
+    ascending by real part over the leading ``n_sort`` slots with complex
+    pairs parked at the tail of the valid block, then permuted by maximum
+    overlap with the previous reduced eigenvectors (copy_r/copy_l, zero
+    padded (L, 2*n_max)).
+    """
+    import scipy.linalg
+
+    L = a_red.shape[0]
+    ldu = int(ldu)
+    n_sort = min(int(n_sort), ldu)
+    m2 = 2 * n_max
+    a = np.asarray(a_red[:ldu, :ldu], dtype=np.float64)
+    wr_s, wi_s, vl_s, vr_s, info = scipy.linalg.lapack.dgeev(
+        a, compute_vl=1, compute_vr=1
+    )
+    if info != 0:  # pragma: no cover - matches the reference's hard stop
+        raise RuntimeError(f"dgeev failed, info={info}")
+    wr = wr_s.copy()
+    wi = wi_s.copy()
+    vr = vr_s.copy()
+    vl = vl_s.copy()
+
+    def swap(i, j):
+        if i == j:
+            return
+        wr[[i, j]] = wr[[j, i]]
+        wi[[i, j]] = wi[[j, i]]
+        vr[:, [i, j]] = vr[:, [j, i]]
+        vl[:, [i, j]] = vl[:, [j, i]]
+
+    # selection sort with complex parking (sort_eigenpairs semantics)
+    mask = np.ones(ldu, dtype=bool)
+    for i in range(n_sort):
+        cand = np.where(mask, wr, np.inf)
+        idx = int(np.argmin(cand))
+        if abs(wi[idx]) > _TOL_IM:
+            fin = ldu - 1
+            while fin >= 0 and not mask[fin]:
+                fin -= 1
+            mask[fin] = False
+            swap(fin, idx)
+            cand = np.where(mask, wr, np.inf)
+            idx = int(np.argmin(cand))
+        mask[i] = False
+        swap(i, idx)
+
+    found_im = bool(np.any(np.abs(wi[:n_max]) > _TOL_IM))
+
+    if do_homing:
+        vr_pad = np.zeros((ldu, m2))
+        vl_pad = np.zeros((ldu, m2))
+        ncols = min(m2, ldu)
+        vr_pad[:, :ncols] = vr[:, :ncols]
+        vl_pad[:, :ncols] = vl[:, :ncols]
+        ov_r = np.asarray(copy_r)[:ldu, :].T @ vr_pad  # (m2, m2)
+        ov_l = np.asarray(copy_l)[:ldu, :].T @ vl_pad
+
+        def pick(ov):
+            first_idx = np.zeros(n_max, dtype=int)
+            first_val = np.zeros(n_max)
+            second_idx = np.zeros(n_max, dtype=int)
+            second_val = np.zeros(n_max)
+            moved = False
+            for j in range(n_max):
+                col = np.abs(ov[:, j])
+                k1 = int(np.argmax(col))
+                first_idx[j], first_val[j] = k1, ov[k1, j]
+                if k1 != j:
+                    moved = True
+                col2 = col.copy()
+                col2[k1] = -np.inf
+                k2 = int(np.argmax(col2))
+                second_idx[j], second_val[j] = k2, ov[k2, j]
+            return first_idx, first_val, second_idx, second_val, moved
+
+        idx_r, val_r, idx2_r, val2_r, mv_r = pick(ov_r)
+        idx_l, val_l, _, _, mv_l = pick(ov_l)
+        found_er = mv_r or mv_l
+
+        def has_double(idx):
+            return len(np.unique(idx)) != len(idx)
+
+        double_r, double_l = has_double(idx_r), has_double(idx_l)
+        if double_r and not double_l:
+            idx_r = idx_l.copy()
+        elif double_l and not double_r:
+            idx_l = idx_r.copy()
+        elif double_r and double_l:
+            # resolve collisions on the right side via second-best overlaps
+            for j in range(n_max):
+                for k in range(n_max):
+                    if k != j and idx_r[j] == idx_r[k]:
+                        if val2_r[j] > val2_r[k]:
+                            idx_r[j] = idx2_r[j]
+                        else:
+                            idx_r[k] = idx2_r[k]
+            if has_double(idx_r):
+                idx_r = np.arange(n_max)
+                idx_l = np.arange(n_max)
+            else:
+                idx_l = idx_r.copy()
+
+        if np.any(idx_r != idx_l):
+            if np.sum(val_r) > np.sum(val_l):
+                idx_l = idx_r.copy()
+            else:
+                idx_r = idx_l.copy()
+
+        if found_er:
+            valid = idx_r < ldu
+            perm = np.where(valid, idx_r, np.arange(n_max))
+            wr[:n_max] = wr[perm]
+            wi[:n_max] = wi[perm]
+            vr[:, :n_max] = vr[:, perm]
+            vl[:, :n_max] = vl[:, perm]
+
+    wr_out = np.zeros(L)
+    vr_out = np.zeros((L, L))
+    vl_out = np.zeros((L, L))
+    wr_out[:ldu] = wr
+    vr_out[:ldu, :ldu] = vr
+    vl_out[:ldu, :ldu] = vl
+    return (
+        wr_out.astype(out_dtype),
+        vr_out.astype(out_dtype),
+        vl_out.astype(out_dtype),
+        np.bool_(found_im),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class NonsymPassResult:
+    """Result of ONE one-sided pass (:func:`nonsym_pass`); ``eig`` and
+    ``eig_h`` have ``options.shift`` removed."""
+
+    eig: torch.Tensor
+    evec: torch.Tensor
+    ok: bool
+    n_iter: int
+    n_matvec: int
+    done: torch.Tensor
+    rms_h: torch.Tensor
+    max_h: torch.Tensor
+    eig_h: torch.Tensor
+    ortho_ok: bool
+
+
+def _check_driver(driver: str):
+    if driver not in _DRIVERS:
+        raise ValueError("driver must be 'auto', 'jit', 'device' or 'host'")
+    if driver == "device":
+        raise NotImplementedError(
+            "driver='device' needs the on-device Eberlein Jacobi reduced "
+            "solver (diaglib_tpu/utils/eberlein.py), not yet ported to "
+            "diaglib_tpu_torch; use 'auto', 'jit' or 'host' (host dgeev)")
+
+
+def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
+                 generator) -> NonsymPassResult:
+    """One one-sided Davidson pass.
+
+    ``op`` is A for the right pass and A^T for the left pass; ``use_left``
+    selects which set of reduced eigenvectors drives the Ritz vectors and
+    residuals (VL for the left pass) and the Gram layout.
+    """
+    use_left = bool(use_left)
+    n_targ, n_max = options.n_targ, options.n_max
+    lda_pad = options.dim_dav * n_max + n_max
+    max_iter = options.max_iter
+    k_rows, n = guess.shape
+    if k_rows != n_max:
+        raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
+    dtype, dev = guess.dtype, guess.device
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    sqrtn = math.sqrt(n)
+    tol_rms, tol_max = options.tol, options.tol_max
+    rows_max = torch.arange(n_max, device=dev)
+    targ = rows_max < n_targ
+
+    guess = check_guess(guess, generator)
+    space = scatter_rows(torch.zeros((lda_pad, n), dtype=dtype, device=dev),
+                         guess, 0)
+    aspace = torch.zeros((lda_pad, n), dtype=dtype, device=dev)
+    ldu, n_act, m_dim, fresh = 0, n_max, 1, True
+    # previous reduced eigenvectors for the homing, kept on the host
+    copy_r = np.zeros((lda_pad, 2 * n_max), np_dtype)
+    copy_l = np.zeros((lda_pad, 2 * n_max), np_dtype)
+    eig = torch.zeros((n_max,), dtype=dtype, device=dev)
+    evec = torch.zeros((n_max, n), dtype=dtype, device=dev)
+    done = torch.zeros((n_max,), dtype=torch.bool, device=dev)
+    rms = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
+    rmx = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
+    ok, ortho_ok, n_matvec, it = False, True, 0, 0
+    eig_h = torch.zeros((max_iter, n_max), dtype=dtype, device=dev)
+    rms_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
+    max_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
+
+    while not ok and it < max_iter:
+        # ---- step_pre: the matvec block and the reduced matrix ----
+        ldu_new = ldu + n_act
+        blk = gather_rows(space, ldu, n_max, count=n_act)
+        ablk = op(blk)
+        ablk = torch.where((rows_max < n_act)[:, None], ablk, 0.0)
+        aspace = scatter_rows(aspace, ablk, ldu)
+        col_ok = prefix_mask(lda_pad, ldu_new, dev)
+        # right pass: G[i,j] = s_i . (A s_j); left pass G[i,j] = (A^T l_i)
+        # . l_j — both reduce A in the current basis
+        g = mmT(aspace, space) if use_left else mmT(space, aspace)
+        g = torch.where(col_ok[:, None] & col_ok[None, :], g, 0.0)
+        n_sort = n_max if fresh else n_max + n_act
+
+        # ---- the reduced solve on the host ----
+        wr, vr, vl, _ = _host_reduced_eig(
+            g.cpu().numpy(), ldu_new, n_sort, not fresh, copy_r, copy_l,
+            n_max, out_dtype=np_dtype)
+        copy_r = vr[:, :2 * n_max].copy()
+        copy_l = vl[:, :2 * n_max].copy()
+        eig = torch.from_numpy(wr[:n_max].copy()).to(dev)
+        c_use = torch.from_numpy(
+            (vl if use_left else vr)[:, :n_max].copy()).to(dev)
+
+        # ---- step_post: Ritz vectors, residuals, expand or restart ----
+        n_matvec += n_act
+        evec = mTm(c_use, space)
+        r = mTm(c_use, aspace) - eig[:, None] * evec
+
+        active = ~done & targ
+        rms = torch.where(active, torch.linalg.norm(r, dim=1) / sqrtn, rms)
+        rmx = torch.where(active, r.abs().amax(dim=1), rmx)
+        conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
+        done = prefix_lock(done, conv, n_targ)
+        ok = bool(done[:n_targ].all())
+
+        eig_h[it] = eig - options.shift
+        rms_h[it] = rms
+        max_h[it] = rmx
+        if options.verbose:
+            print(f"nonsym it={it} n_act={n_act} "
+                  f"eig0={float(eig_h[it, 0]):.12g} "
+                  f"max_rms={float(rms[:n_targ].max()):.3e}", flush=True)
+
+        n_frozen = int(done.sum())
+        n_act_new = n_max - n_frozen
+        if ok:
+            ldu, fresh = ldu_new, False
+        elif m_dim < options.dim_dav:
+            umask = rows_max < n_act_new
+            rblk = gather_rows(r, n_frozen, n_max, count=n_act_new)
+            pre = precnd(-float(eig[min(n_frozen, n_max - 1)]), rblk)
+            pre = torch.where(umask[:, None], pre, 0.0)
+            unew, o_done = ortho_vs_x(space, pre, xmask=col_ok, umask=umask)
+            space = scatter_rows(space, unew, ldu_new)
+            ldu, n_act, m_dim, fresh = ldu_new, n_act_new, m_dim + 1, False
+            ortho_ok = ortho_ok and o_done
+        else:
+            ev, _, cd_ok = ortho_cd(evec)
+            space = scatter_rows(torch.zeros_like(space), ev, 0)
+            aspace = torch.zeros_like(aspace)
+            ldu, n_act, m_dim, fresh = 0, n_max, 1, True
+            ortho_ok = ortho_ok and cd_ok
+        it += 1
+
+    return NonsymPassResult(
+        eig=eig - options.shift, evec=evec, ok=ok, n_iter=it,
+        n_matvec=n_matvec, done=done, rms_h=rms_h, max_h=max_h, eig_h=eig_h,
+        ortho_ok=ortho_ok)
+
+
+def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
+           options: SolverOptions, side: str = "c", *,
+           generator: torch.Generator | None = None,
+           driver: str = "auto") -> NonsymResult:
+    """Two-sided Davidson for a real nonsymmetric matrix.
+
+    Args:
+      matvec: A applied to row vectors; matvec_l: A^T applied to row
+        vectors (only needed for sides 'l', 's', 'c').
+      precnd: ``(shift, block) -> block`` like the symmetric drivers.
+      evec_guess: (n_max, n) guess rows (the right guess; the left pass of
+        a consecutive run is seeded from the right eigenvectors).  Its
+        dtype and device are the solve's; zeros mean a random start from
+        ``generator``.
+      side: 'r' right only, 'l' left only, 's'/'c' both consecutively.
+      driver: "auto", "jit" and "host" solve the reduced problem with the
+        host dgeev; "device" (the on-device Eberlein Jacobi) is not ported
+        yet and raises.
+
+    Returns a :class:`NonsymResult`.  For 'c'/'s', ``ok`` also requires the
+    left-pass eigenvalues to match the right-pass ones within tol, and
+    evec_l is rebiorthonormalized so that evec_l @ evec_r^T = I.
+    """
+    if side not in ("r", "l", "s", "c"):
+        raise ValueError("side must be one of 'r', 'l', 's', 'c'")
+    _check_driver(driver)
+    with routing_for(options, "nonsym"):
+        if side in ("r", "l"):
+            op = matvec if side == "r" else matvec_l
+            out = _nonsym_pass(op, precnd, evec_guess, options,
+                               use_left=side == "l", generator=generator)
+            zero_v = torch.zeros_like(out.evec)
+            zero_h = torch.zeros_like(out.rms_h)
+            is_r = side == "r"
+            return NonsymResult(
+                eig=out.eig,
+                evec_r=out.evec if is_r else zero_v,
+                evec_l=zero_v if is_r else out.evec,
+                ok=out.ok, n_iter=out.n_iter, n_matvec=out.n_matvec,
+                done=out.done,
+                rms_history_r=out.rms_h if is_r else zero_h,
+                max_history_r=out.max_h if is_r else zero_h,
+                rms_history_l=zero_h if is_r else out.rms_h,
+                max_history_l=zero_h if is_r else out.max_h,
+                eig_history=out.eig_h, ortho_ok=out.ortho_ok)
+        # consecutive: right pass, then the left pass seeded from evec_r
+        out_r = _nonsym_pass(matvec, precnd, evec_guess, options,
+                             use_left=False, generator=generator)
+        guess_l, seed_ok = nonsym_seed_left(out_r.evec)
+        out_l = _nonsym_pass(matvec_l, precnd, guess_l, options,
+                             use_left=True, generator=generator)
+        return _consecutive_result(out_r, out_l, seed_ok, options)
+
+
+def nonsym_seed_left(evec_r: torch.Tensor):
+    """Left-pass seed from the right eigenvectors: their orthonormalized
+    copy.  Returns ``(guess_l, ok)``."""
+    guess_l, _, seed_ok = ortho_cd(evec_r)
+    return guess_l, seed_ok
+
+
+def _consecutive_result(out_r: NonsymPassResult, out_l: NonsymPassResult,
+                        seed_ok: bool, options: SolverOptions
+                        ) -> NonsymResult:
+    n_max = options.n_max
+    targ = torch.arange(n_max, device=out_r.eig.device) < options.n_targ
+    eig_match = float(torch.where(targ, (out_r.eig - out_l.eig).abs(),
+                                  0.0).max()) <= options.tol
+    ok = out_r.ok and out_l.ok and eig_match
+    # The reference calls svd_biortho here, but the overlap of converged
+    # eigenpairs is near +/-identity, so its singular values are degenerate
+    # and the SVD rotates inside the cluster, scrambling the eigenvalue <->
+    # vector pairing.  The pairing-preserving equivalent is a solve:
+    # evec_l <- O^{-1} evec_l (QR of the overlap, then a triangular solve)
+    # gives evec_l @ evec_r^T = I, perturbing each vector at the size of
+    # its residual.
+    overlap = mmT(out_l.evec, out_r.evec)
+    q, r_ = torch.linalg.qr(overlap)
+    evec_l = torch.linalg.solve_triangular(r_, mTm(q, out_l.evec),
+                                           upper=True)
+    return NonsymResult(
+        eig=out_l.eig, evec_r=out_r.evec, evec_l=evec_l, ok=ok,
+        n_iter=out_r.n_iter + out_l.n_iter,
+        n_matvec=out_r.n_matvec + out_l.n_matvec,
+        done=out_l.done,
+        rms_history_r=out_r.rms_h, max_history_r=out_r.max_h,
+        rms_history_l=out_l.rms_h, max_history_l=out_l.max_h,
+        eig_history=out_l.eig_h,
+        ortho_ok=out_r.ortho_ok and seed_ok and out_l.ortho_ok)
+
+
+def nonsym_pass(matvec, precnd, evec_guess: torch.Tensor,
+                options: SolverOptions, *, use_left: bool = False,
+                generator: torch.Generator | None = None,
+                driver: str = "auto") -> NonsymPassResult:
+    """One one-sided Davidson pass as a public building block.
+
+    ``matvec`` is the operator of this side (A for right, A^T for left),
+    ``use_left`` a plain bool.  With :func:`nonsym_seed_left` and
+    :func:`nonsym_finalize` as the glue it reproduces ``nonsym(side='c')``.
+    Returns a :class:`NonsymPassResult` (``eig`` has ``options.shift``
+    removed).
+    """
+    if not isinstance(use_left, (bool, np.bool_)):
+        raise TypeError("use_left must be a bool")
+    _check_driver(driver)
+    with routing_for(options, "nonsym"):
+        return _nonsym_pass(matvec, precnd, evec_guess, options,
+                            use_left=bool(use_left), generator=generator)
+
+
+def nonsym_finalize(res_r: NonsymPassResult, res_l: NonsymPassResult,
+                    options: SolverOptions, seed_ok=None) -> NonsymResult:
+    """Consecutive-mode finalize over two one-sided pass results (right,
+    then left seeded by :func:`nonsym_seed_left`): the eigenvalue
+    cross-check and the pairing-preserving biorthonormalization that
+    ``nonsym(side='c')`` applies.  ``seed_ok`` is ANDed into ``ortho_ok``
+    when given."""
+    with routing_for(options, "nonsym"):
+        return _consecutive_result(res_r, res_l,
+                                   True if seed_ok is None else bool(seed_ok),
+                                   options)

@@ -18,7 +18,8 @@ import torch
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 PrecndFn = Callable[[float, torch.Tensor], torch.Tensor]
 
-__all__ = ["MatVec", "PrecndFn", "SolverOptions", "SolverResult"]
+__all__ = ["MatVec", "PrecndFn", "SolverOptions", "SolverResult",
+           "NonsymResult"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,5 +92,38 @@ class SolverResult:
     done: torch.Tensor
     rms_history: torch.Tensor
     max_history: torch.Tensor
+    eig_history: torch.Tensor
+    ortho_ok: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class NonsymResult:
+    """Result of the two-sided nonsymmetric Davidson (``nonsym``).
+
+    eig:    (n_max,) eigenvalues, ascending real parts (shift removed).
+    evec_r / evec_l: (n_max, n) right / left eigenvector rows (zeros for
+            the side a one-sided run does not compute); after a
+            consecutive run evec_l @ evec_r^T = I.
+    ok:     True if the first n_targ roots converged (on both sides, with
+            matching eigenvalues, for the consecutive sides).
+    n_iter / n_matvec: summed over the passes.
+    done:   (n_max,) converged flags of the last pass.
+    rms_history_r / max_history_r / rms_history_l / max_history_l:
+            (max_iter, n_max) residual tables of each side's pass.
+    eig_history: (max_iter, n_max) eigenvalues of the last pass.
+    ortho_ok: as in :class:`SolverResult`.
+    """
+
+    eig: torch.Tensor
+    evec_r: torch.Tensor
+    evec_l: torch.Tensor
+    ok: bool
+    n_iter: int
+    n_matvec: int
+    done: torch.Tensor
+    rms_history_r: torch.Tensor
+    max_history_r: torch.Tensor
+    rms_history_l: torch.Tensor
+    max_history_l: torch.Tensor
     eig_history: torch.Tensor
     ortho_ok: bool

@@ -26,7 +26,7 @@ N = 1000
 
 @pytest.fixture(scope="module")
 def matrix():
-    a = symm_matrix(N)
+    a = symm_matrix(N, device="cpu")
     np.testing.assert_array_equal(a.numpy(), np.asarray(j_symm_matrix(N)))
     return a
 

@@ -259,5 +259,15 @@ def test_gen_david_ladder_matches_reference():
 
 
 def test_sliced_matvec_any_refuses_the_general_store():
-    with pytest.raises(NotImplementedError, match="K5"):
+    """Since kernel K5 is ported the general store is served (its matvec
+    equals sliced_bsr_matvec's); only an object that is no sliced store is
+    refused."""
+    from diaglib_tpu_torch.ops.bsr import random_bsr_spd
+    from diaglib_tpu_torch.ops.bsr_sliced import slice_bsr, sliced_bsr_matvec
+
+    store = slice_bsr(random_bsr_spd(256, 64, 3, seed=1, device="cpu"))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 256)))
+    assert torch.equal(sliced_matvec_any(store)(x),
+                       sliced_bsr_matvec(store)(x))
+    with pytest.raises(TypeError, match="not a sliced store"):
         sliced_matvec_any(object())

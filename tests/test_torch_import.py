@@ -22,7 +22,8 @@ def test_port_covers_the_slice_modules():
                  "ops.bsr_sliced", "ops.bsr_sliced_sym", "ops._build",
                  "ortho.core", "utils.guess", "utils.masking",
                  "utils.reduced", "utils.mm", "solvers.davidson",
-                 "solvers.lobpcg", "solvers.mixed"):
+                 "solvers.lobpcg", "solvers.mixed", "solvers.nonsym",
+                 "_device"):
         assert f"diaglib_tpu_torch.{name}" in mods, name
 
 
@@ -47,5 +48,6 @@ def test_import_pulls_in_no_jax():
 def test_kernel_sources_ship_with_the_package():
     csrc = Path(diaglib_tpu_torch.__file__).parent / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "peel.cu", "sym_spmm.cu", "wide_mm.cu", "bsr_spmm.cu"}
+        "peel.cu", "sym_spmm.cu", "wide_mm.cu", "bsr_spmm.cu",
+        "sliced_spmm.cu"}
     assert (csrc / "peel.cuh").is_file()

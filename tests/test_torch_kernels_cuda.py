@@ -5,9 +5,10 @@ no JAX, so they also run where only the port's dependencies are installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-The peel (K2), the symmetric sliced SpMM (K1) and the wide-rotation
-product (K3) must be bitwise equal to their plain versions (integer planes
-and level sums; K3 also combines its levels in the plain version's order);
+The peel (K2), the symmetric sliced SpMM (K1), the general sliced SpMM
+(K5) and the wide-rotation product (K3) must be bitwise equal to their
+plain versions (integer planes and level sums; K3 also combines its levels
+in the plain version's order);
 the float64 matvec and K3 are held to float64 oracles at 1e-14 max|y|.
 The plain BSR SpMM (K4) sums in another order than its plain version:
 float32 within 1e-5 max|y| (the reference's kernel bound), bfloat16 within
@@ -26,7 +27,14 @@ from diaglib_tpu_torch.ops.bsr import (
     bsr_to_dense,
     random_bsr_spd,
 )
-from diaglib_tpu_torch.ops.bsr_sliced import _slice_x
+from diaglib_tpu_torch.ops.bsr_sliced import (
+    _slice_x,
+    _tier_params,
+    slice_bsr,
+    sliced_bsr_matvec,
+    sliced_spmm,
+    sliced_spmm_plain,
+)
 from diaglib_tpu_torch.ops.bsr_sliced_sym import (
     slice_bsr_sym,
     sym_sliced_matvec,
@@ -208,3 +216,70 @@ def test_bsr_spmm_empty_block_row(dev):
     ref = x.double() @ dense.double().to(dev).T
     assert float((y.double() - ref).abs().max()) <= 1e-5 * float(
         ref.abs().max())
+
+
+def _k5_stores(dev):
+    """A store with several entries a block row, the band store of T, and
+    a store with empty block rows (no padding entries)."""
+    from diaglib_tpu_torch.problems import _band_bsr
+
+    multi = slice_bsr(random_bsr_spd(1024, 64, 5, seed=9, device=dev))
+    band = slice_bsr(_band_bsr(1024, 128, 10, 0.01, device=dev))
+    B = 64
+    dense = torch.zeros((8 * B, 8 * B))
+    g = torch.Generator().manual_seed(11)
+    for r, c in ((0, 0), (0, 5), (2, 2), (3, 1), (5, 7), (7, 7)):
+        dense[r * B:(r + 1) * B, c * B:(c + 1) * B] = torch.randn(
+            (B, B), generator=g)
+    m = bsr_from_dense(dense.to(dev), B)
+    keep = (m.blocks_t != 0).flatten(1).any(dim=1)
+    rows = m.rows[keep]
+    bare = BSRMatrix(m.blocks_t[keep].contiguous(), rows,
+                     m.cols[keep].contiguous(),
+                     torch.searchsorted(rows, torch.arange(
+                         8, dtype=torch.int32, device=dev)).to(torch.int32),
+                     m.n, B)
+    return {"multi": multi, "band": band, "empty_rows": slice_bsr(bare)}
+
+
+@pytest.mark.parametrize("k", [10, 17])
+@pytest.mark.parametrize("tier", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["multi", "band", "empty_rows"])
+def test_sliced_spmm_bit_equal(dev, which, tier, k):
+    st = _k5_stores(dev)[which]
+    nx, na, nlev = _tier_params(st.na, tier, None, None)
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn((k, st.n), generator=g, dtype=torch.float64, device=dev)
+    xs, _ = _slice_x(x.to(tier), nx)
+    args = (xs, st.slices, st.rows, st.cols, st.row_start)
+    before = sliced_spmm.launches
+    got = sliced_spmm(*args, nx=nx, na=na, nlev=nlev)
+    torch.cuda.synchronize()
+    assert sliced_spmm.launches == before + 1
+    want = sliced_spmm_plain(*args, nx=nx, na=na, nlev=nlev)
+    assert bool(want.ne(0).any())
+    assert torch.equal(got, want)
+    if which == "empty_rows":             # rows 1, 4, 6 write zeros
+        lv = got.reshape(nlev, k, 8, 64)
+        assert not bool(lv[:, :, [1, 4, 6]].ne(0).any())
+
+
+def test_general_f64_matvec_matches_dense(dev):
+    m = random_bsr_spd(2048, 256, 4, seed=4, dtype=torch.float32, device=dev)
+    dense = bsr_to_dense(m).double()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((15, 2048), generator=g, dtype=torch.float64, device=dev)
+    y = sliced_bsr_matvec(slice_bsr(m))(x)
+    ref = x @ dense.T
+    assert float((y - ref).abs().max()) <= 1e-14 * float(ref.abs().max())
+
+
+def test_sliced_spmm_checks_its_inputs(dev):
+    st = _k5_stores(dev)["multi"]
+    xs = torch.zeros((8 * 2, st.n), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):        # int64 column indices
+        sliced_spmm(xs, st.slices, st.rows, st.cols.long(), st.row_start,
+                    nx=8, na=8, nlev=9)
+    with pytest.raises(ValueError):        # more levels than the kernel has
+        sliced_spmm(xs, st.slices, st.rows, st.cols, st.row_start, nx=8,
+                    na=8, nlev=10)

@@ -180,7 +180,7 @@ def test_routing_for_resolves_like_the_reference(driver, mode):
 
 
 def test_wide_mm_always_runs_and_leaves_the_cpu_solve_unchanged():
-    a = symm_matrix(300)
+    a = symm_matrix(300, device="cpu")
     guess = torch.from_numpy(_rng(1).uniform(-0.5, 0.5, (6, 300)))
     res = {}
     for mode in ("always", "never"):
