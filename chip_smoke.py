@@ -27,9 +27,13 @@ Phases (any failure raises and the script exits non-zero):
    torch.sparse_bsr_tensor product; the general sliced SpMM (K5) bit for
    bit, both tiers, on the general store at k = 15 (15 entries a block
    row) and on the T band store at k = 10 (one entry a row, the
-   nonsymmetric ladder's shape); and the float64 symmetric and general
-   sliced matvecs against a dense float64 oracle at n = 2048 (1e-14
-   max|y|);
+   nonsymmetric ladder's shape); the distributed group SpMM (K6) bit for
+   bit, both tiers, at k = 15 on every group of every rank of the 4-way
+   partition of the general store and of a small irregular store at
+   B = 512 with padding entries and uncovered rows, and checked and timed
+   at the main path's shape (one rank, one group of 1920 entries); and the
+   float64 symmetric and general sliced matvecs against a dense float64
+   oracle at n = 2048 (1e-14 max|y|);
 5. ladders at full width (10 roots, tol 1e-10, max_dav 10, zero guess from
    a seeded generator), each run once to warm up and once with every
    kernel's launch count set to 0 just before and read just after:
@@ -42,7 +46,13 @@ Phases (any failure raises and the script exits non-zero):
        under wide_mm="auto" and once more under "never": eigenvalues within
        1e-10, iterations within 2;
    (e) nonsym_ladder, side "c", on R = E_- S E_+ (n_max 10, max_iter 150,
-       lo_tol 2e-6, lo_iter 60).
+       lo_tol 2e-6, lo_iter 60);
+   (f) under a one-rank NCCL process group (parallel.multihost.initialize,
+       an explicit tcp:// rendezvous on the loopback), davidson_ladder with
+       sharding= over dist_sliced_matvec of the general store, both tiers
+       (K6 under every matvec; n_max 15, lo_iter 35), then the unsharded
+       davidson_ladder over sliced_bsr_matvec of the same store (K5): the
+       same iteration and matvec counts, eigenvalues within 1e-12.
    Each returned set of 10 pairs must be ok, with residuals recomputed by
    plain float64 BSR products of the original blocks: rms < 1e-10, max <
    1e-9 (A x - lambda B x for (b), whose vectors must also be B-orthonormal
@@ -50,8 +60,8 @@ Phases (any failure raises and the script exits non-zero):
    vectors must be biorthonormal to 1e-10 and whose eigenvalues must lie
    within 1e-7 of (d)'s, R being similar to S);
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
-   the timed runs of 5 and each kernel's times and bound; every kernel must
-   have run there.
+   the timed runs of 5 and each kernel's times and bound; every kernel (six)
+   must have run there.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -337,6 +347,126 @@ def check_kernel_k5(stores, dev, card, stats, max_err):
                 f"({b_by}) (median, {card})")
 
 
+def _irregular_store(dev):
+    """A general store at B = 512 (n = 8192) whose 4-way partition has
+    ring-offset groups of uneven counts: padding entries and rows a group
+    does not cover (the reference's padded pattern, scaled up)."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops.bsr import BSRMatrix
+
+    nbr = 16
+    pattern = sorted({(r, r) for r in range(nbr)} | {
+        (0, 4), (1, 5), (8, 12), (2, 15), (13, 0), (6, 14), (7, 9)})
+    rows = torch.tensor([p[0] for p in pattern], dtype=torch.int32,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    blocks = torch.randn((len(pattern), BLOCK, BLOCK), generator=g,
+                         device=dev)
+    m = BSRMatrix(blocks, rows, torch.tensor([p[1] for p in pattern],
+                                             dtype=torch.int32, device=dev),
+                  torch.searchsorted(rows, torch.arange(
+                      nbr, dtype=torch.int32, device=dev)).to(torch.int32),
+                  nbr * BLOCK, BLOCK)
+    return bs.slice_bsr(m)
+
+
+def check_kernel_k6(general, dev, card, stats, max_err):
+    """K6 against its plain version, bit for bit, both tiers, at k = 15 on
+    every group of every rank of the 4-way partitions of the general store
+    and of the irregular store; then, bit for bit and timed, at the main
+    path's shape."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops import dist_sliced as dsl
+
+    k = N_MAX
+    for tag, st in (("general", general), ("irregular", _irregular_store(
+            dev))):
+        t0 = time.perf_counter()
+        part = dsl.distribute_sliced_bsr(st, 4)
+        torch.cuda.synchronize()
+        nbr_loc, n_loc = part.nbr_loc, part.n_local
+        counts = [int((lr < nbr_loc).sum(dim=1).max()) for lr in
+                  part.loc_rows]
+        padded = sum(int((lr == nbr_loc).sum()) for lr in part.loc_rows)
+        uncovered = sum(int((torch.bincount(lr[r][lr[r] < nbr_loc].long(),
+                                            minlength=nbr_loc) == 0).sum())
+                        for lr in part.loc_rows for r in range(4))
+        log(f"[kernels] group_spmm {tag} 4-way partition ("
+            f"{time.perf_counter() - t0:.2f} s): steps {list(part.steps)}, "
+            f"entries a rank {[lr.shape[1] for lr in part.loc_rows]} (most "
+            f"real {counts}), {padded} padding entries, {uncovered} "
+            f"uncovered (rank, group, row)")
+        if tag == "irregular" and not (padded and uncovered):
+            raise AssertionError("the irregular partition lost its padding "
+                                 "entries or its uncovered rows")
+        g = torch.Generator(device=dev).manual_seed(8)
+        x = torch.randn((k, st.n), generator=g, dtype=torch.float64,
+                        device=dev)
+        for tier, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            nx, na, nlev = bs._tier_params(st.na, dt, None, None)
+            for i, s in enumerate(part.steps):
+                for r in range(4):
+                    src = (r + s) % 4
+                    xs, _ = bs._slice_x(x[:, src * n_loc:(src + 1) * n_loc]
+                                        .to(dt), nx)
+                    args = (xs, part.slices[i][r], part.loc_rows[i][r],
+                            part.loc_cols[i][r])
+                    kw = dict(nx=nx, na=na, nlev=nlev, nbr_loc=nbr_loc)
+                    got = dsl.group_spmm(*args, **kw)
+                    want = dsl.group_spmm_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = float((got.long() - want.long()).abs().max())
+                    max_err["group_spmm"] = max(max_err["group_spmm"], err)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"group_spmm kernel != plain ({tag} {tier}, "
+                            f"rank {r}, s={s}), max {err}")
+            log(f"[kernels] group_spmm {tag} {tier}: kernel == plain on all "
+                f"{4 * len(part.steps)} groups")
+        del part
+
+    # the main path's shape: one rank, one group of every entry
+    one = dsl.distribute_sliced_bsr(general, 1, rank=0)
+    sl, lr, lc = one.slices[0], one.loc_rows[0], one.loc_cols[0]
+    row_start = dsl.group_row_start(lr, one.nbr_loc)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((k, N), generator=g, dtype=torch.float64, device=dev)
+    for tier, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        nx, na, nlev = bs._tier_params(general.na, dt, None, None)
+        xs, _ = bs._slice_x(x.to(dt), nx)
+        kw = dict(nx=nx, na=na, nlev=nlev, nbr_loc=one.nbr_loc)
+        got = dsl.group_spmm(xs, sl, lr, lc, **kw, row_start=row_start)
+        want = dsl.group_spmm_plain(xs, sl, lr, lc, **kw)
+        torch.cuda.synchronize()
+        err = float((got.long() - want.long()).abs().max())
+        max_err["group_spmm"] = max(max_err["group_spmm"], err)
+        if not (torch.equal(got, want) and bool(want.ne(0).any())):
+            raise AssertionError(f"group_spmm kernel != plain (main path "
+                                 f"{tier}), max {err}")
+        del got, want
+        p = sl.shape[0]
+        # bound: the used planes, x's planes and the levels (padding row
+        # included) once each
+        stats["group_spmm"][tier] = (
+            time_ms(lambda: dsl.group_spmm(xs, sl, lr, lc, **kw,
+                                           row_start=row_start), 10),
+            time_ms(lambda: dsl.group_spmm_plain(xs, sl, lr, lc, **kw), 3),
+            *bound(p * BLOCK * na * BLOCK + xs.numel()
+                   + nlev * k * (one.nbr_loc + 1) * BLOCK * 4,
+                   2 * n_pairs(nx, na, nlev) * p * k * BLOCK * BLOCK,
+                   INT8_OPS))
+        ms, plain, b_ms, b_by = stats["group_spmm"][tier]
+        log(f"[kernels] group_spmm main path (1 rank, {p} entries, "
+            f"nbr_loc {one.nbr_loc}) k={k} {tier}: kernel == plain, kernel "
+            f"{ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (median, "
+            f"{card})")
+
+
 def check_small_matvecs(dev):
     """The float64 symmetric and general sliced matvecs against a dense
     float64 oracle at n = 2048."""
@@ -437,6 +567,55 @@ def check_nonsym_pairs(tag, res, s_bsr, t_bsr, tt_bsr, eig_sym):
         raise AssertionError(f"{tag}: the returned pairs fail the checks")
 
 
+def sharded_vs_unsharded(general, m, timed, guess, opts, card,
+                         backend=None):
+    """Phase 5(f): davidson_ladder with ``sharding=`` over
+    dist_sliced_matvec under a one-rank process group (NCCL on the card),
+    then the unsharded ladder over sliced_bsr_matvec (K5) on the same
+    store: both checked by plain products, with the same counts and
+    eigenvalues within 1e-12."""
+    import torch
+    import torch.distributed as dist
+
+    from diaglib_tpu_torch import davidson_ladder
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops import dist_sliced as dsl
+    from diaglib_tpu_torch.parallel import multihost
+    from diaglib_tpu_torch.problems import diag_precnd
+
+    f32 = torch.float32
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                         backend=backend)
+    try:
+        sh = multihost.global_sharding(general.n)
+        log(f"[sharded] {sh} on {dist.get_backend()} "
+            f"{multihost.rank_device()}")
+        one = dsl.distribute_sliced_bsr(general, 1, rank=sh.rank)
+        d_lo = diag_precnd(one.diagonal.to(f32))
+        d_hi = diag_precnd(one.diagonal)
+        rs, ws = timed("sharded davidson_ladder", lambda gen: davidson_ladder(
+            dsl.dist_sliced_matvec(one, sh, dtype=f32), d_lo,
+            dsl.dist_sliced_matvec(one, sh), d_hi, guess, opts, lo_tol=2e-6,
+            lo_iter=35, generator=gen, sharding=sh))
+        check_pairs("sharded davidson_ladder", rs, m)
+    finally:
+        dist.destroy_process_group()
+    ru, wu = timed("K5 davidson_ladder", lambda gen: davidson_ladder(
+        bs.sliced_bsr_matvec(general, dtype=f32), d_lo,
+        bs.sliced_bsr_matvec(general), d_hi, guess, opts, lo_tol=2e-6,
+        lo_iter=35, generator=gen))
+    check_pairs("K5 davidson_ladder", ru, m)
+    d_eig = float((rs.eig[:N_TARG] - ru.eig[:N_TARG]).abs().max())
+    log(f"[sharded] one-rank sharded vs unsharded: eigenvalues {d_eig:.3e} "
+        f"apart, iterations {rs.n_iter} vs {ru.n_iter}, matvecs "
+        f"{rs.n_matvec} vs {ru.n_matvec}, wall {ws:.3f} vs {wu:.3f} s "
+        f"({card})")
+    if not (d_eig <= 1e-12 and rs.n_iter == ru.n_iter
+            and rs.n_matvec == ru.n_matvec):
+        raise AssertionError("the one-rank sharded ladder and the unsharded "
+                             "one disagree")
+
+
 def main():
     import torch
 
@@ -472,6 +651,7 @@ def main():
     )
     from diaglib_tpu_torch.ops import _build, bsr, slicing
     from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops import dist_sliced as dsl
     from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
     from diaglib_tpu_torch.ops.bsr import random_bsr_spd
     from diaglib_tpu_torch.problems import (
@@ -542,16 +722,17 @@ def main():
                              "bsr_nonsym_similarity's (S, T, T^T)")
 
     # ---- 4. kernels against their plain versions ----
-    stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_spmm": {}}
+    stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_spmm": {},
+             "group_spmm": {}}
     max_err = {"peel_rows": 0.0, "sym_spmm": 0.0, "sliced_wide_mm": 0.0,
-               "bsr_spmm": 0.0, "sliced_spmm": 0.0}
+               "bsr_spmm": 0.0, "sliced_spmm": 0.0, "group_spmm": 0.0}
     check_kernels_k1_k2(store, dev, card, stats, max_err)
     check_kernel_k3(dev, card, stats, max_err)
     check_kernel_k4(m, dev, card, stats, max_err)
     check_kernel_k5((("T band", ns_stores[1], NS_MAX),
                      ("general", general, N_MAX)), dev, card, stats,
                     max_err)
-    del general
+    check_kernel_k6(general, dev, card, stats, max_err)
     check_small_matvecs(dev)
 
     # ---- 5. the ladders ----
@@ -559,7 +740,8 @@ def main():
                 "sym_spmm": sym.sym_spmm,
                 "sliced_wide_mm": slicing.sliced_wide_mm,
                 "bsr_spmm": bsr.bsr_spmm,
-                "sliced_spmm": bs.sliced_spmm}
+                "sliced_spmm": bs.sliced_spmm,
+                "group_spmm": dsl.group_spmm}
     launches = dict.fromkeys(counters, 0)
     opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
                          tol=1e-10, max_dav=10)
@@ -657,6 +839,11 @@ def main():
         ns_guess, ns_opts, side="c", lo_tol=2e-6, lo_iter=60,
         generator=gen))
     check_nonsym_pairs("nonsym_ladder", res, m, t_bsr, tt_bsr, ra.eig)
+    del ns_stores, ns_lo, ns_hi
+
+    # (f) the sharded ladder over the distributed sliced operator (K6)
+    sharded_vs_unsharded(general, m, timed, guess, opts, card)
+    del general
 
     # ---- 6. kernel usage ----
     sources = {
@@ -670,13 +857,15 @@ def main():
                      "diaglib_tpu/ops/bsr.py:138"),
         "sliced_spmm": ("diaglib_tpu_torch/csrc/sliced_spmm.cu",
                         "diaglib_tpu/ops/bsr_sliced.py:167"),
+        "group_spmm": ("diaglib_tpu_torch/csrc/group_spmm.cu",
+                       "diaglib_tpu/ops/dist_sliced.py:135"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max_err[name]}
-        if name in ("peel_rows", "sym_spmm"):
+        if name in ("peel_rows", "sym_spmm", "group_spmm"):
             (ms, plain, b_ms, b_by), (ms32, plain32, b32, _) = (
                 stats[name]["f64"], stats[name]["f32"])
             entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,

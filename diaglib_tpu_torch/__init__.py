@@ -9,12 +9,20 @@ operator.  Plain tensor code is PyTorch; the kernels are CUDA C++ in
 (``ops.slicing.peel_rows``), the symmetric sliced SpMM
 (``ops.bsr_sliced_sym.sym_spmm``), the exact wide-rotation product
 (``ops.slicing.sliced_wide_mm``), the plain BSR SpMM
-(``ops.bsr.bsr_spmm``) and the general sliced SpMM
-(``ops.bsr_sliced.sliced_spmm``).  On CPU tensors they run their plain
-torch versions.  The problem generators make their tensors on the CUDA device unless
-the caller names another.
+(``ops.bsr.bsr_spmm``), the general sliced SpMM
+(``ops.bsr_sliced.sliced_spmm``) and the distributed group SpMM
+(``ops.dist_sliced.group_spmm``).  On CPU tensors they run their plain
+torch versions.  The problem generators make their tensors on the CUDA
+device unless the caller names another.
+
+The symmetric drivers and their ladders also run sharded over a
+``torch.distributed`` group (``sharding=`` a
+:class:`~diaglib_tpu_torch.parallel.VectorSharding`; NCCL on the cards,
+gloo on the CPU when asked), with the distributed BSR and sliced operators
+of ``ops.dist_bsr`` / ``ops.dist_sliced`` as their matvecs.
 """
 
+from . import ops, ortho, parallel, solvers, utils
 from .ops.bsr import bsr_from_dense, bsr_matvec
 from .solvers import (
     NonsymPassResult,

@@ -236,47 +236,94 @@ _PLAIN_CHUNK = 32   # entries per batched product in sliced_spmm_plain
 
 
 def sliced_spmm_plain(xs, slices, rows, cols, row_start, *, nx: int,
-                      na: int, nlev: int) -> torch.Tensor:
+                      na: int, nlev: int, n_out: int | None = None
+                      ) -> torch.Tensor:
     """The plain torch version of kernel K5: the int32 level sums
-    ``(nlev*k, n)`` of the general store.
+    ``(nlev*k, n_out)`` of the general store.
 
     ``xs`` (nx*k, n) int8 x planes; ``slices`` (m, B, width*B) int8, of
     which the leading ``na`` planes are used; ``rows``/``cols`` (m,) block
-    coordinates (``row_start`` is the kernel's; the plain version does not
-    need it).  Pair (x plane ix, stored plane i) of entry e goes to level
-    i + ix of block row rows[e] when that is below nlev.  The products are
-    float64 matmuls of the planes, exact because every partial sum is an
-    integer below 2^53.
+    coordinates of the output and of x (``row_start`` is the kernel's; the
+    plain version does not need it); ``n_out`` the output's width (x's by
+    default; kernel K6 writes one more block row).  Pair (x plane ix,
+    stored plane i) of entry e goes to level i + ix of block row rows[e]
+    when that is below nlev; rows no entry covers are zero.  The products
+    are float64 matmuls of the planes, exact because every partial sum is
+    an integer below 2^53.
     """
     m, B = slices.shape[0], slices.shape[1]
     n = xs.shape[1]
+    n_out = n if n_out is None else n_out
     k = xs.shape[0] // nx
-    nbr = n // B
     f64 = torch.float64
-    xb = xs.reshape(nx * k, nbr, B)
-    lev = torch.zeros((nlev, k, nbr, B), dtype=f64, device=xs.device)
+    xb = xs.reshape(nx * k, n // B, B)
+    lev = torch.zeros((nlev, k, n_out // B, B), dtype=f64, device=xs.device)
     for s in range(0, m, _PLAIN_CHUNK):
         e = slice(s, s + _PLAIN_CHUNK)
         t = slices[e, :, :na * B].to(f64)                  # (E, B, na*B)
         xc = xb[:, cols[e].long(), :].permute(1, 0, 2).to(f64)
         prod = (xc @ t).reshape(t.shape[0], nx, k, na, B)
         _fold(lev, prod, rows[e].long(), nx, na, nlev, 0)
-    return lev.reshape(nlev * k, n).to(torch.int32)
-
-
-def _spmm_lib():
-    lib = _build.library("sliced_spmm")
-    if not getattr(lib, "_typed", False):
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sliced_spmm.argtypes = [p, p, p, p, p] + [i32] * 8 + [p]
-        lib.sliced_spmm.restype = i32
-        lib.sliced_spmm_error_string.argtypes = [i32]
-        lib.sliced_spmm_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+    return lev.reshape(nlev * k, n_out).to(torch.int32)
 
 
 _SMEM_MAX = 232448   # dynamic shared memory a block may use on Hopper
+
+
+def _launch_level_sums(wrapper, xs, slices, cols, row_start, *, nx: int,
+                       na: int, nlev: int, n_out: int) -> torch.Tensor:
+    """Check the arguments of kernel K5 or K6, which share their device
+    code and C interface, and launch the kernel of ``wrapper``
+    (:func:`sliced_spmm` or ``dist_sliced.group_spmm``: the library, its
+    entry and the launch count are named after it) on CUDA tensors;
+    returns the ``(nlev*k, n_out)`` int32 level sums.  Raises ValueError
+    on arguments the kernel would misread and RuntimeError when the
+    launch fails."""
+    kernel = wrapper.__name__
+    for name, t, dt in (("xs", xs, torch.int8), ("slices", slices, torch.int8),
+                        ("cols", cols, torch.int32),
+                        ("row_start", row_start, torch.int32)):
+        if t.device != xs.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
+                             f"tensor on {xs.device}")
+    m, B = slices.shape[0], slices.shape[1]
+    width = slices.shape[2] // B if B else 0
+    n = xs.shape[-1]
+    k = xs.numel() // (nx * n) if n and nx > 0 else 0
+    smem = nx * 16 * B + 64 * (B + 16)
+    if (B <= 0 or B % 64 or B > 1024 or n % B or n_out % B or xs.ndim != 2
+            or slices.ndim != 3 or slices.shape[2] != width * B
+            or xs.numel() != nx * k * n or cols.shape != (m,)
+            or row_start.shape != (n_out // B,)
+            or not 0 < nx <= 8 or not 0 < na <= min(width, 8)
+            or not 0 < nlev <= 9 or smem > _SMEM_MAX
+            or xs.data_ptr() % 16 or slices.data_ptr() % 16
+            or max(n, n_out, m, nlev * k) >= 2 ** 31):
+        raise ValueError(
+            f"{kernel}: unsupported shapes xs={tuple(xs.shape)} "
+            f"slices={tuple(slices.shape)} n_out={n_out} nx={nx} na={na} "
+            f"nlev={nlev}")
+    acc = torch.empty((nlev * k, n_out), dtype=torch.int32, device=xs.device)
+    if k == 0:
+        return acc
+    lib = _build.library(kernel)
+    fn = getattr(lib, kernel)
+    err_string = getattr(lib, f"{kernel}_error_string")
+    if not getattr(lib, "_typed", False):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p] + [i32] * 9 + [p]
+        fn.restype = i32
+        err_string.argtypes = [i32]
+        err_string.restype = ctypes.c_char_p
+        lib._typed = True
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    err = fn(xs.data_ptr(), slices.data_ptr(), cols.data_ptr(),
+             row_start.data_ptr(), acc.data_ptr(), m, k, n, n_out, B, width,
+             nx, na, nlev, stream)
+    if err:
+        raise RuntimeError(f"{kernel} kernel: {err_string(err).decode()}")
+    wrapper.launches += 1
+    return acc
 
 
 def sliced_spmm(xs, slices, rows, cols, row_start, *, nx: int, na: int,
@@ -293,40 +340,8 @@ def sliced_spmm(xs, slices, rows, cols, row_start, *, nx: int, na: int,
                                  na=na, nlev=nlev)
     if xs.device.type != "cuda":
         raise ValueError(f"sliced_spmm: unsupported device {xs.device}")
-    for name, t, dt in (("xs", xs, torch.int8), ("slices", slices, torch.int8),
-                        ("cols", cols, torch.int32),
-                        ("row_start", row_start, torch.int32)):
-        if t.device != xs.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"sliced_spmm: {name} must be a contiguous {dt} "
-                             f"tensor on {xs.device}")
-    m, B = slices.shape[0], slices.shape[1]
-    width = slices.shape[2] // B if B else 0
-    n = xs.shape[-1]
-    k = xs.numel() // (nx * n) if n and nx > 0 else 0
-    nbr = n // B if B else 0
-    smem = nx * 16 * B + 64 * (B + 16)
-    if (B <= 0 or B % 64 or B > 1024 or n % B or xs.ndim != 2
-            or slices.shape[2] != width * B or xs.numel() != nx * k * n
-            or cols.shape != (m,) or row_start.shape != (nbr,)
-            or not 0 < nx <= 8 or not 0 < na <= min(width, 8)
-            or not 0 < nlev <= 9 or smem > _SMEM_MAX
-            or max(n, m, nlev * k) >= 2 ** 31):
-        raise ValueError(
-            f"sliced_spmm: unsupported shapes xs={tuple(xs.shape)} "
-            f"slices={tuple(slices.shape)} nx={nx} na={na} nlev={nlev}")
-    acc = torch.empty((nlev * k, n), dtype=torch.int32, device=xs.device)
-    if k == 0:
-        return acc
-    lib = _spmm_lib()
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = lib.sliced_spmm(xs.data_ptr(), slices.data_ptr(), cols.data_ptr(),
-                          row_start.data_ptr(), acc.data_ptr(), m, k, n, B,
-                          width, nx, na, nlev, stream)
-    if err:
-        raise RuntimeError(
-            f"sliced_spmm kernel: {lib.sliced_spmm_error_string(err).decode()}")
-    sliced_spmm.launches += 1
-    return acc
+    return _launch_level_sums(sliced_spmm, xs, slices, cols, row_start,
+                             nx=nx, na=na, nlev=nlev, n_out=xs.shape[-1])
 
 
 sliced_spmm.launches = 0

@@ -18,7 +18,11 @@ ladders and tolerances.
 
 The projections and rotations go through ``utils.mm``, so on the card
 their float64 wide products take the wide-rotation kernel when the
-solver's routing has it on.
+solver's routing has it on.  Under ``utils.mm.mm_sharding`` the blocks are
+column shards: every reduction over n (the Gram products of ``mmT``, the
+norms of ``ortho_cd`` and ``b_ortho``) is all-reduced, ``ortho_qr``
+factors the all-gathered block and keeps its own columns, and
+``norm_est``, which works on reduced matrices, reduces nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import math
 import torch
 
 from ..utils.masking import masked_cholesky, masked_svd
-from ..utils.mm import mm, mmT, mTm
+from ..utils.mm import current_sharding, mm, mmT, mTm, norm_n, sum_n
 
 __all__ = ["norm_est", "ortho_cd", "ortho_qr", "ortho_vs_x", "b_ortho",
            "b_ortho_svd", "b_ortho_vs_x", "svd_biortho", "biortho_vs_x"]
@@ -97,7 +101,7 @@ def ortho_cd(u: torch.Tensor, mask=None, max_iter: int = _MAXIT):
     it = 0
     while not done and it < max_iter:
         metric = mmT(u, u)
-        unorm = float(torch.sqrt((u * u).sum()))
+        unorm = float(torch.sqrt(sum_n(u * u)))
         L, failed = _shifted_cholesky(metric, mask, unorm, dtype)
         linv = torch.linalg.solve_triangular(L, eye, upper=False)
         l_norm = float(norm_est(L, mask))
@@ -127,11 +131,16 @@ def ortho_qr(u: torch.Tensor, mask=None, extra=None):
     (e.g. A@U with the same masked rows) the same transform R^{-1} is
     applied to it and ``(q, extra_q)`` is returned.
     """
-    k, n = u.shape
+    k = u.shape[0]
     mask = _rowmask(mask, k, u.device)
+    # sharded: every rank factors the same gathered block (the rare
+    # fallback path, bit-equal to the unsharded QR) and keeps its columns
+    sh = current_sharding()
+    full = u if sh is None else sh.all_gather(u)
+    n = full.shape[1]
     perm = torch.argsort((~mask).to(torch.int8), stable=True)
     inv_perm = torch.argsort(perm, stable=True)
-    u_p = u[perm]
+    u_p = full[perm]
     # masked (now trailing) rows become unit vectors so the QR stays
     # well-posed; they never influence the leading (valid) Q columns
     basis = torch.nn.functional.one_hot(
@@ -141,6 +150,8 @@ def ortho_qr(u: torch.Tensor, mask=None, extra=None):
     q, r = torch.linalg.qr(u_p.T, mode="reduced")      # (n, k), (k, k)
     q_rows = torch.where(mask_p[:, None], q.T, 0.0)
     out = q_rows[inv_perm]
+    if sh is not None:
+        out = sh.local_cols(out)
     if extra is None:
         return out
     e_rows = torch.linalg.solve_triangular(r.T, extra[perm], upper=False)
@@ -209,7 +220,7 @@ def b_ortho(u: torch.Tensor, bu: torch.Tensor, mask=None):
     """
     k = u.shape[0]
     mask = _rowmask(mask, k, u.device)
-    norms = torch.linalg.norm(u, dim=1)
+    norms = norm_n(u)
     inv = torch.where(norms > 0.0,
                       1.0 / torch.where(norms > 0.0, norms, 1.0), 1.0)
     u = u * inv[:, None]

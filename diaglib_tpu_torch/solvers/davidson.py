@@ -20,6 +20,12 @@ Semantics kept from the reference:
 * dual tolerance: rms = ||r||/sqrt(n) < tol and max|r| < 10*tol;
 * ``ortho_ok``, per-iteration histories and ``n_matvec`` counting.
 
+Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`):
+every (k, n) block is the rank's column shard, ``n`` in the rms is the
+global length, and the Gram products, norms and maxima are all-reduced
+(``utils.mm.mm_sharding``), so every rank holds the same reduced matrix
+and eigenvalues and takes the same branch.
+
 Generalized path (``gen_david``, A x = lambda B x): the expansion space is
 kept B-orthonormal, so the reduced problem stays a standard symmetric one;
 ``bspace`` holds B times the space, the residual uses B times the Ritz
@@ -43,7 +49,15 @@ from ..utils.masking import (
     prefix_mask,
     scatter_rows,
 )
-from ..utils.mm import mmT, mTm, routing_for
+from ..utils.mm import (
+    amax_n,
+    global_n,
+    mm_sharding,
+    mmT,
+    mTm,
+    norm_n,
+    routing_for,
+)
 from ..utils.reduced import resolve
 
 __all__ = ["davidson", "gen_david"]
@@ -51,7 +65,8 @@ __all__ = ["davidson", "gen_david"]
 
 def davidson(matvec, precnd, evec_guess: torch.Tensor,
              options: SolverOptions, *,
-             generator: torch.Generator | None = None) -> SolverResult:
+             generator: torch.Generator | None = None,
+             sharding=None) -> SolverResult:
     """Compute the lowest eigenpairs of a symmetric operator.
 
     Args:
@@ -61,30 +76,35 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
       evec_guess: (n_max, n) initial guess rows; its dtype and device are
         the solve's.  Zeros mean a random start from ``generator``.
       options: SolverOptions.
+      sharding: optional VectorSharding; ``evec_guess``, the callbacks'
+        blocks and the returned ``evec`` are then this rank's column
+        shards.
 
     Returns a SolverResult; ``eig``/``evec`` hold the n_max Ritz pairs
     (shift removed from eig).
     """
-    with routing_for(options, "davidson"):
+    with routing_for(options, "davidson"), mm_sharding(sharding):
         return _davidson_impl(matvec, precnd, None, evec_guess, options,
-                              generator)
+                              generator, sharding)
 
 
 def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
               options: SolverOptions, *,
-              generator: torch.Generator | None = None) -> SolverResult:
+              generator: torch.Generator | None = None,
+              sharding=None) -> SolverResult:
     """Generalized Davidson for A x = lambda B x with a B-orthonormal
     expansion space.
 
     ``bvec`` applies the SPD metric B to a row block; the other arguments
     are :func:`davidson`'s.  The returned eigenvectors are B-orthonormal.
     """
-    with routing_for(options, "gen_david"):
+    with routing_for(options, "gen_david"), mm_sharding(sharding):
         return _davidson_impl(matvec, precnd, bvec, evec_guess, options,
-                              generator)
+                              generator, sharding)
 
 
-def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator):
+def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
+                   sharding):
     gen_eig = bvec is not None
     resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
@@ -95,7 +115,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator):
     if k_rows != n_max:
         raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
     dtype, dev = evec_guess.dtype, evec_guess.device
-    sqrtn = math.sqrt(n)
+    sqrtn = math.sqrt(global_n(n, sharding))
     tol_rms, tol_max = options.tol, options.tol_max
     rows_max = torch.arange(n_max, device=dev)
     targ = rows_max < n_targ
@@ -150,8 +170,8 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator):
         r = mTm(c, aspace) - eig[:, None] * metric_evec
 
         active = ~done & targ
-        rms = torch.where(active, torch.linalg.norm(r, dim=1) / sqrtn, rms)
-        rmx = torch.where(active, r.abs().amax(dim=1), rmx)
+        rms = torch.where(active, norm_n(r) / sqrtn, rms)
+        rmx = torch.where(active, amax_n(r.abs()), rmx)
         conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
         done = prefix_lock(done, conv, n_targ)
         ok = bool(done[:n_targ].all())

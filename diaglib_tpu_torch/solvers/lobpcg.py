@@ -19,6 +19,11 @@ Semantics kept from the reference:
 * the generalized path keeps X, P and W B-orthonormal through
   ``b_ortho_vs_x`` + ``bvec`` + ``b_ortho``;
 * locking scans all n_max roots; convergence needs the first n_targ.
+
+Sharded (``sharding=``), as :func:`~.davidson.davidson`: the blocks are
+column shards, the rms uses the global n and every n-axis reduction is
+all-reduced; the P step orthogonalizes replicated coefficients and
+reduces nothing.
 """
 
 from __future__ import annotations
@@ -32,14 +37,23 @@ from ..types import SolverOptions, SolverResult
 from ..utils import reduced
 from ..utils.guess import check_guess
 from ..utils.masking import gather_rows, masked_eigh, prefix_lock
-from ..utils.mm import mm, mmT, mTm, routing_for
+from ..utils.mm import (
+    amax_n,
+    global_n,
+    mm,
+    mm_sharding,
+    mmT,
+    mTm,
+    norm_n,
+    routing_for,
+)
 
 __all__ = ["lobpcg"]
 
 
 def lobpcg(matvec, precnd, evec_guess: torch.Tensor, options: SolverOptions,
-           *, bvec=None,
-           generator: torch.Generator | None = None) -> SolverResult:
+           *, bvec=None, generator: torch.Generator | None = None,
+           sharding=None) -> SolverResult:
     """Locally optimal block preconditioned CG for A x = lambda x (or
     lambda B x with ``bvec``).
 
@@ -51,13 +65,15 @@ def lobpcg(matvec, precnd, evec_guess: torch.Tensor, options: SolverOptions,
       options: SolverOptions; ``options.shift`` is added to A by the driver
         and removed from the reported eigenvalues.
       bvec: the SPD metric's apply for the generalized problem.
+      sharding: optional VectorSharding (see :func:`~.davidson.davidson`).
     """
-    with routing_for(options, "lobpcg"):
+    with routing_for(options, "lobpcg"), mm_sharding(sharding):
         return _lobpcg_impl(matvec, precnd, evec_guess, options, bvec,
-                            generator)
+                            generator, sharding)
 
 
-def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator):
+def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator,
+                 sharding):
     gen_eig = bvec is not None
     reduced.resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
@@ -67,7 +83,7 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator):
     n = evec_guess.shape[1]
     dtype, dev = evec_guess.dtype, evec_guess.device
     len_a = 3 * n_max
-    sqrtn = math.sqrt(n)
+    sqrtn = math.sqrt(global_n(n, sharding))
     tol_rms, tol_max = options.tol, options.tol_max
     shift = options.shift
     idx_b = torch.arange(n_max, device=dev)
@@ -148,8 +164,8 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator):
 
         r = ax_new - eig[:, None] * (bx_new if gen_eig else x_new)
         active = ~done
-        rms = torch.where(active, torch.linalg.norm(r, dim=1) / sqrtn, rms)
-        rmx = torch.where(active, r.abs().amax(dim=1), rmx)
+        rms = torch.where(active, norm_n(r) / sqrtn, rms)
+        rmx = torch.where(active, amax_n(r.abs()), rmx)
         conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
         done = prefix_lock(done, conv, n_max)
         ok = bool(done[:n_targ].all())
@@ -175,7 +191,8 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator):
             onehots = torch.nn.functional.one_hot(
                 n_frozen + idx_b, len_a).to(dtype)
             u_p = u_p - torch.where(umask[:, None], onehots, 0.0)
-            u_p, p_done = ortho_vs_x(u_x, u_p, umask=umask)
+            with mm_sharding(None):         # replicated coefficients
+                u_p, p_done = ortho_vs_x(u_x, u_p, umask=umask)
             p_new = mm(u_p, space)
             ap_new = mm(u_p, aspace)
             space = torch.cat([x_new, p_new, zeros(n_max)])

@@ -11,6 +11,11 @@
 
 The result is the float64 stage's, with both stages' iteration and matvec
 counts added up.
+
+``sharding=`` (a :class:`~diaglib_tpu_torch.parallel.VectorSharding`) is
+passed to both stages: the guess, the callbacks' blocks and the result's
+vectors are then this rank's column shards.  In JAX the sharding of the
+guess propagates through ``jit``; the eager port takes it explicitly.
 """
 
 from __future__ import annotations
@@ -38,14 +43,14 @@ def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
 
 def _two_stage(solver, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                evec_guess, options: SolverOptions, lo_tol, lo_iter,
-               generator, bvec_lo=None, bvec_hi=None):
+               generator, bvec_lo=None, bvec_hi=None, sharding=None):
     lo_kw = dict(bvec=bvec_lo) if bvec_lo is not None else {}
     hi_kw = dict(bvec=bvec_hi) if bvec_hi is not None else {}
     lo = solver(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
                 _lo_options(options, lo_tol, lo_iter), generator=generator,
-                **lo_kw)
+                sharding=sharding, **lo_kw)
     hi = solver(matvec_hi, precnd_hi, lo.evec.to(torch.float64), options,
-                generator=generator, **hi_kw)
+                generator=generator, sharding=sharding, **hi_kw)
     return SolverResult(
         eig=hi.eig,
         evec=hi.evec,
@@ -65,7 +70,8 @@ def _two_stage(solver, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
 def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                     evec_guess: torch.Tensor, options: SolverOptions, *,
                     lo_tol: float = 2e-6, lo_iter: int | None = None,
-                    generator: torch.Generator | None = None) -> SolverResult:
+                    generator: torch.Generator | None = None,
+                    sharding=None) -> SolverResult:
     """float32-then-float64 Davidson-Liu.
 
     ``matvec_lo``/``precnd_lo`` operate on float32 blocks,
@@ -75,37 +81,39 @@ def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
     iteration/matvec counts accumulated over both stages.
     """
     return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
-                      evec_guess, options, lo_tol, lo_iter, generator)
+                      evec_guess, options, lo_tol, lo_iter, generator,
+                      sharding=sharding)
 
 
 def lobpcg_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                   evec_guess: torch.Tensor, options: SolverOptions, *,
                   lo_tol: float = 2e-6, lo_iter: int | None = None,
                   generator: torch.Generator | None = None, bvec_lo=None,
-                  bvec_hi=None) -> SolverResult:
+                  bvec_hi=None, sharding=None) -> SolverResult:
     """float32-then-float64 LOBPCG; pass ``bvec_lo``/``bvec_hi`` for the
     generalized problem.  Arguments and result as :func:`davidson_ladder`.
     """
     return _two_stage(lobpcg, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                       evec_guess, options, lo_tol, lo_iter, generator,
-                      bvec_lo=bvec_lo, bvec_hi=bvec_hi)
+                      bvec_lo=bvec_lo, bvec_hi=bvec_hi, sharding=sharding)
 
 
 def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
                      bvec_hi, evec_guess: torch.Tensor,
                      options: SolverOptions, *, lo_tol: float = 2e-6,
                      lo_iter: int | None = None,
-                     generator: torch.Generator | None = None
-                     ) -> SolverResult:
+                     generator: torch.Generator | None = None,
+                     sharding=None) -> SolverResult:
     """float32-then-float64 generalized Davidson.  The float64 stage
     B-orthonormalizes the warm-start block from scratch, so the float32
     basis's metric errors do not reach the float64 result.  The result is
     the float64 stage's with both stages' counts added up."""
     lo = gen_david(matvec_lo, precnd_lo, bvec_lo,
                    evec_guess.to(torch.float32),
-                   _lo_options(options, lo_tol, lo_iter), generator=generator)
+                   _lo_options(options, lo_tol, lo_iter), generator=generator,
+                   sharding=sharding)
     hi = gen_david(matvec_hi, precnd_hi, bvec_hi, lo.evec.to(torch.float64),
-                   options, generator=generator)
+                   options, generator=generator, sharding=sharding)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
                                n_matvec=lo.n_matvec + hi.n_matvec)
 

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..ortho.core import ortho_cd
-from .mm import mmT
+from .mm import current_sharding, mmT, sum_n
 
 __all__ = ["check_guess"]
 
@@ -20,16 +20,25 @@ def check_guess(evec: torch.Tensor, generator: torch.Generator | None = None,
     unless the valid rows are exactly orthonormal by the overlap's
     diagonal/off-diagonal norms (exact float comparisons, as the
     reference does).
+
+    Under a sharding ``evec`` is the rank's column shard; the norm and the
+    overlap are reduced over the ranks, and the random fallback draws the
+    global (m, n) block and keeps its columns, so a sharded solve starts
+    where the unsharded one does (given equally seeded generators).
     """
     m, n = evec.shape
     if mask is None:
         mask = torch.ones((m,), dtype=torch.bool, device=evec.device)
     mvalid = int(mask.sum())
     e = torch.where(mask[:, None], evec, 0.0)
-    fac = float(torch.sqrt((e * e).sum()))
+    fac = float(torch.sqrt(sum_n(e * e)))
     if fac == 0.0:
-        rnd = torch.rand(evec.shape, generator=generator, dtype=evec.dtype,
+        sh = current_sharding()
+        shape = (m, n if sh is None else sh.n)
+        rnd = torch.rand(shape, generator=generator, dtype=evec.dtype,
                          device=evec.device)
+        if sh is not None:
+            rnd = sh.local_cols(rnd)
         e = torch.where(mask[:, None], rnd, 0.0)
     overlap = mmT(e, e)
     diag = torch.diagonal(overlap)

@@ -13,13 +13,22 @@ bare call outside any solver keeps the route off ("auto" means off there).
 The reference's TPU-only machinery (the x2 scaling and 4096-chunked scans
 of emulated float64, the ``DIAGLIB_TPU_*`` environment overrides and the
 bisection modes) is not carried.
+
+Sharding: a solver given ``sharding=`` enters :class:`mm_sharding` beside
+its routing.  Under it ``mmT``, which contracts over n, all-reduces its
+small result; ``mm``/``mTm`` contract over rows and stay local; and
+:func:`sum_n`, :func:`amax_n` and :func:`norm_n` take the block sums,
+n-axis maxima and row norms over all ranks.  The reference gets the same
+collectives from XLA's partitioner.  Without a sharding the helpers are
+the plain expressions they replace.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mm", "mmT", "mTm", "mm_routing", "routing_for"]
+__all__ = ["mm", "mmT", "mTm", "mm_routing", "routing_for", "mm_sharding",
+           "current_sharding", "global_n", "sum_n", "amax_n", "norm_n"]
 
 _ROUTES = ("auto", "always", "never")
 
@@ -36,6 +45,8 @@ _WIDE_DEFAULTS = {
 
 # the route in force: set by mm_routing around a solver run; None = unset
 _ROUTING = {"wide": None, "sliced": None}
+# the VectorSharding in force: set by mm_sharding around a solver run
+_SHARDING = [None]
 
 
 class mm_routing:
@@ -82,6 +93,63 @@ def routing_for(options, driver: str) -> mm_routing:
     return mm_routing(wide=wide, sliced=sliced)
 
 
+class mm_sharding:
+    """Sharding context: under it the n-axis contractions and reductions
+    of this module are all-reduced over ``sharding``'s group (None leaves
+    them local)."""
+
+    def __init__(self, sharding):
+        self.sharding = sharding
+
+    def __enter__(self):
+        self.prev = _SHARDING[0]
+        _SHARDING[0] = self.sharding
+        return self
+
+    def __exit__(self, *exc):
+        _SHARDING[0] = self.prev
+
+
+def current_sharding():
+    """The VectorSharding in force, or None."""
+    return _SHARDING[0]
+
+
+def sum_n(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every element of the block x (its n axis included),
+    over all ranks under a sharding."""
+    s = x.sum()
+    sh = _SHARDING[0]
+    return s if sh is None else sh.sum(s)
+
+
+def amax_n(x: torch.Tensor) -> torch.Tensor:
+    """Maximum over the last (n) axis, over all ranks under a sharding."""
+    s = x.amax(dim=-1)
+    sh = _SHARDING[0]
+    return s if sh is None else sh.max(s)
+
+
+def norm_n(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norms of the rows of x (over n), over all ranks under a
+    sharding: the square root of the all-reduced sums of squares."""
+    sh = _SHARDING[0]
+    if sh is None:
+        return torch.linalg.norm(x, dim=-1)
+    return torch.sqrt(sh.sum((x * x).sum(dim=-1)))
+
+
+def global_n(n_local: int, sharding) -> int:
+    """The global vector length of a solve whose blocks are ``n_local``
+    wide: n_local itself, or the sharding's n (checked against it)."""
+    if sharding is None:
+        return n_local
+    if sharding.n_local != n_local:
+        raise ValueError(f"blocks are {n_local} wide but the sharding gives "
+                         f"this rank {sharding.n_local} columns")
+    return sharding.n
+
+
 def _use_wide(dtype, device, k: int, m: int, n: int) -> bool:
     """Whether ``(m, k) @ (k, n)`` goes to kernel K3: the route is
     "always", the operands are float64 CUDA tensors (the reference asks for
@@ -109,8 +177,11 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mmT(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b.T (Gram layout, contracting the last axes)."""
-    return a @ b.T
+    """a @ b.T (Gram layout, contracting the last axes); all-reduced over
+    the ranks under a sharding."""
+    out = a @ b.T
+    sh = _SHARDING[0]
+    return out if sh is None else sh.sum(out)
 
 
 def mTm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

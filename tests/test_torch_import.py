@@ -23,7 +23,9 @@ def test_port_covers_the_slice_modules():
                  "ortho.core", "utils.guess", "utils.masking",
                  "utils.reduced", "utils.mm", "solvers.davidson",
                  "solvers.lobpcg", "solvers.mixed", "solvers.nonsym",
-                 "_device"):
+                 "_device", "ops.dist_bsr", "ops.dist_sliced",
+                 "parallel.sharding", "parallel.multihost",
+                 "parallel.mh_dryrun"):
         assert f"diaglib_tpu_torch.{name}" in mods, name
 
 
@@ -49,5 +51,6 @@ def test_kernel_sources_ship_with_the_package():
     csrc = Path(diaglib_tpu_torch.__file__).parent / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "peel.cu", "sym_spmm.cu", "wide_mm.cu", "bsr_spmm.cu",
-        "sliced_spmm.cu"}
+        "sliced_spmm.cu", "group_spmm.cu"}
     assert (csrc / "peel.cuh").is_file()
+    assert (csrc / "sliced_spmm.cuh").is_file()

@@ -6,10 +6,11 @@ no JAX, so they also run where only the port's dependencies are installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 The peel (K2), the symmetric sliced SpMM (K1), the general sliced SpMM
-(K5) and the wide-rotation product (K3) must be bitwise equal to their
-plain versions (integer planes and level sums; K3 also combines its levels
-in the plain version's order);
-the float64 matvec and K3 are held to float64 oracles at 1e-14 max|y|.
+(K5), the distributed group SpMM (K6, on an irregular partition with
+padding entries and uncovered rows) and the wide-rotation product (K3)
+must be bitwise equal to their plain versions (integer planes and level
+sums; K3 also combines its levels in the plain version's order); the
+float64 matvec and K3 are held to float64 oracles at 1e-14 max|y|.
 The plain BSR SpMM (K4) sums in another order than its plain version:
 float32 within 1e-5 max|y| (the reference's kernel bound), bfloat16 within
 one bfloat16 rounding step.
@@ -283,3 +284,74 @@ def test_sliced_spmm_checks_its_inputs(dev):
     with pytest.raises(ValueError):        # more levels than the kernel has
         sliced_spmm(xs, st.slices, st.rows, st.cols, st.row_start, nx=8,
                     na=8, nlev=10)
+
+
+def _k6_partition(dev):
+    """A general store at B = 64 split over 4 ranks whose ring-offset
+    groups have uneven counts: padding entries, and rows a group does not
+    cover."""
+    from diaglib_tpu_torch.ops.dist_sliced import distribute_sliced_bsr
+
+    B, nbr = 64, 16
+    pattern = {(r, r) for r in range(nbr)} | {
+        (0, 4), (1, 5), (8, 12), (2, 15), (13, 0), (6, 14), (7, 9)}
+    dense = torch.zeros((nbr * B, nbr * B))
+    g = torch.Generator().manual_seed(12)
+    for r, c in sorted(pattern):
+        dense[r * B:(r + 1) * B, c * B:(c + 1) * B] = torch.randn(
+            (B, B), generator=g)
+    return distribute_sliced_bsr(slice_bsr(bsr_from_dense(dense.to(dev), B)),
+                                 4)
+
+
+@pytest.mark.parametrize("k", [10, 17])
+@pytest.mark.parametrize("tier", [torch.float64, torch.float32])
+def test_group_spmm_bit_equal(dev, tier, k):
+    from diaglib_tpu_torch.ops.dist_sliced import group_spmm, group_spmm_plain
+
+    ds = _k6_partition(dev)
+    nbr_loc, n_loc = ds.nbr_loc, ds.n_local
+    nx, na, nlev = _tier_params(ds.na, tier, None, None)
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn((k, ds.n), generator=g, dtype=torch.float64, device=dev)
+    padded = uncovered = False
+    for i, s in enumerate(ds.steps):
+        for r in range(4):
+            src = (r + s) % 4
+            xs, _ = _slice_x(x[:, src * n_loc:(src + 1) * n_loc].to(tier), nx)
+            args = (xs, ds.slices[i][r], ds.loc_rows[i][r],
+                    ds.loc_cols[i][r])
+            kw = dict(nx=nx, na=na, nlev=nlev, nbr_loc=nbr_loc)
+            before = group_spmm.launches
+            got = group_spmm(*args, **kw)
+            torch.cuda.synchronize()
+            assert group_spmm.launches == before + 1
+            want = group_spmm_plain(*args, **kw)
+            assert got.shape == want.shape == (nlev * k, n_loc)
+            assert torch.equal(got, want)
+            lr = ds.loc_rows[i][r]
+            padded |= bool((lr == nbr_loc).any())
+            rows = set(lr.tolist())
+            for q in range(nbr_loc):          # uncovered rows are zeros
+                if q not in rows:
+                    uncovered = True
+                    assert not bool(got[:, q * 64:(q + 1) * 64].ne(0).any())
+    assert padded and uncovered
+
+
+def test_group_spmm_checks_its_inputs(dev):
+    from diaglib_tpu_torch.ops.dist_sliced import group_spmm
+
+    ds = _k6_partition(dev)
+    sl, lr, lc = ds.slices[0][0], ds.loc_rows[0][0], ds.loc_cols[0][0]
+    xs = torch.zeros((8 * 2, ds.n_local), dtype=torch.int8, device=dev)
+    kw = dict(nx=8, na=8, nlev=9, nbr_loc=ds.nbr_loc)
+    group_spmm(xs, sl, lr, lc, **kw)                  # the intact call
+    with pytest.raises(ValueError):        # int64 local columns
+        group_spmm(xs, sl, lr, lc.long(), **kw)
+    with pytest.raises(ValueError):        # x not the shard's width
+        group_spmm(xs[:, :64].contiguous(), sl, lr, lc, **kw)
+    with pytest.raises(ValueError):        # more levels than the kernel has
+        group_spmm(xs, sl, lr, lc, **dict(kw, nlev=10))
+    with pytest.raises(ValueError):        # float x
+        group_spmm(xs.float(), sl, lr, lc, **kw)

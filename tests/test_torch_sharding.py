@@ -1,0 +1,286 @@
+"""The port's sharded solvers and distributed BSR operator over
+``torch.distributed`` gloo ranks on the CPU.
+
+The ranks are worker processes of ``parallel.mh_dryrun.run_fleet`` (one
+spawn of 4 ranks with its own timeout, several checks batched); the
+unsharded runs they are held to are the port's own in this process.
+Tolerances: eigenvalues within 1e-10, iterations and matvec blocks within
++-2 (the reference's tests/test_sharding.py and tests/test_dist_bsr.py);
+the distributed matvec within 1e-12 of the serial one; what is all-reduced
+(the reduced matrices, the eigenvalues) bit-identical on every rank.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from diaglib_tpu.ops import dist_bsr as jdb
+from diaglib_tpu.ops import random_bsr_spd as j_random_bsr_spd
+from diaglib_tpu.problems import metric_matrix as j_metric_matrix
+from diaglib_tpu_torch import SolverOptions, davidson, gen_david, lobpcg
+from diaglib_tpu_torch.ops.bsr import (
+    as_arrays,
+    bsr_diagonal,
+    bsr_from_arrays,
+    bsr_matvec,
+    bsr_to_dense,
+    random_bsr_spd,
+)
+from diaglib_tpu_torch.ops.bsr_sliced import slice_bsr, sliced_bsr_matvec
+from diaglib_tpu_torch.ops.dist_bsr import dist_bsr_matvec, distribute_bsr
+from diaglib_tpu_torch.ops.dist_sliced import (
+    dist_sliced_matvec,
+    distribute_sliced_bsr,
+)
+from diaglib_tpu_torch.parallel import (
+    VectorSharding,
+    initialize,
+    make_global,
+    make_group,
+)
+from diaglib_tpu_torch.ortho.core import ortho_qr
+from diaglib_tpu_torch.parallel import mh_dryrun
+from diaglib_tpu_torch.problems import dense_matvec, diag_precnd, symm_matrix
+from diaglib_tpu_torch.utils.guess import check_guess
+
+N, B = 256, 32
+OPTS = dict(n_targ=4, n_max=8, max_iter=200, tol=1e-8, max_dav=10)
+
+
+@pytest.fixture(scope="module")
+def fleet():
+    rng = np.random.default_rng(3)
+    a = symm_matrix(N, device="cpu").numpy()
+    s = np.array(j_metric_matrix(N, jax.random.PRNGKey(1)))
+    m = random_bsr_spd(2 * N, B, 4, seed=11, dtype=torch.float64,
+                       device="cpu")
+    inputs = dict(a=a, s=s, guess=rng.uniform(-0.5, 0.5, (8, N)),
+                  options=OPTS, bsr=as_arrays(m),
+                  x=rng.standard_normal((5, 2 * N)),
+                  bsr_guess=rng.uniform(-0.5, 0.5, (8, 2 * N)))
+    _, results = mh_dryrun.run_fleet("sharded_solvers", inputs,
+                                     num_processes=4, backend="gloo",
+                                     device="cpu", timeout=120)
+    return inputs, m, results
+
+
+def _gathered(results, key):
+    return np.concatenate([r[key] for r in results], axis=-1)
+
+
+@pytest.mark.parametrize("solver", ["davidson", "gen_david", "lobpcg"])
+def test_sharded_equals_unsharded(fleet, solver):
+    inputs, _, results = fleet
+    a = torch.from_numpy(inputs["a"])
+    guess = torch.from_numpy(inputs["guess"])
+    mv, pc = dense_matvec(a), diag_precnd(torch.diagonal(a))
+    opts = SolverOptions(**OPTS)
+    if solver == "davidson":
+        ref = davidson(mv, pc, guess, opts)
+    elif solver == "gen_david":
+        ref = gen_david(mv, pc, dense_matvec(torch.from_numpy(inputs["s"])),
+                        guess, opts)
+    else:
+        ref = lobpcg(mv, pc, guess, opts)
+    assert ref.ok
+    n_targ = OPTS["n_targ"]
+    for r in results:
+        assert r[f"{solver}_ok"]
+        np.testing.assert_allclose(r[f"{solver}_eig"][:n_targ],
+                                   ref.eig[:n_targ].numpy(), rtol=0,
+                                   atol=1e-10)
+        assert abs(r[f"{solver}_iter"] - ref.n_iter) <= 2
+        assert abs(r[f"{solver}_matvec"] - ref.n_matvec) <= 2 * OPTS["n_max"]
+    # the same vectors up to sign, in the solve's metric
+    ev = _gathered(results, f"{solver}_evec")[:n_targ]
+    metric = inputs["s"] if solver == "gen_david" else np.eye(N)
+    np.testing.assert_allclose(
+        np.abs(ev @ metric @ ref.evec[:n_targ].numpy().T), np.eye(n_targ),
+        rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("solver", ["davidson", "gen_david", "lobpcg"])
+def test_reduced_results_bit_identical_across_ranks(fleet, solver):
+    """Every rank's eigenvalue history (one reduced solve of the
+    all-reduced matrix an iteration), all-gathered, is the same bits."""
+    _, _, results = fleet
+    for r in results:
+        hist = r[f"{solver}_eig_ranks"]
+        assert hist.shape[0] == 4
+        assert all(np.array_equal(h, hist[0]) for h in hist[1:])
+    assert all(np.array_equal(r[f"{solver}_eig"], results[0][f"{solver}_eig"])
+               for r in results)
+
+
+def test_all_reduced_gram_bit_identical_across_ranks(fleet):
+    _, _, results = fleet
+    for r in results:
+        g = r["gram_ranks"]
+        assert g.shape == (4, 8, 8)
+        assert all(np.array_equal(x, g[0]) for x in g[1:])
+    inputs = fleet[0]
+    full = inputs["guess"] @ (inputs["guess"] @ inputs["a"].T).T
+    np.testing.assert_allclose(results[0]["gram_ranks"][0], full, rtol=1e-12,
+                               atol=1e-12 * np.abs(full).max())
+
+
+def test_sharded_qr_fallback_and_random_guess(fleet):
+    """ortho_qr factors the all-gathered block on every rank: its columns
+    are the unsharded QR's, bit for bit.  check_guess's random fallback
+    draws the global block and keeps its columns, so the sharded start is
+    the unsharded one."""
+    inputs, _, results = fleet
+    guess = torch.from_numpy(inputs["guess"])
+    np.testing.assert_array_equal(_gathered(results, "qr"),
+                                  ortho_qr(guess).numpy())
+    want = check_guess(torch.zeros_like(guess),
+                       torch.Generator().manual_seed(5)).numpy()
+    np.testing.assert_allclose(_gathered(results, "random_guess"), want,
+                               rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("solver", ["davidson", "lobpcg"])
+def test_rms_uses_the_global_length(fleet, solver):
+    """The first iteration's rms is ||r|| / sqrt(n) with the global n: it
+    equals the unsharded run's (the local width would make it 2x larger
+    over 4 ranks)."""
+    inputs, _, results = fleet
+    a = torch.from_numpy(inputs["a"])
+    run = davidson if solver == "davidson" else lobpcg
+    ref = run(dense_matvec(a), diag_precnd(torch.diagonal(a)),
+              torch.from_numpy(inputs["guess"]), SolverOptions(**OPTS))
+    want = ref.rms_history[0].numpy()
+    for r in results:
+        np.testing.assert_allclose(r[f"{solver}_rms0"], want, rtol=1e-9)
+
+
+def test_dist_bsr_matvec_equals_serial(fleet):
+    inputs, m, results = fleet
+    x = torch.from_numpy(inputs["x"])
+    y = _gathered(results, "bsr_y")
+    ref = bsr_matvec(m)(x).numpy()
+    np.testing.assert_allclose(y, ref, rtol=0, atol=1e-12)
+    assert results[0]["bsr_steps"] == distribute_bsr(m, 4).steps
+
+
+def test_davidson_on_dist_bsr_equals_serial(fleet):
+    """The sharded solve over the halo-exchange matvec against the serial
+    solve over bsr_matvec (tests/test_dist_bsr.py:92-111)."""
+    inputs, m, results = fleet
+    ref = davidson(bsr_matvec(m), diag_precnd(bsr_diagonal(m)),
+                   torch.from_numpy(inputs["bsr_guess"]),
+                   SolverOptions(**OPTS))
+    assert ref.ok
+    for r in results:
+        assert r["bsr_davidson_ok"]
+        assert abs(r["bsr_davidson_iter"] - ref.n_iter) <= 2
+        np.testing.assert_allclose(r["bsr_davidson_eig"][:4],
+                                   ref.eig[:4].numpy(), rtol=0, atol=1e-10)
+    w = np.linalg.eigvalsh(bsr_to_dense(m).numpy())[:4]
+    np.testing.assert_allclose(results[0]["bsr_davidson_eig"][:4], w,
+                               rtol=0, atol=1e-7)
+
+
+def test_distribute_bsr_bit_equal_to_reference():
+    jm = j_random_bsr_spd(2 * N, B, 4, jax.random.PRNGKey(11),
+                          dtype=jnp.float64)
+    tm = bsr_from_arrays(jm)
+    for D in (4, 8):
+        jd = jdb.distribute_bsr(jm, D)
+        td = distribute_bsr(tm, D)
+        assert td.steps == jd.steps
+        for name in ("blocks_t", "loc_rows", "loc_cols"):
+            for got, ref in zip(getattr(td, name), getattr(jd, name)):
+                np.testing.assert_array_equal(got.numpy(), np.asarray(ref),
+                                              err_msg=name)
+        own = distribute_bsr(tm, D, rank=D - 1)
+        for got, ref in zip(own.blocks_t, td.shard(D - 1).blocks_t):
+            assert torch.equal(got, ref)
+
+
+def test_banded_operator_skips_empty_ring_offsets():
+    banded = random_bsr_spd(2 * N, B, 2, seed=23, dtype=torch.float64,
+                            device="cpu")
+    dm = distribute_bsr(banded, 8)
+    assert 0 in dm.steps and set(dm.steps) <= {0, 1, 7}, dm.steps
+    ds = distribute_sliced_bsr(slice_bsr(banded), 8)
+    assert ds.steps == dm.steps
+
+
+def test_indivisible_rows_rejected():
+    m = random_bsr_spd(2 * N, B, 4, seed=11, dtype=torch.float64,
+                       device="cpu")
+    with pytest.raises(ValueError):
+        distribute_bsr(m, 5)
+    with pytest.raises(ValueError):
+        distribute_sliced_bsr(slice_bsr(m), 3)
+
+
+@pytest.fixture
+def one_rank(tmp_path):
+    """A one-rank gloo group in this process, torn down after the test."""
+    initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, backend="gloo")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_single_rank_degenerates_to_serial(one_rank):
+    m = random_bsr_spd(2 * N, B, 4, seed=11, dtype=torch.float64,
+                       device="cpu")
+    sh = VectorSharding(m.n, make_group())
+    assert (sh.rank, sh.size, sh.n_local) == (0, 1, m.n)
+    dm = distribute_bsr(m, 1)
+    assert dm.steps == (0,)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((3, m.n)))
+    np.testing.assert_allclose(dist_bsr_matvec(dm, sh)(x).numpy(),
+                               bsr_matvec(m)(x).numpy(), rtol=0, atol=1e-12)
+    ms = slice_bsr(m)
+    ds = distribute_sliced_bsr(ms, 1)
+    assert ds.steps == (0,) and ds.slices[0][0].data_ptr() == \
+        ms.slices.data_ptr()                      # the store, not a copy
+    for dt in (torch.float64, torch.float32):
+        assert torch.equal(dist_sliced_matvec(ds, sh, dtype=dt)(x.to(dt)),
+                           sliced_bsr_matvec(ms, dtype=dt)(x.to(dt)))
+    assert torch.equal(make_global(x, sh), x)
+    # a guess whose width is not the rank's share is refused
+    with pytest.raises(ValueError, match="wide"):
+        davidson(bsr_matvec(m), diag_precnd(torch.ones(m.n // 2)),
+                 x[:, :m.n // 2].repeat(3, 1)[:8],
+                 SolverOptions(n_targ=2, n_max=8), sharding=sh)
+
+
+def test_operator_and_group_sizes_must_match(one_rank):
+    m = random_bsr_spd(2 * N, B, 2, seed=1, dtype=torch.float64,
+                       device="cpu")
+    sh = VectorSharding(2 * N)
+    with pytest.raises(ValueError, match="shards"):
+        dist_bsr_matvec(distribute_bsr(m, 2, rank=0), sh)
+    with pytest.raises(ValueError, match="shards"):
+        dist_sliced_matvec(distribute_sliced_bsr(slice_bsr(m), 2), sh)
+    with pytest.raises(ValueError):
+        VectorSharding(2 * N).local_cols(torch.zeros(3, N))
+
+
+def test_initialize_without_a_card_raises():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize("tcp://127.0.0.1:1", 1, 0, backend="nccl")
+    assert not dist.is_initialized()
+
+
+def test_mh_dryrun_launch_two_ranks():
+    out = mh_dryrun.launch(2, backend="gloo", device="cpu", timeout=120)
+    assert out.count("MH_DRYRUN_OK") == 2
+
+
+def test_mh_dryrun_launch_defaults_to_the_card():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device for the nccl"):
+        mh_dryrun.launch(1, timeout=60)
