@@ -21,10 +21,13 @@ Phases (any failure raises and the script exits non-zero):
    and the least time the card could take for the same work (bound):
    the peel (K2) at (15, 65536) and the symmetric SpMM (K1) on the store,
    both precision tiers, bit for bit; the wide-rotation product (K3) at
-   (15, 165) @ (165, 65536) in the mm and mTm layouts, bit for bit, and
-   against cuBLAS float64 (1e-14 max|y|, its time too); the plain BSR SpMM
-   (K4) on the float32 operator at k = 15 (1e-5 max|y|), beside a
-   torch.sparse_bsr_tensor product; the general sliced SpMM (K5) bit for
+   (15, 165) @ (165, 65536) in the mm and mTm layouts and at ortho_cd's
+   Cholesky step (15, 15) @ (15, 65536), bit for bit, two device kernels a
+   call and no other (torch.profiler), and against cuBLAS float64 (1e-14
+   max|y|, its time too); the plain BSR
+   SpMM (K4) on the float32 operator at k = 15 (1e-5 max|y|, its GB/s and
+   fraction of the HBM peak), beside a torch.sparse_bsr_tensor product;
+   the general sliced SpMM (K5) bit for
    bit, both tiers, on the general store at k = 15 (15 entries a block
    row) and on the T band store at k = 10 (one entry a row, the
    nonsymmetric ladder's shape); the distributed group SpMM (K6) bit for
@@ -218,9 +221,28 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
                 f"({b_by}) (median, {card})")
 
 
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs, as
+    torch.profiler sees them (empty if it sees no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def check_kernel_k3(dev, card, stats, max_err):
-    """K3 at the flagship rotation, mm and mTm layouts, bit for bit against
-    its plain version and within 1e-14 max|y| of cuBLAS float64."""
+    """K3 at the f64 Davidson stage's two shapes: the rotation and the
+    projections of ortho_vs_x, (15, 165) @ (165, 65536), in the mm and mTm
+    layouts, and ortho_cd's Cholesky step, (15, 15) @ (15, 65536); each bit
+    for bit against its plain version, within 1e-14 max|y| of cuBLAS
+    float64, and timed beside cuBLAS.  One call counts one launch of the
+    wrapper and runs two device kernels, K3's a-side and main launches, and
+    nothing else: no pass over b outside the kernel."""
     import torch
 
     from diaglib_tpu_torch.ops import slicing
@@ -229,33 +251,51 @@ def check_kernel_k3(dev, card, stats, max_err):
     c = torch.linalg.qr(torch.randn((K3_K, K3_M), generator=g,
                                     dtype=torch.float64, device=dev))[0]
     b = torch.randn((K3_K, N), generator=g, dtype=torch.float64, device=dev)
-    for layout, a in (("mm", c.T.contiguous()), ("mTm", c.T)):
-        got = slicing.sliced_wide_mm(a, b)
-        want = slicing.sliced_wide_mm_plain(a, b)
-        ref = a @ b
+    linv = torch.linalg.inv(torch.linalg.cholesky(
+        c.T @ c + torch.eye(K3_M, dtype=torch.float64, device=dev)))
+    bc = b[:K3_M]
+    for tag, a, bb in (("mm", c.T.contiguous(), b), ("mTm", c.T, b),
+                       ("cholesky", linv, bc)):
+        before = slicing.sliced_wide_mm.launches
+        got = slicing.sliced_wide_mm(a, bb)
+        calls = slicing.sliced_wide_mm.launches - before
+        want = slicing.sliced_wide_mm_plain(a, bb)
+        ref = a @ bb
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         max_err["sliced_wide_mm"] = max(max_err["sliced_wide_mm"], err)
         rel = float((got - ref).abs().max() / ref.abs().max())
-        log(f"[kernels] sliced_wide_mm {layout} ({K3_M}, {K3_K}) @ ({K3_K}, "
-            f"{N}): kernel == plain {torch.equal(got, want)}, vs cuBLAS f64 "
-            f"{rel:.3e} of max|y|")
+        names = device_kernels(lambda: slicing.sliced_wide_mm(a, bb))
+        log(f"[kernels] sliced_wide_mm {tag} {tuple(a.shape)} @ "
+            f"{tuple(bb.shape)}: kernel == plain {torch.equal(got, want)}, "
+            f"vs cuBLAS f64 {rel:.3e} of max|y|, {calls} counted launch a "
+            f"call, device kernels a call "
+            f"{[n.split('::')[-1].split('(')[0] for n in names]}")
         if not torch.equal(got, want):
-            raise AssertionError(f"wide_mm kernel != plain ({layout})")
+            raise AssertionError(f"wide_mm kernel != plain ({tag})")
         if not rel <= 1e-14:
             raise AssertionError(f"wide_mm vs cuBLAS {rel:.3e} > 1e-14")
-    a = c.T.contiguous()
+        if calls != 1:
+            raise AssertionError(f"wide_mm counted {calls} launches a call")
+        if names and (len(names) != 2
+                      or not all("wide_" in n for n in names)):
+            raise AssertionError(f"wide_mm ran {names} on the card")
     # bound: a, b and the product once; 43 int8 plane pairs of products
-    stats["sliced_wide_mm"] = (
-        time_ms(lambda: slicing.sliced_wide_mm(a, b), 20),
-        time_ms(lambda: slicing.sliced_wide_mm_plain(a, b), 5),
-        *bound(8 * (K3_M * K3_K + K3_K * N + K3_M * N),
-               2 * n_pairs(8, 8, 9) * K3_M * K3_K * N, INT8_OPS),
-        time_ms(lambda: a @ b, 20))
-    ms, plain, b_ms, b_by, cublas = stats["sliced_wide_mm"]
-    log(f"[kernels] sliced_wide_mm: kernel {ms:.4f} ms (a peel included), "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), cuBLAS f64 "
-        f"{cublas:.4f} ms (median, {card})")
+    for tag, a, bb in (("rotation", c.T.contiguous(), b),
+                       ("cholesky", linv, bc)):
+        m, kdim = a.shape
+        stats["sliced_wide_mm"][tag] = (
+            time_ms(lambda: slicing.sliced_wide_mm(a, bb), 50),
+            time_ms(lambda: slicing.sliced_wide_mm_plain(a, bb), 5),
+            *bound(8 * (m * kdim + kdim * N + m * N),
+                   2 * n_pairs(8, 8, 9) * m * kdim * N, INT8_OPS),
+            time_ms(lambda: a @ bb, 50))
+        ms, plain, b_ms, b_by, cublas = stats["sliced_wide_mm"][tag]
+        log(f"[kernels] sliced_wide_mm {tag} ({m}, {kdim}) @ ({kdim}, {N}): "
+            f"kernel {ms:.4f} ms (wrapper included), plain "
+            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), cuBLAS f64 "
+            f"{cublas:.4f} ms, kernel / cuBLAS {ms / cublas:.2f} (median, "
+            f"{card})")
 
 
 def check_kernel_k4(m32, dev, card, stats, max_err):
@@ -287,7 +327,8 @@ def check_kernel_k4(m32, dev, card, stats, max_err):
         lib_rel = float((lib_y - want).abs().max()) / float(want.abs().max())
         library = time_ms(lambda: a @ xt, 20)
         log(f"[kernels] bsr_spmm library: torch.sparse_bsr_tensor @ dense "
-            f"{library:.4f} ms, vs plain {lib_rel:.3e} of max|y|")
+            f"{library:.4f} ms, vs plain {lib_rel:.3e} of max|y| (median, "
+            f"{card})")
         del a
     except Exception as exc:    # the product is a yardstick, not a phase
         log(f"[kernels] bsr_spmm library: torch.sparse_bsr_tensor product "
@@ -299,11 +340,13 @@ def check_kernel_k4(m32, dev, card, stats, max_err):
                2 * N_MAX * m32.nnzb * BLOCK * BLOCK, F32_FLOPS),
         library)
     ms, plain, b_ms, b_by, _ = stats["bsr_spmm"]
+    gbps = m32.nnzb * BLOCK * BLOCK * 4 / ms / 1e6
     log(f"[kernels] bsr_spmm f32 k={N_MAX}: vs plain {rel:.3e} of max|y|, "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}) (median, {card}); blocks {m32.nnzb} x "
         f"{BLOCK * BLOCK * 4} B = {m32.nnzb * BLOCK * BLOCK * 4 / 1e9:.3f} "
-        f"GB, {m32.nnzb * BLOCK * BLOCK * 4 / ms / 1e6:.1f} GB/s")
+        f"GB, {gbps:.1f} GB/s, {gbps * 1e9 / HBM_BPS:.1%} of "
+        f"{HBM_BPS / 1e12:.2f} TB/s")
     if not rel <= 1e-5:
         raise AssertionError(f"bsr_spmm vs plain {rel:.3e} > 1e-5")
 
@@ -722,8 +765,8 @@ def main():
                              "bsr_nonsym_similarity's (S, T, T^T)")
 
     # ---- 4. kernels against their plain versions ----
-    stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_spmm": {},
-             "group_spmm": {}}
+    stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_wide_mm": {},
+             "sliced_spmm": {}, "group_spmm": {}}
     max_err = {"peel_rows": 0.0, "sym_spmm": 0.0, "sliced_wide_mm": 0.0,
                "bsr_spmm": 0.0, "sliced_spmm": 0.0, "group_spmm": 0.0}
     check_kernels_k1_k2(store, dev, card, stats, max_err)
@@ -881,6 +924,14 @@ def main():
                 if key != "f64":
                     entry.update({f"ms_{key}": ms_, f"plain_ms_{key}": plain_,
                                   f"bound_ms_{key}": b_})
+        elif name == "sliced_wide_mm":
+            # the rotation shape, then ortho_cd's Cholesky step
+            (ms, plain, b_ms, b_by, library), (ms_c, plain_c, b_c, _, lib_c) = (
+                stats[name]["rotation"], stats[name]["cholesky"])
+            entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library, ms_cholesky=ms_c,
+                         plain_ms_cholesky=plain_c, bound_ms_cholesky=b_c,
+                         library_ms_cholesky=lib_c)
         else:
             ms, plain, b_ms, b_by, library = stats[name]
             entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,

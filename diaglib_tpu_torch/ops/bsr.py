@@ -195,8 +195,9 @@ def bsr_spmm(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """``y = x @ A^T`` for float32 / bfloat16 x and blocks (kernel K4).
 
     On CPU tensors this is :func:`bsr_spmm_plain`; on CUDA tensors it
-    launches ``csrc/bsr_spmm.cu`` (float32 accumulation, one CTA per block
-    row and column tile) or raises.  y has x's dtype.
+    launches ``csrc/bsr_spmm.cu`` (float32 accumulation; persistent CTAs
+    stream the blocks through a ring of asynchronous copies) or raises.
+    y has x's dtype.
     """
     if x.device.type == "cpu":
         return bsr_spmm_plain(m, x)

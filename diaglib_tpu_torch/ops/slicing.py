@@ -228,16 +228,12 @@ def wide_feasible(m: int, kdim: int, n: int, n_slices: int = _WIDE_SLICES,
     return _fits_int32(kdim + (-kdim) % 4, bits)
 
 
-def _wide_operands(a: torch.Tensor, b: torch.Tensor, peel):
-    """The kernel's inputs: a's planes ``(8, m, kp)`` (K zero-padded to a
-    multiple of 4), its row grid ``sa`` (m, 1) and b's column grid ``sb``
-    (1, n), ``sb = 2 * pow2_grid(max|b| per column)``."""
-    m, kdim = a.shape
+def _wide_operands(a: torch.Tensor, b: torch.Tensor):
+    """The plain version's operands, as the kernel makes them for itself:
+    a's planes ``(8, m, K)``, its row grid ``sa`` (m, 1) and b's column
+    grid ``sb`` (1, n), ``sb = 2 * pow2_grid(max|b| per column)``."""
     t, sa = _row_grid(a, _WIDE_BITS)
-    kpad = (-kdim) % 4
-    if kpad:
-        t = torch.nn.functional.pad(t, (0, kpad))
-    a_sl = peel(t, _WIDE_SLICES, _WIDE_BITS)
+    a_sl = peel_rows_plain(t, _WIDE_SLICES, _WIDE_BITS)
     sb = 2.0 * pow2_grid(b.abs().amax(dim=0, keepdim=True))
     return a_sl, sa, sb
 
@@ -266,8 +262,8 @@ def sliced_wide_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     _wide_check(a, b)
     m, n = a.shape[0], b.shape[1]
-    a_sl, sa, sb = _wide_operands(a, b, peel_rows_plain)
-    a_sl = a_sl[:, :, :a.shape[1]].to(torch.float64)      # (8, m, K)
+    a_sl, sa, sb = _wide_operands(a, b)
+    a_sl = a_sl.to(torch.float64)                          # (8, m, K)
     q = peel_rows_plain(b / sb, _WIDE_SLICES, _WIDE_BITS)  # (8, K, n)
     lev = [torch.zeros((m, n), dtype=torch.float64, device=a.device)
            for _ in range(_WIDE_LEVELS)]
@@ -284,8 +280,9 @@ def sliced_wide_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _wide_lib():
     lib = _build.library("wide_mm")
     if not getattr(lib, "_typed", False):
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wide_mm.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p]
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.wide_mm.argtypes = [p, i64, i64, p, i64, i64, p, p, i32, i32,
+                                i32, p]
         lib.wide_mm.restype = i32
         lib.wide_mm_error_string.argtypes = [i32]
         lib.wide_mm_error_string.restype = ctypes.c_char_p
@@ -293,18 +290,49 @@ def _wide_lib():
     return lib
 
 
+_WIDE_ROWS = 16       # rows of a a tile of the kernel (its grid's y)
+_WIDE_CHUNK = 32      # the kernel's contraction chunk
+
+
+def _wide_scratch_bytes(m: int, kdim: int) -> int:
+    """Bytes of the kernel's scratch (the C entry wide_mm_scratch_bytes):
+    a's int8 planes, 8 x 16 x 32 a (row tile, chunk of K), then its float64
+    row grids, 16 a row tile, then an int32 tile counter a row tile."""
+    tiles = -(-m // _WIDE_ROWS)
+    return tiles * (-(-kdim // _WIDE_CHUNK) * 8 * _WIDE_ROWS * _WIDE_CHUNK
+                    + 8 * _WIDE_ROWS + 4)
+
+
+_wide_scratches: dict = {}
+
+
+def _wide_scratch(device: torch.device, stream: int, nbytes: int):
+    """The kernel's scratch for calls on ``stream``: one buffer a (device,
+    stream), grown as needed.  Launches on one stream run in order, so each
+    call's a-side launch writes it only after the last call's kernel has
+    read it; the allocator frees a replaced buffer in the same order."""
+    key = (device.index, stream)
+    buf = _wide_scratches.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
+                          device=device)
+        _wide_scratches[key] = buf
+    return buf
+
+
 def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact float64 ``a @ b`` for small-K, wide-output contractions
     (kernel K3).
 
     ``a: (m, K)`` small (reduced eigenvectors, an overlap), ``b: (K, n)``
-    wide (the expansion space).  a is sliced into 8 int8 planes on its
-    per-row grid (kernel K2 on the card), b into 8 planes per column inside
-    the kernel; every plane product is an exact int32 level sum.  Accuracy:
-    both operands truncated 2^-55 below their row / column scales, no
-    rounding inside the contraction.  On CPU tensors this is
-    :func:`sliced_wide_mm_plain`; on CUDA tensors it launches
-    ``csrc/wide_mm.cu`` (bit-identical) or raises.
+    wide (the expansion space).  Both are put on their power-of-two grids
+    (a per row, b per column) and sliced into 8 int8 planes on the card, in
+    one call of two launches (a's side, then everything on b), reading a
+    and b in place through their strides; every plane product is an exact
+    int32 level sum on the int8 tensor cores.  Accuracy: both operands
+    truncated 2^-55 below their row / column scales, no rounding inside the
+    contraction.  On CPU tensors this is :func:`sliced_wide_mm_plain`; on
+    CUDA tensors it launches ``csrc/wide_mm.cu`` (bit-identical) or raises.
     """
     _wide_check(a, b)
     if a.device.type == "cpu":
@@ -313,23 +341,22 @@ def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sliced_wide_mm: unsupported device {a.device}")
     m, kdim = a.shape
     n = b.shape[1]
-    # the kernel's grid covers 8 rows a CTA in y (at most 65535 CTAs) and
+    # the kernel's grid covers 16 rows a CTA in y (at most 65535 CTAs) and
     # takes its sizes as int32
-    if m > 8 * 65535 or n >= 2 ** 31:
+    if -(-m // _WIDE_ROWS) > 65535 or n >= 2 ** 31:
         raise ValueError(f"sliced_wide_mm: shapes too large ({m}, {kdim}, "
                          f"{n})")
-    a_sl, sa, sb = _wide_operands(a, b, peel_rows)
-    b = b.contiguous()
-    sa = sa.reshape(m).contiguous()
-    sb = sb.reshape(n).contiguous()
     out = torch.empty((m, n), dtype=torch.float64, device=a.device)
     if m == 0 or n == 0:
         return out
+    # the raw handle: torch.cuda.current_stream() costs microseconds of a
+    # call this short
+    stream = torch._C._cuda_getCurrentRawStream(a.device.index)
+    scratch = _wide_scratch(a.device, stream, _wide_scratch_bytes(m, kdim))
     lib = _wide_lib()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.wide_mm(a_sl.data_ptr(), sa.data_ptr(), b.data_ptr(),
-                      sb.data_ptr(), out.data_ptr(), m, kdim,
-                      a_sl.shape[2], n, stream)
+    err = lib.wide_mm(a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                      b.stride(0), b.stride(1), out.data_ptr(),
+                      scratch.data_ptr(), m, kdim, n, stream)
     if err:
         raise RuntimeError(
             f"wide_mm kernel: {lib.wide_mm_error_string(err).decode()}")

@@ -154,8 +154,13 @@ def test_wrappers_check_their_inputs(dev, small_store):
                                torch.zeros((8, 8192), device=dev))
 
 
-@pytest.mark.parametrize("m,k,n", [(15, 165, 65536), (1, 13, 8192),
-                                   (64, 170, 8448), (9, 1500, 8192)])
+@pytest.mark.parametrize("m,k,n", [
+    (15, 165, 65536), (1, 13, 8192), (64, 170, 8448), (9, 1500, 8192),
+    (16, 165, 8192), (17, 165, 8192), (33, 165, 8192),      # row tiles
+    (15, 1, 8192), (15, 31, 8192), (15, 32, 8192), (15, 33, 8192),
+    (15, 4096, 8192),                                       # K chunks
+    (15, 165, 8200),                                        # ragged n
+    (15, 15, 65536)])                       # ortho_cd's Cholesky step
 def test_wide_mm_bit_equal(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m + k)
     a = torch.randn((m, k), generator=g, dtype=torch.float64, device=dev)
@@ -166,7 +171,7 @@ def test_wide_mm_bit_equal(dev, m, k, n):
     before = slicing.sliced_wide_mm.launches
     got = slicing.sliced_wide_mm(a, b)
     torch.cuda.synchronize()
-    assert slicing.sliced_wide_mm.launches == before + 1
+    assert slicing.sliced_wide_mm.launches == before + 1    # one launch
     assert torch.equal(got, slicing.sliced_wide_mm_plain(a, b))
     ref = a @ b
     assert float((got - ref).abs().max()) <= 1e-14 * float(ref.abs().max())
@@ -176,25 +181,101 @@ def test_wide_mm_bit_equal(dev, m, k, n):
     assert torch.equal(slicing.sliced_wide_mm(at.T, b), got)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bsr_spmm_matches_plain(dev, dtype):
-    m = random_bsr_spd(4096, 128, 4, seed=6, dtype=torch.float32, device=dev)
-    m = BSRMatrix(m.blocks_t.to(dtype), m.rows, m.cols, m.row_start, m.n,
-                  m.block)
-    g = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn((19, 4096), generator=g, dtype=torch.float32,
-                    device=dev).to(dtype)
+def test_wide_mm_longest_k(dev):
+    # the largest K the exact int32 level sums allow still runs (streamed
+    # a chunk at a time, 8192 chunks through one warp)
+    k = 262140
+    assert slicing.wide_feasible(2, k, 8)
+    g = torch.Generator(device=dev).manual_seed(22)
+    a = torch.randn((2, k), generator=g, dtype=torch.float64, device=dev)
+    b = torch.randn((k, 8), generator=g, dtype=torch.float64, device=dev)
+    got = slicing.sliced_wide_mm(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, slicing.sliced_wide_mm_plain(a, b))
+
+
+def _edge_columns(dev):
+    """(a, b) whose columns of b hit pow2_grid's edges: all zero, a
+    denormal max, an exact power of two, huge values; and a zero row of
+    a."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    a = torch.randn((15, 165), generator=g, dtype=torch.float64, device=dev)
+    a[3] = 0.0
+    b = torch.randn((165, 8192), generator=g, dtype=torch.float64,
+                    device=dev)
+    b[:, 0] = 0.0
+    b[:, 1] *= 1e-310                   # every |b| below the least normal
+    b[:, 2] = b[:, 2].clamp(-3.9, 3.9)
+    b[7, 2] = -4.0                      # max exactly 2^2
+    b[:, 3] *= 1e300
+    b[:, 4] = 2.0 ** -1022              # max exactly the least normal
+    b[:, 5] *= 1e-300
+    return a, b
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
+def test_wide_mm_grid_edges_bit_equal(dev, layout):
+    a, b = _edge_columns(dev)
+    if layout == "strided":             # b a transposed view, a too
+        b = b.T.contiguous().T
+        a = a.T.contiguous().T
+    elif layout == "misaligned":        # rows of b 8 bytes off 16
+        wide = torch.zeros((b.shape[0], b.shape[1] + 1), dtype=b.dtype,
+                           device=dev)
+        wide[:, 1:] = b
+        b = wide[:, 1:]
+    got = slicing.sliced_wide_mm(a, b)
+    want = slicing.sliced_wide_mm_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got[3].ne(0).any()) and not bool(got[:, 0].ne(0).any())
+    assert bool(got[:, 3].abs().max() > 1e299)
+
+
+K4_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+def _k4_check(m, x):
     before = bsr_spmm.launches
     got = bsr_spmm(m, x)
     torch.cuda.synchronize()
-    assert bsr_spmm.launches == before + 1 and got.dtype == dtype
+    assert bsr_spmm.launches == before + 1 and got.dtype == x.dtype
     want = bsr_spmm_plain(m, x)
-    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    tol = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol * float(want.float().abs().max())
+    return got
 
 
-def test_bsr_spmm_empty_block_row(dev):
+@pytest.mark.parametrize("block", [64, 128, 512])
+@pytest.mark.parametrize("k", [1, 16, 17, 19, 33])
+@pytest.mark.parametrize("xdt,bdt", K4_PAIRS)
+def test_bsr_spmm_matches_plain(dev, xdt, bdt, k, block):
+    m = random_bsr_spd(4096, block, 4, seed=6, dtype=torch.float32,
+                       device=dev)
+    m = BSRMatrix(m.blocks_t.to(bdt), m.rows, m.cols, m.row_start, m.n,
+                  m.block)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((k, 4096), generator=g, dtype=torch.float32,
+                    device=dev).to(xdt)
+    _k4_check(m, x)
+
+
+@pytest.mark.parametrize("xdt,bdt", K4_PAIRS)
+def test_bsr_spmm_unaligned(dev, xdt, bdt):
+    # B = 12: a bfloat16 row of a block is 24 bytes; x 4 bytes off 16
+    m = random_bsr_spd(480, 12, 3, seed=13, dtype=torch.float32, device=dev)
+    m = BSRMatrix(m.blocks_t.to(bdt), m.rows, m.cols, m.row_start, m.n,
+                  m.block)
+    g = torch.Generator(device=dev).manual_seed(14)
+    flat = torch.randn(5 * 480 + 2, generator=g, dtype=torch.float32,
+                       device=dev).to(xdt)
+    _k4_check(m, flat[2:].view(5, 480))
+
+
+@pytest.mark.parametrize("xdt,bdt", K4_PAIRS)
+def test_bsr_spmm_empty_block_row(dev, xdt, bdt):
     B = 32
     dense = torch.zeros((8 * B, 8 * B), dtype=torch.float32)
     g = torch.Generator().manual_seed(8)
@@ -204,19 +285,19 @@ def test_bsr_spmm_empty_block_row(dev):
     m = bsr_from_dense(dense.to(dev), B)
     keep = (m.blocks_t != 0).flatten(1).any(dim=1)
     rows = m.rows[keep]
-    bare = BSRMatrix(m.blocks_t[keep].contiguous(), rows,
+    bare = BSRMatrix(m.blocks_t[keep].contiguous().to(bdt), rows,
                      m.cols[keep].contiguous(),
                      torch.searchsorted(rows, torch.arange(
                          8, dtype=torch.int32, device=dev)).to(torch.int32),
                      m.n, B)
-    x = torch.randn((3, 8 * B), generator=g).to(dev)
-    y = bsr_spmm(bare, x)
-    torch.cuda.synchronize()
+    x = torch.randn((3, 8 * B), generator=g).to(dev).to(xdt)
+    y = _k4_check(bare, x)
     for r in (1, 4, 6):
         assert float(y[:, r * B:(r + 1) * B].abs().max()) == 0.0
-    ref = x.double() @ dense.double().to(dev).T
-    assert float((y.double() - ref).abs().max()) <= 1e-5 * float(
-        ref.abs().max())
+    if xdt == bdt == torch.float32:
+        ref = x.double() @ dense.double().to(dev).T
+        assert float((y.double() - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
 
 
 def _k5_stores(dev):
