@@ -20,7 +20,9 @@ Phases (any failure raises and the script exits non-zero):
    shapes the paths give it, with median times of kernel and plain version
    and the least time the card could take for the same work (bound):
    the peel (K2) at (15, 65536) and the symmetric SpMM (K1) on the store,
-   both precision tiers, bit for bit; the wide-rotation product (K3) at
+   both precision tiers, bit for bit, one device kernel a bucket and no
+   other (torch.profiler), with the floor of reading each entry's planes
+   once a direction; the wide-rotation product (K3) at
    (15, 165) @ (165, 65536) in the mm and mTm layouts and at ortho_cd's
    Cholesky step (15, 15) @ (15, 65536), bit for bit, two device kernels a
    call and no other (torch.profiler), and against cuBLAS float64 (1e-14
@@ -30,11 +32,14 @@ Phases (any failure raises and the script exits non-zero):
    the general sliced SpMM (K5) bit for
    bit, both tiers, on the general store at k = 15 (15 entries a block
    row) and on the T band store at k = 10 (one entry a row, the
-   nonsymmetric ladder's shape); the distributed group SpMM (K6) bit for
+   nonsymmetric ladder's shape), one device kernel a call and no other;
+   the distributed group SpMM (K6) bit for
    bit, both tiers, at k = 15 on every group of every rank of the 4-way
    partition of the general store and of a small irregular store at
    B = 512 with padding entries and uncovered rows, and checked and timed
-   at the main path's shape (one rank, one group of 1920 entries); and the
+   at the main path's shape (one rank, one group of 1920 entries), one
+   device kernel a call and no other; each with its share of the bound; and
+   the
    float64 symmetric and general sliced matvecs against a dense float64
    oracle at n = 2048 (1e-14 max|y|);
 5. ladders at full width (10 roots, tol 1e-10, max_dav 10, zero guess from
@@ -72,6 +77,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -184,13 +190,16 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
                                      store.slices1, 1)):
             na = min(na_used - off, sl.shape[-1] // BLOCK)
             if rows.shape[0] and na > 0:
-                buckets.append((rows, cols, sl, na, off))
+                items, start = sym.sym_worklist(rows, cols, N // BLOCK)
+                buckets.append((rows, cols, sl, na, off, items, start))
 
-        def levels(fn):
-            acc = torch.zeros((nlev * k, N), dtype=torch.int32, device=dev)
-            for rows, cols, sl, na, off in buckets:
+        def levels(fn, acc=None):
+            if acc is None:
+                acc = torch.zeros((nlev * k, N), dtype=torch.int32,
+                                  device=dev)
+            for rows, cols, sl, na, off, items, start in buckets:
                 fn(xs, sl, rows, cols, acc, nx=nx, na=na, nlev=nlev,
-                   plane_off=off)
+                   plane_off=off, items=items, item_start=start)
             return acc
 
         got = levels(sym.sym_spmm)
@@ -201,14 +210,20 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
         if not torch.equal(got, want):
             raise AssertionError(f"sym_spmm kernel != plain ({tier}), "
                                  f"max {err}")
+        names = device_kernels(lambda: levels(sym.sym_spmm, got),
+                               len(buckets))
+        expect_kernels("sym_spmm", names, ["sym_spmm_kernel"] * len(buckets))
         # bound: the used planes once, x's planes once, the accumulator
         # read and written once; products of both directions off the
-        # diagonal
+        # diagonal.  The kernel's floor reads each entry's planes once a
+        # direction.
         nbytes = xs.numel() + 2 * nlev * k * N * 4
+        twice = nbytes
         ops = 0
-        for rows, cols, sl, na, off in buckets:
+        for rows, cols, sl, na, off, _, _ in buckets:
             nbytes += rows.shape[0] * BLOCK * na * BLOCK
             dirs = rows.shape[0] + int((rows != cols).sum())
+            twice += dirs * BLOCK * na * BLOCK
             ops += 2 * n_pairs(nx, na, nlev, off) * dirs * k * BLOCK * BLOCK
         stats["sym_spmm"][tier] = (
             time_ms(lambda: levels(sym.sym_spmm), 10),
@@ -218,21 +233,61 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
             ms, plain, b_ms, b_by = stats[name][tier]
             log(f"[kernels] {name} {tier}: kernel == plain, kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}) (median, {card})")
+                f"({b_by}), {b_ms / ms:.1%} of the bound (median, {card})")
+        ms = stats["sym_spmm"][tier][0]
+        log(f"[kernels] sym_spmm {tier}: device kernels a matvec "
+            f"{short_names(names)}; read-twice floor {twice / 1e9:.3f} GB, "
+            f"{twice / HBM_BPS * 1e3:.4f} ms, kernel at "
+            f"{twice / HBM_BPS * 1e3 / ms:.1%} of it ({card})")
 
 
-def device_kernels(fn):
+def device_kernels(fn, count):
     """Names of the device kernels one call of ``fn`` runs, as
-    torch.profiler sees them (empty if it sees no device activity)."""
+    torch.profiler sees them (empty if it sees no device activity).
+
+    The call runs 10 ms inside the profiler's window on each side: the
+    profiler can drop the record of a kernel that starts right at the
+    window's edge.  A list shorter than ``count``, the kernels a call
+    launches, is taken again, three times in all; a longer one is
+    returned at once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if not names or len(names) >= count:
+            break
+        log(f"[kernels] torch.profiler saw {short_names(names)} of a call "
+            f"that launches {count} kernels; profiling it again")
+    return names
+
+
+def short_names(names):
+    """Device kernel names without namespaces, template and function
+    arguments."""
+    out = []
+    for n in names:
+        head = re.split(r"[<(]", n.replace("(anonymous namespace)", ""), 1)[0]
+        out.append(head.split("::")[-1].split()[-1])
+    return out
+
+
+def expect_kernels(tag, names, want):
+    """Fail unless the profiler saw exactly the kernels ``want`` (in any
+    order); an empty list (no device activity seen) only logs."""
+    got = short_names(names)
+    if not got:
+        log(f"[kernels] {tag}: torch.profiler saw no device kernels")
+    elif sorted(got) != sorted(want):
+        raise AssertionError(f"{tag} ran {got} on the card, not {want}")
 
 
 def check_kernel_k3(dev, card, stats, max_err):
@@ -265,12 +320,11 @@ def check_kernel_k3(dev, card, stats, max_err):
         err = float((got - want).abs().max())
         max_err["sliced_wide_mm"] = max(max_err["sliced_wide_mm"], err)
         rel = float((got - ref).abs().max() / ref.abs().max())
-        names = device_kernels(lambda: slicing.sliced_wide_mm(a, bb))
+        names = device_kernels(lambda: slicing.sliced_wide_mm(a, bb), 2)
         log(f"[kernels] sliced_wide_mm {tag} {tuple(a.shape)} @ "
             f"{tuple(bb.shape)}: kernel == plain {torch.equal(got, want)}, "
             f"vs cuBLAS f64 {rel:.3e} of max|y|, {calls} counted launch a "
-            f"call, device kernels a call "
-            f"{[n.split('::')[-1].split('(')[0] for n in names]}")
+            f"call, device kernels a call {short_names(names)}")
         if not torch.equal(got, want):
             raise AssertionError(f"wide_mm kernel != plain ({tag})")
         if not rel <= 1e-14:
@@ -373,6 +427,9 @@ def check_kernel_k5(stores, dev, card, stats, max_err):
             if not (torch.equal(got, want) and bool(want.ne(0).any())):
                 raise AssertionError(f"sliced_spmm kernel != plain ({tag} "
                                      f"{tier}), max {err}")
+            names = device_kernels(lambda: bs.sliced_spmm(
+                *args, nx=nx, na=na, nlev=nlev), 1)
+            expect_kernels(f"sliced_spmm {tag}", names, ["level_sums_kernel"])
             # bound: the used planes, x's planes and the levels once each
             stats["sliced_spmm"][(tag, tier)] = (
                 time_ms(lambda: bs.sliced_spmm(*args, nx=nx, na=na,
@@ -387,7 +444,8 @@ def check_kernel_k5(stores, dev, card, stats, max_err):
             log(f"[kernels] sliced_spmm {tag} ({st.nnzb} entries, "
                 f"{st.max_bpr}/row) k={k} {tier}: kernel == plain, kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}) (median, {card})")
+                f"({b_by}), {b_ms / ms:.1%} of the bound, device kernels a "
+                f"call {short_names(names)} (median, {card})")
 
 
 def _irregular_store(dev):
@@ -491,6 +549,9 @@ def check_kernel_k6(general, dev, card, stats, max_err):
             raise AssertionError(f"group_spmm kernel != plain (main path "
                                  f"{tier}), max {err}")
         del got, want
+        names = device_kernels(lambda: dsl.group_spmm(
+            xs, sl, lr, lc, **kw, row_start=row_start), 1)
+        expect_kernels("group_spmm", names, ["level_sums_kernel"])
         p = sl.shape[0]
         # bound: the used planes, x's planes and the levels (padding row
         # included) once each
@@ -506,8 +567,9 @@ def check_kernel_k6(general, dev, card, stats, max_err):
         log(f"[kernels] group_spmm main path (1 rank, {p} entries, "
             f"nbr_loc {one.nbr_loc}) k={k} {tier}: kernel == plain, kernel "
             f"{ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (median, "
-            f"{card})")
+            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / ms:.1%} of the bound, device kernels a call "
+            f"{short_names(names)} (median, {card})")
 
 
 def check_small_matvecs(dev):

@@ -23,8 +23,9 @@
 //     the reference's after its `covered` mask (dist_sliced.py:223-227) and
 //     the caller needs no mask.
 //
-// What bounds it on the H100: as K5, the int8 products on __dp4a; the
-// planes are read from device memory once per 16 rows of x.  At the main
+// What bounds it on the H100: as K5, reading the planes from device memory
+// once per 16 rows of x; the products run on the int8 tensor cores
+// (sliced_mma.cuh, through sliced_spmm.cuh).  At the main
 // path's shape (one rank, one group of 1920 entries, B = 512, k = 15) it is
 // K5's launch on the same store.
 

@@ -18,12 +18,12 @@
 // registers, so it writes each of its outputs once: no atomics, no zeroing
 // pass, a deterministic result, and an empty row writes zeros.
 //
-// What bounds it on the H100: the int8 products, all as __dp4a (4 int8
-// products a lane) on the CUDA cores.  At the f64 tier an entry costs 43
-// plane pairs of (16 x 512) (512 x 512) products, while its 2 MiB of planes
-// is read from device memory once per 16 rows of x.  Tensor-core int8 (mma
-// / wgmma) would raise the ceiling many times; that is work for a later
-// change.
+// The products run on the int8 tensor cores (mma.sync m16n8k32), the
+// entries' strips streamed through a ring of cp.async stages (the tile
+// routine of sliced_mma.cuh, shared with K1).  Its floor on the H100 is
+// reading each entry's used planes (2 MiB at the f64 tier) from device
+// memory once per 16 rows of x; on the band store of one entry a row each
+// CTA waits on that one entry's strips.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -15,179 +15,100 @@
 // (the mirror only off the diagonal, r != c).
 //
 // The TPU kernel walks the entries in order on one core and keeps the whole
-// (nlev k, n) accumulator in VMEM.  Here the CTAs run in any order, so each
-// CTA adds its finished sums into the accumulator in device memory with
-// int32 atomicAdd: integer addition is exact and order-free, so the result
-// is bitwise deterministic, and both plane buckets add into the same
-// accumulator, which the caller zeroes.
+// (nlev k, n) accumulator in VMEM.  Here one CTA owns one (output block row
+// r, tile of 64 output columns, tile of 16 rows of x) and walks r's work
+// list: the bucket's entries with rows == r (direct) and its off-diagonal
+// entries with cols == r (mirror), items [item_start[r], item_start[r+1])
+// of `items`, each 2 e + (1 for the mirror).  The wrapper derives the list
+// from rows and cols (bsr_sliced_sym.py::sym_worklist).  The CTA keeps its
+// sums in registers and adds them into acc with a plain read-add-write:
+// within a launch each output has one owner, so no atomics; both plane
+// buckets add into the same accumulator, one launch each, which the caller
+// zeroes.
 //
-// One CTA takes one entry, one direction (direct or mirror), a tile of 64
-// output columns and up to 16 rows of x.  It stages the x planes of the
-// source block column in shared memory (nx 16 B bytes, 64 KB at the f64
-// tier's nx = 8, B = 512) and, plane by plane, the entry's 64 x B strip laid
-// out [column][l] (transposed for the direct term, as stored for the mirror)
-// with rows padded by 16 bytes so that 128-bit reads by neighbouring
-// columns fall in distinct banks.  Only the pairs with lev < nlev are
-// computed.  Thread (j, g) owns output column j and rows g, g+4, g+8, g+12
-// and keeps their sums for every relative level in registers; the loops
-// over planes and x planes are unrolled, so the level index is static.
-//
-// On the H100 the cost is the int8 products, not the store: at the f64 tier
-// an off-diagonal entry costs 35 plane pairs of (16 x 512) (512 x 512)
-// products per direction, all as __dp4a (4 int8 products a lane) on the
-// CUDA cores, while the store is read from device memory about twice.
-// Tensor-core int8 (mma / wgmma) would raise the ceiling many times; that
-// is work for a later change.
+// The products are int8 tensor-core MMAs (mma.sync m16n8k32 s8 x s8 ->
+// s32), the strips and x's planes streamed through a ring of cp.async
+// stages: the tile routine of sliced_mma.cuh, shared with kernels K5 and
+// K6.  Its floor on the H100 is reading the store with each off-diagonal
+// entry's used planes twice, once a direction (at the f64 tier 3.6 GB a
+// matvec of the flagship operator, 1.09 ms at 3.35 TB/s), beside 43 plane
+// pairs of (16 x 512) (512 x 512) int8 products an entry a direction on
+// the tensor cores; it runs at about 40 % of that floor (sliced_mma.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sliced_mma.cuh"
+
 namespace {
 
-constexpr int kTJ = 64;                 // output columns per CTA
-constexpr int kKC = 16;                 // rows of x per CTA
-constexpr int kKG = 4;                  // row groups; kKC / kKG rows a thread
-constexpr int kRows = kKC / kKG;
-constexpr int kThreads = kTJ * kKG;     // 256
-constexpr int kMaxNx = 8;
-constexpr int kMaxPlanes = 8;
-constexpr int kMaxLev = 9;
+using sliced_mma::kKC;
+using sliced_mma::kTJ;
+using sliced_mma::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-sym_spmm_kernel(const int8_t* __restrict__ xs, const int8_t* __restrict__ slices,
+template <class C>
+__global__ void __launch_bounds__(kThreads, C::kMinBlocks)
+sym_spmm_kernel(const int8_t* __restrict__ xs,
+                const int8_t* __restrict__ slices,
                 const int* __restrict__ rows, const int* __restrict__ cols,
-                int* __restrict__ acc, int k, int n, int B, int width, int nx,
-                int na, int nlev, int plane_off) {
+                const int* __restrict__ items,
+                const int* __restrict__ item_start, int* __restrict__ acc,
+                int k, int n, int B, int width, int nx, int na, int nlev,
+                int plane_off) {
   extern __shared__ __align__(16) int8_t smem[];
-  const int e = blockIdx.x;
-  const int ntile = B / kTJ;
-  const int mirror = blockIdx.y / ntile;
-  const int j0 = (blockIdx.y % ntile) * kTJ;
-  const int k0 = blockIdx.z * kKC;
-  const int kc = min(kKC, k - k0);
-  const int r = rows[e];
-  const int c = cols[e];
-  if (mirror && r == c) return;          // uniform over the CTA
-  const int src = mirror ? r : c;        // block column x is read from
-  const int dst = mirror ? c : r;        // block column the sums go to
-
-  int8_t* xs_s = smem;                   // [nx][kKC][B]
-  const int tstride = B + 16;
-  int8_t* t_s = smem + nx * kKC * B;     // [kTJ][B + 16]
-  const int tid = threadIdx.x;
-  const int j = tid % kTJ;
-  const int g = tid / kTJ;
-  const int vrow = B / 16;               // 16-byte vectors per row of B
-
-  for (int v = tid; v < nx * kKC * vrow; v += kThreads) {
-    const int row = v / vrow;
-    const int c16 = v % vrow;
-    const int ix = row / kKC;
-    const int kk = row % kKC;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (kk < kc) {
-      val = *reinterpret_cast<const int4*>(
-          xs + ((size_t)(ix * k + k0 + kk) * n + (size_t)src * B) + c16 * 16);
-    }
-    *reinterpret_cast<int4*>(xs_s + (size_t)row * B + c16 * 16) = val;
-  }
-
-  int sums[kMaxLev][kRows];
-#pragma unroll
-  for (int rl = 0; rl < kMaxLev; ++rl)
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) sums[rl][q] = 0;
-
-  const size_t rstride = (size_t)width * B;
-  const int8_t* blk = slices + (size_t)e * B * rstride;
-
-#pragma unroll
-  for (int i = 0; i < kMaxPlanes; ++i) {
-    if (i < na && plane_off + i < nlev) {    // uniform over the CTA
-      __syncthreads();                       // x staged / last strip read
-      if (!mirror) {
-        // t_s[jj][l] = T_e[l, i B + j0 + jj]
-        for (int v = tid; v < B * (kTJ / 4); v += kThreads) {
-          const int l = v / (kTJ / 4);
-          const int jj = (v % (kTJ / 4)) * 4;
-          const char4 q4 = *reinterpret_cast<const char4*>(
-              blk + l * rstride + i * B + j0 + jj);
-          t_s[(jj + 0) * tstride + l] = q4.x;
-          t_s[(jj + 1) * tstride + l] = q4.y;
-          t_s[(jj + 2) * tstride + l] = q4.z;
-          t_s[(jj + 3) * tstride + l] = q4.w;
-        }
-      } else {
-        // t_s[jj][l] = T_e[j0 + jj, i B + l]
-        for (int v = tid; v < kTJ * vrow; v += kThreads) {
-          const int jj = v / vrow;
-          const int c16 = v % vrow;
-          *reinterpret_cast<int4*>(t_s + jj * tstride + c16 * 16) =
-              *reinterpret_cast<const int4*>(
-                  blk + (size_t)(j0 + jj) * rstride + i * B + c16 * 16);
-        }
-      }
-      __syncthreads();
-      const int nxi = min(nx, nlev - plane_off - i);
-      const int8_t* trow = t_s + j * tstride;
-      for (int l16 = 0; l16 < vrow; ++l16) {
-        const int4 t = *reinterpret_cast<const int4*>(trow + l16 * 16);
-#pragma unroll
-        for (int ix = 0; ix < kMaxNx; ++ix) {
-          if (i + ix < kMaxLev && ix < nxi) {
-#pragma unroll
-            for (int q = 0; q < kRows; ++q) {
-              const int4 x = *reinterpret_cast<const int4*>(
-                  xs_s + (size_t)(ix * kKC + g + kKG * q) * B + l16 * 16);
-              int a = sums[i + ix][q];
-              a = __dp4a(x.x, t.x, a);
-              a = __dp4a(x.y, t.y, a);
-              a = __dp4a(x.z, t.z, a);
-              a = __dp4a(x.w, t.w, a);
-              sums[i + ix][q] = a;
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rl = 0; rl < kMaxLev; ++rl) {
-    const int lev = plane_off + rl;
-    if (lev < nlev) {
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int kk = g + kKG * q;
-        if (kk < kc && sums[rl][q] != 0) {
-          atomicAdd(acc + (size_t)(lev * k + k0 + kk) * n + (size_t)dst * B +
-                        j0 + j,
-                    sums[rl][q]);
-        }
-      }
-    }
-  }
+  const int r = blockIdx.y;
+  const int p0 = item_start[r], p1 = item_start[r + 1];
+  if (p0 >= p1) return;                  // nothing adds to this block row
+  const sliced_mma::Tile t{xs, slices, k, (int)blockIdx.z * kKC, n, B,
+                           width, nx, na, (int)blockIdx.x * kTJ};
+  auto item = [items, rows, cols](int p) {
+    const int v = items[p];
+    const int e = v >> 1, mirror = v & 1;
+    return sliced_mma::Item{e, mirror ? rows[e] : cols[e], mirror};
+  };
+  int32_t sums[C::kMaxLev][2][4];
+  sliced_mma::tile_sums<C>(smem, t, item, p0, p1, nlev - plane_off, sums);
+  sliced_mma::store_sums<C, true>(acc, sums, plane_off, nlev, k, t.k0, n,
+                                  (size_t)r * B + t.j0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// xs: (nx, k, n) int8; slices: (m, B, width B) int8; rows, cols: (m,) int32;
-// acc: (nlev, k, n) int32, added into.  The caller checks the shapes:
-// B % 64 == 0, B <= 1024, n % B == 0, nx <= 8, na <= min(width, 8),
-// nlev <= plane_off + 9.
+// xs: (nx, k, n) int8; slices: (m, B, width B) int8; rows, cols: (m,)
+// int32; items: int32 work list, item_start: (n / B + 1,) int32 (see
+// above); acc: (nlev, k, n) int32, added into.  The caller checks the
+// shapes: B % 64 == 0, n % B == 0, nx <= 8, na <= min(width, 8),
+// nlev <= plane_off + 9, and xs, slices and acc 16-byte aligned.
 int sym_spmm(const int8_t* xs, const int8_t* slices, const int* rows,
-             const int* cols, int* acc, int m, int k, int n, int B, int width,
-             int nx, int na, int nlev, int plane_off, void* stream) {
-  if (m == 0 || k == 0 || na <= 0 || plane_off >= nlev) return 0;
-  const int smem = nx * kKC * B + kTJ * (B + 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      sym_spmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)m, 2 * (B / kTJ), (k + kKC - 1) / kKC);
-  sym_spmm_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xs, slices, rows, cols, acc, k, n, B, width, nx, na, nlev, plane_off);
+             const int* cols, const int* items, const int* item_start,
+             int* acc, int k, int n, int B, int width, int nx, int na,
+             int nlev, int plane_off, void* stream) {
+  using sliced_mma::Narrow;
+  using sliced_mma::Wide;
+  if (n == 0 || k == 0 || na <= 0 || plane_off >= nlev) return 0;
+  static int smem_narrow = 0, smem_wide = 0;
+  // column tiles fastest: the CTAs of a block row run together and read
+  // the same rows of its entries
+  const dim3 grid(B / kTJ, (unsigned)(n / B), (k + kKC - 1) / kKC);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (Narrow::serves(nx, na, nlev - plane_off)) {
+    const int smem = Narrow::smem_bytes(nx, na);
+    err = sliced_mma::allow_smem(sym_spmm_kernel<Narrow>, smem, smem_narrow);
+    if (err) return err;
+    sym_spmm_kernel<Narrow><<<grid, kThreads, smem, s>>>(
+        xs, slices, rows, cols, items, item_start, acc, k, n, B, width, nx,
+        na, nlev, plane_off);
+  } else {
+    const int smem = Wide::smem_bytes(nx, na);
+    err = sliced_mma::allow_smem(sym_spmm_kernel<Wide>, smem, smem_wide);
+    if (err) return err;
+    sym_spmm_kernel<Wide><<<grid, kThreads, smem, s>>>(
+        xs, slices, rows, cols, items, item_start, acc, k, n, B, width, nx,
+        na, nlev, plane_off);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -267,9 +267,6 @@ def sliced_spmm_plain(xs, slices, rows, cols, row_start, *, nx: int,
     return lev.reshape(nlev * k, n_out).to(torch.int32)
 
 
-_SMEM_MAX = 232448   # dynamic shared memory a block may use on Hopper
-
-
 def _launch_level_sums(wrapper, xs, slices, cols, row_start, *, nx: int,
                        na: int, nlev: int, n_out: int) -> torch.Tensor:
     """Check the arguments of kernel K5 or K6, which share their device
@@ -290,13 +287,12 @@ def _launch_level_sums(wrapper, xs, slices, cols, row_start, *, nx: int,
     width = slices.shape[2] // B if B else 0
     n = xs.shape[-1]
     k = xs.numel() // (nx * n) if n and nx > 0 else 0
-    smem = nx * 16 * B + 64 * (B + 16)
-    if (B <= 0 or B % 64 or B > 1024 or n % B or n_out % B or xs.ndim != 2
+    if (B <= 0 or B % 64 or n % B or n_out % B or xs.ndim != 2
             or slices.ndim != 3 or slices.shape[2] != width * B
             or xs.numel() != nx * k * n or cols.shape != (m,)
-            or row_start.shape != (n_out // B,)
+            or not 0 < n_out // B < 65536 or row_start.shape != (n_out // B,)
             or not 0 < nx <= 8 or not 0 < na <= min(width, 8)
-            or not 0 < nlev <= 9 or smem > _SMEM_MAX
+            or not 0 < nlev <= 9
             or xs.data_ptr() % 16 or slices.data_ptr() % 16
             or max(n, n_out, m, nlev * k) >= 2 ** 31):
         raise ValueError(
@@ -332,8 +328,8 @@ def sliced_spmm(xs, slices, rows, cols, row_start, *, nx: int, na: int,
 
     Arguments as :func:`sliced_spmm_plain`.  On CPU tensors this is the
     plain version; on CUDA tensors it launches ``csrc/sliced_spmm.cu``
-    (one CTA per block row and tile, each output written once, bitwise
-    equal to the plain version) or raises.
+    (one CTA per block row and tile, int8 tensor-core products, each
+    output written once, bitwise equal to the plain version) or raises.
     """
     if xs.device.type == "cpu":
         return sliced_spmm_plain(xs, slices, rows, cols, row_start, nx=nx,

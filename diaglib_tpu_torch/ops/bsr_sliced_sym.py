@@ -42,7 +42,7 @@ from .slicing import combine_weights, pow2_grid, slice_scaled
 
 __all__ = ["SymSlicedBSR", "slice_bsr_sym", "sym_sliced_matvec",
            "sliced_matvec_any", "sym_spmm", "sym_spmm_plain",
-           "sym_store_from_arrays"]
+           "sym_store_from_arrays", "sym_worklist"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,8 +218,28 @@ def slice_bsr_sym(m: BSRMatrix, na: int | None = None,
 _PLAIN_CHUNK = 32   # entries per batched product in sym_spmm_plain
 
 
+def sym_worklist(rows: torch.Tensor, cols: torch.Tensor, nbr: int):
+    """Kernel K1's work list of one bucket: ``(items, item_start)``, int32.
+
+    Every (entry, direction) pair once, grouped by the block row it adds
+    to: the direct term of entry e (code 2e) goes to block row rows[e], the
+    mirror term (code 2e + 1) to cols[e], and only off the diagonal.  The
+    items of block row r are ``items[item_start[r]:item_start[r + 1]]``
+    (``item_start`` has nbr + 1 entries), entries in store order within a
+    direction, the direct terms first."""
+    rows, cols = rows.long(), cols.long()
+    e = torch.arange(rows.shape[0], device=rows.device)
+    off = rows != cols
+    dest = torch.cat([rows, cols[off]])
+    order = torch.argsort(dest, stable=True)
+    items = torch.cat([2 * e, 2 * e[off] + 1])[order].to(torch.int32)
+    item_start = torch.searchsorted(
+        dest[order], torch.arange(nbr + 1, device=rows.device))
+    return items.contiguous(), item_start.to(torch.int32)
+
+
 def sym_spmm_plain(xs, slices, rows, cols, acc, *, nx: int, na: int,
-                   nlev: int, plane_off: int):
+                   nlev: int, plane_off: int, items=None, item_start=None):
     """The plain torch version of kernel K1: adds one bucket's level sums
     into the int32 accumulator ``acc`` (nlev*k, n), in place.
 
@@ -228,7 +248,8 @@ def sym_spmm_plain(xs, slices, rows, cols, acc, *, nx: int, na: int,
     ``rows``/``cols`` (m,) block coordinates.  Pair (x plane ix, stored
     plane i) goes to level plane_off + i + ix when that is below nlev.
     The products are float64 matmuls of the planes, exact because every
-    partial sum is an integer below 2^53.
+    partial sum is an integer below 2^53.  ``items``/``item_start`` (the
+    kernel's :func:`sym_worklist`) are accepted and not needed.
     """
     m, B = slices.shape[0], slices.shape[1]
     n = xs.shape[1]
@@ -264,7 +285,7 @@ def _spmm_lib():
     lib = _build.library("sym_spmm")
     if not getattr(lib, "_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sym_spmm.argtypes = [p, p, p, p, p] + [i32] * 9 + [p]
+        lib.sym_spmm.argtypes = [p] * 7 + [i32] * 8 + [p]
         lib.sym_spmm.restype = i32
         lib.sym_spmm_error_string.argtypes = [i32]
         lib.sym_spmm_error_string.restype = ctypes.c_char_p
@@ -272,39 +293,46 @@ def _spmm_lib():
     return lib
 
 
-_SMEM_MAX = 232448   # dynamic shared memory a block may use on Hopper
-
-
 def sym_spmm(xs, slices, rows, cols, acc, *, nx: int, na: int, nlev: int,
-             plane_off: int):
+             plane_off: int, items=None, item_start=None):
     """Add one bucket's level sums into ``acc`` (kernel K1).
 
     Arguments as :func:`sym_spmm_plain`.  On CPU tensors this is the plain
-    version; on CUDA tensors it launches ``csrc/sym_spmm.cu`` (int32
-    atomics, bitwise equal to the plain version) or raises.
+    version; on CUDA tensors it launches ``csrc/sym_spmm.cu`` (one CTA per
+    output block row and tile walking the bucket's :func:`sym_worklist`,
+    int8 tensor-core products, bitwise equal to the plain version) or
+    raises.  The work list is derived here when it is not given.
     """
     if xs.device.type == "cpu":
         return sym_spmm_plain(xs, slices, rows, cols, acc, nx=nx, na=na,
                               nlev=nlev, plane_off=plane_off)
     if xs.device.type != "cuda":
         raise ValueError(f"sym_spmm: unsupported device {xs.device}")
+    m, B = slices.shape[0], slices.shape[1]
+    n = xs.shape[-1]
+    if items is None or item_start is None:
+        items, item_start = sym_worklist(rows, cols, n // B if B > 0 else 0)
     for name, t, dt in (("xs", xs, torch.int8), ("slices", slices, torch.int8),
                         ("rows", rows, torch.int32),
                         ("cols", cols, torch.int32),
+                        ("items", items, torch.int32),
+                        ("item_start", item_start, torch.int32),
                         ("acc", acc, torch.int32)):
         if t.device != xs.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"sym_spmm: {name} must be a contiguous {dt} "
                              f"tensor on {xs.device}")
-    m, B = slices.shape[0], slices.shape[1]
     width = slices.shape[2] // B if B else 0
-    n = xs.shape[-1]
-    k = xs.numel() // (nx * n) if n else 0
-    smem = nx * 16 * B + 64 * (B + 16)
-    if (B % 64 or B > 1024 or n % B or slices.shape[2] != width * B
+    k = xs.numel() // (nx * n) if n and nx > 0 else 0
+    if (B <= 0 or B % 64 or n % B or slices.ndim != 3
+            or slices.shape[2] != width * B
             or xs.numel() != nx * k * n or tuple(acc.shape) != (nlev * k, n)
-            or rows.shape != (m,) or cols.shape != (m,)
+            or rows.shape != (m,) or cols.shape != (m,) or items.ndim != 1
+            or n // B >= 65536 or item_start.shape != (n // B + 1,)
             or not 0 < nx <= 8 or na > min(width, 8)
-            or nlev - plane_off > 9 or smem > _SMEM_MAX):
+            or nlev - plane_off > 9
+            or xs.data_ptr() % 16 or slices.data_ptr() % 16
+            or acc.data_ptr() % 16
+            or max(n, 2 * m, nlev * k) >= 2 ** 31):
         raise ValueError(
             f"sym_spmm: unsupported shapes xs={tuple(xs.shape)} "
             f"slices={tuple(slices.shape)} acc={tuple(acc.shape)} nx={nx} "
@@ -314,7 +342,8 @@ def sym_spmm(xs, slices, rows, cols, acc, *, nx: int, na: int, nlev: int,
     lib = _spmm_lib()
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     err = lib.sym_spmm(xs.data_ptr(), slices.data_ptr(), rows.data_ptr(),
-                       cols.data_ptr(), acc.data_ptr(), m, k, n, B, width,
+                       cols.data_ptr(), items.data_ptr(),
+                       item_start.data_ptr(), acc.data_ptr(), k, n, B, width,
                        nx, na, nlev, plane_off, stream)
     if err:
         raise RuntimeError(
@@ -349,7 +378,8 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
             (m.rows, m.cols, m.slices, 0), (m.rows1, m.cols1, m.slices1, 1)):
         na_b = min(na_used - plane_off, slices_b.shape[-1] // B)
         if rows_b.shape[0] and na_b > 0:
-            buckets.append((rows_b, cols_b, slices_b, na_b, plane_off))
+            work = sym_worklist(rows_b, cols_b, n // B)
+            buckets.append((rows_b, cols_b, slices_b, na_b, plane_off, work))
 
     def mv(x):
         k = x.shape[0]
@@ -358,9 +388,10 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
         # fold the separable grid into x (exact power-of-two multiply)
         xs, sx = _slice_x(x.to(acc_dtype) * u[None, :], nx)
         acc = torch.zeros((nlev * k, n), dtype=torch.int32, device=x.device)
-        for rows_b, cols_b, slices_b, na_b, plane_off in buckets:
+        for rows_b, cols_b, slices_b, na_b, plane_off, work in buckets:
             sym_spmm(xs, slices_b, rows_b, cols_b, acc, nx=nx, na=na_b,
-                     nlev=nlev, plane_off=plane_off)
+                     nlev=nlev, plane_off=plane_off, items=work[0],
+                     item_start=work[1])
         y = _combine_levels(acc, w, nlev, k, n, acc_dtype)
         y = y * sx.to(acc_dtype) * u[None, :]
         return y.to(dtype)

@@ -9,7 +9,12 @@ The peel (K2), the symmetric sliced SpMM (K1), the general sliced SpMM
 (K5), the distributed group SpMM (K6, on an irregular partition with
 padding entries and uncovered rows) and the wide-rotation product (K3)
 must be bitwise equal to their plain versions (integer planes and level
-sums; K3 also combines its levels in the plain version's order); the
+sums; K3 also combines its levels in the plain version's order).  K1 and K5
+are also held so on synthetic stores at the edges of their tensor-core
+tiles: k = 1, 15, 16, 17, 33 rows of x, B = 64, 128, 512, a store of
+diagonal entries only, one whose first bucket holds no diagonal entry, one
+of planes at +-64 whose level sums reach 2^30 (the int32 guard's limit),
+the band store of one entry a row and a store with empty rows.  The
 float64 matvec and K3 are held to float64 oracles at 1e-14 max|y|.
 The plain BSR SpMM (K4) sums in another order than its plain version:
 float32 within 1e-5 max|y| (the reference's kernel bound), bfloat16 within
@@ -41,6 +46,7 @@ from diaglib_tpu_torch.ops.bsr_sliced_sym import (
     sym_sliced_matvec,
     sym_spmm,
     sym_spmm_plain,
+    sym_worklist,
 )
 
 pytestmark = pytest.mark.cuda
@@ -436,3 +442,135 @@ def test_group_spmm_checks_its_inputs(dev):
         group_spmm(xs, sl, lr, lc, **dict(kw, nlev=10))
     with pytest.raises(ValueError):        # float x
         group_spmm(xs.float(), sl, lr, lc, **kw)
+
+
+# ---- K1 and K5 on the tensor cores: synthetic stores at the tile edges ----
+
+TC_K = [1, 15, 16, 17, 33]
+TC_BLOCKS = [64, 128, 512]
+TIERS = {"f64": (8, 9, 8), "f32": (4, 4, 4)}     # nx, nlev, stored planes used
+
+
+def _int8_planes(shape, g, dev, signs_only=False):
+    if signs_only:
+        return (64 * (2 * torch.randint(0, 2, shape, generator=g, device=dev)
+                      - 1)).to(torch.int8)
+    return torch.randint(-64, 65, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+_K1_CASES = {}
+
+
+def _k1_case(kind, B, dev):
+    """(buckets [(rows, cols, slices, plane_off)], n) of a symmetric store:
+    "diagonal": only diagonal entries, in both buckets; "no_diag_bucket0":
+    bucket 0 holds only off-diagonal entries, bucket 1 the diagonal and one
+    more; "guard_limit": block row 0 holds 2^15 / B entries of planes all
+    +64, the most the store's int32 guard admits, so with x planes at +64
+    its level sums reach 2^30."""
+    key = (kind, B)
+    if key in _K1_CASES:
+        return _K1_CASES[key]
+    g = torch.Generator(device=dev).manual_seed(B + len(kind))
+    if kind == "guard_limit":
+        nbr = 2 ** 15 // B
+        pats = ([(0, c) for c in range(nbr)], [])
+    elif kind == "diagonal":
+        nbr = 4
+        pats = ([(0, 0), (2, 2)], [(1, 1), (3, 3)])
+    else:
+        nbr = 4
+        pats = ([(0, 1), (0, 3), (1, 2), (2, 3)],
+                [(0, 0), (1, 1), (1, 3), (2, 2), (3, 3)])
+    buckets = []
+    for off, pat in enumerate(pats):
+        if not pat:
+            continue
+        rows = torch.tensor([p[0] for p in pat], dtype=torch.int32,
+                            device=dev)
+        cols = torch.tensor([p[1] for p in pat], dtype=torch.int32,
+                            device=dev)
+        shape = (len(pat), B, (8 - off) * B)
+        sl = (torch.full(shape, 64, dtype=torch.int8, device=dev)
+              if kind == "guard_limit" else _int8_planes(shape, g, dev))
+        buckets.append((rows, cols, sl, off))
+    _K1_CASES[key] = (buckets, nbr * B)
+    return _K1_CASES[key]
+
+
+@pytest.mark.parametrize("kind", ["diagonal", "no_diag_bucket0",
+                                  "guard_limit"])
+@pytest.mark.parametrize("block", TC_BLOCKS)
+@pytest.mark.parametrize("k", TC_K)
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_sym_spmm_tile_edges_bit_equal(dev, tier, k, block, kind):
+    buckets, n = _k1_case(kind, block, dev)
+    nx, nlev, na_used = TIERS[tier]
+    g = torch.Generator(device=dev).manual_seed(k)
+    limit = kind == "guard_limit"
+    xs = _int8_planes((nx * k, n), g, dev, signs_only=limit)
+    if limit:
+        xs.view(nx, k, n)[:, 0] = 64
+    got = torch.zeros((nlev * k, n), dtype=torch.int32, device=dev)
+    want = torch.zeros_like(got)
+    for rows, cols, sl, off in buckets:
+        na = min(na_used - off, sl.shape[-1] // block)
+        items, start = sym_worklist(rows, cols, n // block)
+        before = sym_spmm.launches
+        sym_spmm(xs, sl, rows, cols, got, nx=nx, na=na, nlev=nlev,
+                 plane_off=off, items=items, item_start=start)
+        assert sym_spmm.launches == before + 1
+        sym_spmm_plain(xs, sl, rows, cols, want, nx=nx, na=na, nlev=nlev,
+                       plane_off=off)
+    torch.cuda.synchronize()
+    assert bool(want.ne(0).any())
+    assert torch.equal(got, want)
+    if limit:       # level nx - 1 of row 0 of block row 0: 2^30 exactly
+        top = want.view(nlev, k, n)[min(nx, nlev) - 1, 0, :block]
+        assert int(top.max()) == 2 ** 30 * min(nx, na_used, nlev) // 8
+
+
+_K5_CASES = {}
+
+
+def _k5_case(kind, B, dev):
+    """(slices, rows, cols, row_start, n) of a general store: "band", one
+    entry a row at (r, r + 1 mod 8); "empty_rows", block rows 1, 4 and 6
+    without entries."""
+    key = (kind, B)
+    if key in _K5_CASES:
+        return _K5_CASES[key]
+    nbr = 8
+    pat = ([(r, (r + 1) % nbr) for r in range(nbr)] if kind == "band" else
+           [(0, 0), (0, 5), (2, 2), (3, 1), (5, 7), (7, 7)])
+    rows = torch.tensor([p[0] for p in pat], dtype=torch.int32, device=dev)
+    cols = torch.tensor([p[1] for p in pat], dtype=torch.int32, device=dev)
+    row_start = torch.searchsorted(rows, torch.arange(
+        nbr, dtype=torch.int32, device=dev)).to(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(B + 1)
+    sl = _int8_planes((len(pat), B, 8 * B), g, dev)
+    _K5_CASES[key] = (sl, rows, cols, row_start, nbr * B)
+    return _K5_CASES[key]
+
+
+@pytest.mark.parametrize("kind", ["band", "empty_rows"])
+@pytest.mark.parametrize("block", TC_BLOCKS)
+@pytest.mark.parametrize("k", TC_K)
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_sliced_spmm_tile_edges_bit_equal(dev, tier, k, block, kind):
+    sl, rows, cols, row_start, n = _k5_case(kind, block, dev)
+    nx, nlev, na = TIERS[tier]
+    g = torch.Generator(device=dev).manual_seed(k)
+    xs = _int8_planes((nx * k, n), g, dev)
+    args = (xs, sl, rows, cols, row_start)
+    before = sliced_spmm.launches
+    got = sliced_spmm(*args, nx=nx, na=na, nlev=nlev)
+    torch.cuda.synchronize()
+    assert sliced_spmm.launches == before + 1
+    want = sliced_spmm_plain(*args, nx=nx, na=na, nlev=nlev)
+    assert bool(want.ne(0).any())
+    assert torch.equal(got, want)
+    if kind == "empty_rows":              # rows 1, 4, 6 write zeros
+        lv = got.reshape(nlev, k, 8, block)
+        assert not bool(lv[:, :, [1, 4, 6]].ne(0).any())

@@ -28,6 +28,7 @@ from diaglib_tpu_torch.ops.bsr_sliced_sym import (
     sym_spmm,
     sym_spmm_plain,
     sym_store_from_arrays,
+    sym_worklist,
 )
 
 STORE_FIELDS = ("slices", "slices1", "u_scale", "rows", "cols", "rows1",
@@ -201,3 +202,47 @@ def test_store_from_arrays_rejects_bad_coordinates(problem, field, value):
     d[field][0] = value
     with pytest.raises(ValueError, match="malformed"):
         sym_store_from_arrays(d)
+
+
+@pytest.mark.parametrize("bucket", [0, 1])
+def test_worklist_covers_every_pair_once(problem, bucket):
+    """Kernel K1's work list on the store carried from JAX: each (entry,
+    direction) pair exactly once, under the block row it adds to, and no
+    mirror on the diagonal."""
+    _, js, _, _, _ = problem
+    st = sym_store_from_arrays(_arrays(js))
+    rows, cols = (st.rows, st.cols) if bucket == 0 else (st.rows1, st.cols1)
+    nbr = st.n // st.block
+    items, start = sym_worklist(rows, cols, nbr)
+    assert items.dtype == start.dtype == torch.int32
+    assert start.shape == (nbr + 1,) and int(start[0]) == 0
+    assert bool((start[1:] >= start[:-1]).all())
+    assert int(start[-1]) == items.shape[0]
+    r, c = rows.numpy(), cols.numpy()
+    seen = []
+    for dest in range(nbr):
+        for v in items[int(start[dest]):int(start[dest + 1])].tolist():
+            e, mirror = divmod(v, 2)
+            assert dest == (c[e] if mirror else r[e])
+            seen.append((e, mirror))
+    want = [(e, 0) for e in range(r.size)] + [
+        (e, 1) for e in range(r.size) if r[e] != c[e]]
+    assert sorted(seen) == sorted(want) and len(seen) == len(set(seen))
+    # bucket 0 holds the diagonal here, bucket 1 the off-diagonal entries
+    assert r.size and bool((r != c).any()) == (bucket == 1)
+
+
+def test_plain_version_ignores_the_worklist(problem):
+    _, _, _, ts, _ = problem
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.integers(-64, 65, (4 * 2, ts.n)).astype(
+        np.int8))
+    kw = dict(nx=4, na=4, nlev=4, plane_off=0)
+    want = sym_spmm_plain(xs, ts.slices, ts.rows, ts.cols,
+                          torch.zeros((8, ts.n), dtype=torch.int32), **kw)
+    items, start = sym_worklist(ts.rows, ts.cols, ts.n // ts.block)
+    for fn in (sym_spmm_plain, sym_spmm):
+        got = fn(xs, ts.slices, ts.rows, ts.cols,
+                 torch.zeros((8, ts.n), dtype=torch.int32), **kw,
+                 items=items, item_start=start)
+        assert torch.equal(got, want)
