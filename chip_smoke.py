@@ -22,7 +22,13 @@ Phases (any failure raises and the script exits non-zero):
    the peel (K2) at (15, 65536) and the symmetric SpMM (K1) on the store,
    both precision tiers, bit for bit, one device kernel a bucket and no
    other (torch.profiler), with the floor of reading each entry's planes
-   once a direction; the wide-rotation product (K3) at
+   once a direction; K2's fused entry, the x side of the sliced matvec
+   from x to planes and row scales, at the symmetric store's (15, 65536)
+   with its column grid and at (10, 65536) without, both tiers, bit for
+   bit, one device kernel a call and no other, with its device time
+   (torch.profiler), the host time of its wrapper and of the wrapper's
+   parts, and, in the same call, the unfused chain it replaced, and the
+   device kernels of one warm symmetric matvec a tier; the wide-rotation product (K3) at
    (15, 165) @ (165, 65536) in the mm and mTm layouts and at ortho_cd's
    Cholesky step (15, 15) @ (15, 65536), bit for bit, two device kernels a
    call and no other (torch.profiler), and against cuBLAS float64 (1e-14
@@ -176,7 +182,9 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
         if not torch.equal(got, want):
             raise AssertionError(f"peel kernel != plain ({tier}), max {err}")
         numel = t.numel()
-        stats["peel_rows"][tier] = (
+        stats["peel_rows"][f"prescaled device {tier}"] = device_ms(
+            lambda: slicing.peel_rows(t, nx, 7), "peel_kernel")
+        stats["peel_rows"][f"prescaled {tier}"] = (
             time_ms(lambda: slicing.peel_rows(t, nx, 7), 50),
             time_ms(lambda: slicing.peel_rows_plain(t, nx, 7), 20),
             *bound(numel * t.element_size() + nx * numel, 4 * nx * numel,
@@ -229,8 +237,9 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
             time_ms(lambda: levels(sym.sym_spmm), 10),
             time_ms(lambda: levels(sym.sym_spmm_plain), 3),
             *bound(nbytes, ops, INT8_OPS))
-        for name in ("peel_rows", "sym_spmm"):
-            ms, plain, b_ms, b_by = stats[name][tier]
+        for name, key in (("peel_rows", f"prescaled {tier}"),
+                          ("sym_spmm", tier)):
+            ms, plain, b_ms, b_by = stats[name][key]
             log(f"[kernels] {name} {tier}: kernel == plain, kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}), {b_ms / ms:.1%} of the bound (median, {card})")
@@ -239,6 +248,182 @@ def check_kernels_k1_k2(store, dev, card, stats, max_err):
             f"{short_names(names)}; read-twice floor {twice / 1e9:.3f} GB, "
             f"{twice / HBM_BPS * 1e3:.4f} ms, kernel at "
             f"{twice / HBM_BPS * 1e3 / ms:.1%} of it ({card})")
+
+
+def device_ms(fn, name, reps=50):
+    """Median device time in ms of the kernel ``name`` (a short name) over
+    ``reps`` calls of ``fn``, from torch.profiler's records (None if the
+    profiler sees no such kernel); ``name`` None: the mean device time a
+    call of all its kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (name is None or short_names([e.name]) == [name])]
+    if name is None:
+        return sum(times) / reps if times else None
+    return statistics.median(times) if times else None
+
+
+def check_kernel_k2_front_end(store, dev, card, stats, max_err):
+    """K2's fused entry, the x side of the sliced matvec in one launch, as
+    the matvecs drive it: the symmetric store's (15, 65536) with its column
+    grid u and the general store's (10, 65536) without, both tiers (float32
+    x on the float32 tier).  Each bit for bit against its plain version
+    (planes and row scales), one device kernel a call and no other
+    (torch.profiler), timed on the card (profiler) and with its wrapper
+    (CUDA events), beside the unfused chain it replaces (the fold, the grid
+    in torch and the pre-scaled peel), with the host time of the wrapper
+    and of its parts (:func:`wrapper_host_us`)."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
+    from diaglib_tpu_torch.ops import slicing
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    f64, f32 = torch.float64, torch.float32
+    x = torch.randn((N_MAX, N), generator=g, dtype=f64, device=dev)
+    x = x * 2.0 ** torch.randint(-8, 8, (N_MAX, 1), generator=g, device=dev)
+    # the symmetric matvec hands K2 its column grid in the accumulation type
+    cases = {"sym f64": (x, 8, store.u_scale, f64),
+             "sym f32": (x.float(), 4, store.u_scale.float(), f32),
+             "k10 f64": (x[:NS_MAX].contiguous(), 8, None, f64),
+             "k10 f32": (x[:NS_MAX].float(), 4, None, f32)}
+    for tag, (xc, nx, u, acc) in cases.items():
+        kw = dict(col_scale=u, acc_dtype=acc,
+                  work_dtype=f64 if nx > 4 else acc)
+
+        def fused():
+            return slicing.slice_rows(xc, nx, **kw)
+
+        def unfused():      # the chain before K2 took it whole
+            work = xc.to(acc) if u is None else xc.to(acc) * u
+            t, sx = slicing._row_grid(work.to(kw["work_dtype"]), 7)
+            return slicing.peel_rows(t, nx, 7), sx.to(acc)
+
+        got, got_sx = fused()
+        want, want_sx = slicing.slice_rows_plain(xc, nx, **kw)
+        chain, chain_sx = unfused()
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        max_err["peel_rows"] = max(max_err["peel_rows"], err)
+        if not (torch.equal(got, want) and torch.equal(got_sx, want_sx)
+                and torch.equal(chain, want)
+                and torch.equal(chain_sx, want_sx)):
+            raise AssertionError(f"slice_rows kernel != plain ({tag}), "
+                                 f"max {err}")
+        names = device_kernels(fused, 1)
+        expect_kernels(f"slice_rows {tag}", names, ["slice_rows_kernel"])
+        chain_names = device_kernels(unfused, 2)
+        numel = xc.numel()
+        nbytes = (numel * xc.element_size() + nx * numel
+                  + xc.shape[0] * got_sx.element_size()
+                  + (0 if u is None else u.numel() * u.element_size()))
+        b_ms, b_by = bound(nbytes, 4 * nx * numel, F32_FLOPS)
+        entry = dict(
+            ms=time_ms(fused, 50), plain_ms=time_ms(
+                lambda: slicing.slice_rows_plain(xc, nx, **kw), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            device_ms=device_ms(fused, "slice_rows_kernel"),
+            unfused_ms=time_ms(unfused, 50),
+            unfused_kernels=len(chain_names),
+            host_us=wrapper_host_us(xc, nx, kw),
+            # a floor of the card for as many bytes: one elementwise
+            # torch op that reads x and writes as much
+            stream_device_ms=device_ms(lambda: xc * 2.0, None))
+        stats["peel_rows"][tag] = entry
+        dev_ms = entry["device_ms"]
+        share = "" if dev_ms is None else f"{b_ms / dev_ms:.1%} of the bound, "
+        log(f"[kernels] slice_rows {tag} {tuple(xc.shape)} nx={nx}"
+            f"{' u' if u is not None else ''}: kernel == plain, "
+            f"device kernels a call {short_names(names)}; device "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, {share}"
+            f"wrapper included {entry['ms']:.4f} ms, unfused chain "
+            f"{entry['unfused_ms']:.4f} ms in {len(chain_names)} device "
+            f"kernels, plain {entry['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); x * 2.0 on the card "
+            f"{entry['stream_device_ms']} ms (median, {card})")
+        log(f"[kernels] slice_rows {tag} wrapper, host us a call: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in entry["host_us"].items())
+            + f" (median, {card})")
+    # the device kernels of one warm symmetric matvec a tier: the front end
+    # is one of them (the parent's chain was the unfused count above)
+    for tier, dt in (("f64", f64), ("f32", f32)):
+        mv = sym.sym_sliced_matvec(store, dtype=dt)
+        xm = x.to(dt)
+        mv(xm)
+        names = device_kernels(lambda: mv(xm), 3)
+        stats["peel_rows"][f"sym {tier}"]["matvec_kernels"] = len(names)
+        log(f"[kernels] sym_sliced_matvec {tier}: {len(names)} device "
+            f"kernels a warm call: {short_names(names)}")
+
+
+def wrapper_host_us(x, nx, kw, reps=200, rounds=7):
+    """Host microseconds a call of K2's fused wrapper ``slice_rows`` takes,
+    and of its parts: ``wrapper`` the whole call; ``launch`` the ctypes
+    call into the library with its arguments made beforehand (argument
+    conversion and the cluster launch); ``ctypes`` the same call on zero
+    rows, which returns before the launch; ``args`` making those
+    arguments (``_peel_lib``, the raw stream handle, data pointers and
+    strides); ``empty`` the two ``torch.empty`` of planes and scales; and
+    ``checks``, the rest: the wrapper's argument checks and Python calls.
+
+    Each is the median over ``rounds`` of ``reps`` calls timed on the host
+    clock without a synchronisation inside (fewer launches than the
+    launch queue holds, so the host never waits for the card)."""
+    import torch
+
+    from diaglib_tpu_torch.ops import slicing
+
+    f32 = torch.float32
+    u, acc, work = kw["col_scale"], kw["acc_dtype"], kw["work_dtype"]
+    k, n = x.shape
+    planes = torch.empty((nx, k, n), dtype=torch.int8, device=x.device)
+    sx = torch.empty((k, 1), dtype=acc, device=x.device)
+
+    def args(rows=k):
+        lib = slicing._peel_lib()
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+        return lib, (x.data_ptr(), x.dtype == f32, x.stride(0), x.stride(1),
+                     None if u is None else u.data_ptr(), rows, n, nx,
+                     acc == f32, work == f32, acc == f32, planes.data_ptr(),
+                     sx.data_ptr(), stream)
+
+    lib, full = args()
+    _, empty_rows = args(0)
+    if lib.slice_rows(*full) or lib.slice_rows(*empty_rows):
+        raise AssertionError("slice_rows: the raw launch failed")
+
+    def empty():
+        torch.empty((nx, k, n), dtype=torch.int8, device=x.device)
+        torch.empty((k, 1), dtype=acc, device=x.device)
+
+    parts = {"wrapper": lambda: slicing.slice_rows(x, nx, **kw),
+             "launch": lambda: lib.slice_rows(*full),
+             "ctypes": lambda: lib.slice_rows(*empty_rows),
+             "args": args, "empty": empty}
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(rounds):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times.append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+        out[name] = statistics.median(times)
+    out["checks"] = out["wrapper"] - out["launch"] - out["args"] - out["empty"]
+    return out
 
 
 def device_kernels(fn, count):
@@ -832,6 +1017,7 @@ def main():
     max_err = {"peel_rows": 0.0, "sym_spmm": 0.0, "sliced_wide_mm": 0.0,
                "bsr_spmm": 0.0, "sliced_spmm": 0.0, "group_spmm": 0.0}
     check_kernels_k1_k2(store, dev, card, stats, max_err)
+    check_kernel_k2_front_end(store, dev, card, stats, max_err)
     check_kernel_k3(dev, card, stats, max_err)
     check_kernel_k4(m, dev, card, stats, max_err)
     check_kernel_k5((("T band", ns_stores[1], NS_MAX),
@@ -970,7 +1156,24 @@ def main():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max_err[name]}
-        if name in ("peel_rows", "sym_spmm", "group_spmm"):
+        if name == "peel_rows":
+            # the main path's shape: the fused entry on the symmetric
+            # store's (15, 65536) with u, float64 tier; then the others and
+            # the pre-scaled entry
+            st = stats[name]
+            entry.update(st["sym f64"], library_ms=None)
+            for tag in ("sym f32", "k10 f64", "k10 f32"):
+                key = tag.replace("sym ", "").replace(" ", "_")
+                entry.update({f"{k}_{key}": v for k, v in st[tag].items()
+                              if k != "bound_by"})
+            for tier in ("f64", "f32"):
+                ms_, plain_, b_, _ = st[f"prescaled {tier}"]
+                entry.update({f"prescaled_ms_{tier}": ms_,
+                              f"prescaled_device_ms_{tier}":
+                                  st[f"prescaled device {tier}"],
+                              f"prescaled_plain_ms_{tier}": plain_,
+                              f"prescaled_bound_ms_{tier}": b_})
+        elif name in ("sym_spmm", "group_spmm"):
             (ms, plain, b_ms, b_by), (ms32, plain32, b32, _) = (
                 stats[name]["f64"], stats[name]["f32"])
             entry.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,

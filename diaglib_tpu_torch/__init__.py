@@ -5,15 +5,17 @@ drivers (Davidson, standard and generalized, and LOBPCG, standard and
 generalized) and of the two-sided nonsymmetric Davidson, over the
 symmetric and general integer-sliced BSR operators or the plain BSR
 operator.  Plain tensor code is PyTorch; the kernels are CUDA C++ in
-``csrc/``, built by ``nvcc`` at first use: the slice peel
-(``ops.slicing.peel_rows``), the symmetric sliced SpMM
+``csrc/``, built by ``nvcc`` at first use: the slice peel, which also
+takes the whole x side of a sliced matvec in one launch
+(``ops.slicing.slice_rows``, ``peel_rows``), the symmetric sliced SpMM
 (``ops.bsr_sliced_sym.sym_spmm``), the exact wide-rotation product
 (``ops.slicing.sliced_wide_mm``), the plain BSR SpMM
 (``ops.bsr.bsr_spmm``), the general sliced SpMM
 (``ops.bsr_sliced.sliced_spmm``) and the distributed group SpMM
 (``ops.dist_sliced.group_spmm``).  On CPU tensors they run their plain
-torch versions.  The problem generators make their tensors on the CUDA
-device unless the caller names another.
+torch versions.  The problem generators, and the functions that carry
+the JAX package's stores across, make their tensors on the CUDA device
+unless the caller names another.
 
 The symmetric drivers and their ladders also run sharded over a
 ``torch.distributed`` group (``sharding=`` a

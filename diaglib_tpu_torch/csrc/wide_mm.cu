@@ -45,11 +45,12 @@
 //      do, so the two agree bit for bit.  (The TPU kernel wrote an exact
 //      float32 triple instead, for VMEM reasons only.)
 //
-// The peel is K2's chain (peel.cuh) in another form that gives the same
-// planes: the remainders are kept scaled by 2^{7(p+1)}, and each rint is
-// the add of 1.5 * 2^23 (exact round-half-even for |x| <= 2^22), whose low
-// byte is the plane's int8.  That keeps the chain on the float32 pipe, with
-// no conversion instructions but the triple's split.
+// The grid rule and the peel are K2's (peel.cuh: peel::grid2, peel::peel8),
+// the chain in a form that gives the same planes: the remainders are kept
+// scaled by 2^{7(p+1)}, and each rint is the add of 1.5 * 2^23 (exact
+// round-half-even for |x| <= 2^22), whose low byte is the plane's int8.
+// That keeps the chain on the float32 pipe, with no conversion
+// instructions but the triple's split.
 //
 // What bounds it on the H100: reading b once (8 K n bytes) and the float32
 // peel of b (about 70 instructions an element); the 43 plane pairs are
@@ -67,10 +68,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kNW = 8;          // columns of b a warp's tile: the MMA's N
 constexpr int kMR = 16;         // rows of a a tile: the MMA's M
 constexpr int kKC = 32;         // contraction chunk: the MMA's k
-constexpr int kNS = 8;          // planes of each operand
+constexpr int kNS = peel::kPlanes;  // planes of each operand (8)
 constexpr int kNLev = 9;        // levels kept: i + p < 9
 constexpr int kBits = 7;
 constexpr int kResident = 256;  // padded K up to which b's slab stays
+constexpr double kTiny = 2.2250738585072014e-308;  // float64's least normal
 
 // The scratch: a's planes [row tile][chunk][plane][kMR][kKC] int8, then sa
 // [row tile][kMR] float64, then a tile counter [row tile] int32.
@@ -84,63 +86,6 @@ constexpr int kWarpTail = 2 * kBsW                // + b planes, two stages
 
 __host__ __device__ constexpr int warp_smem(int raw_chunks) {
   return raw_chunks * kRawW + kWarpTail;
-}
-
-__device__ __forceinline__ double nanmax(double x, double y) {
-  return (x > y || x != x) ? x : y;
-}
-
-// 2 * pow2_grid(mx) for a max of absolute values (ops/slicing.py)
-__device__ __forceinline__ double wide_grid(double mx) {
-  const long long bits = __double_as_longlong(mx);
-  const int e = (int)(bits >> 52) & 0x7ff;
-  if (!(mx >= 2.2250738585072014e-308)) return 2.0;   // denormal, 0, NaN
-  int p;
-  if (e == 0x7ff) {
-    p = 1023;                                         // inf
-  } else {
-    p = e - 1023 + ((bits & 0xfffffffffffffLL) != 0);
-    p = min(p, 1023);
-  }
-  return __dmul_rn(2.0, __longlong_as_double((long long)(p + 1023) << 52));
-}
-
-// The 8 planes of a pre-scaled value (|v| <= 1/2), as K2's chain cuts them:
-// q[p]'s low byte is plane p.  Remainders are kept scaled by 2^{7(p+1)};
-// s = x 2^7 + 1.5 2^23 rounds x 2^7 half to even (x 2^7 is exact), and s's
-// bits are 0x4B400000 + rint(x 2^7).  mid joins at 7(p+1) >= 24, lo at >= 48.
-__device__ __forceinline__ void peel8(double v, uint32_t q[kNS]) {
-  constexpr float kMagic = 12582912.0f;   // 1.5 * 2^23
-  float hi, mid, lo;
-  peel::split_f64(v, hi, mid, lo);
-  float x = hi;
-#pragma unroll
-  for (int p = 0; p < kNS; ++p) {
-    const float s = __fmaf_rn(x, 128.0f, kMagic);
-    x = __fmaf_rn(x, 128.0f, -__fsub_rn(s, kMagic));
-    q[p] = __float_as_uint(s);
-  }
-  x = __fmul_rn(mid, 2097152.0f);         // 2^21: mid enters at 2^28
-#pragma unroll
-  for (int p = 3; p < kNS; ++p) {
-    const float s = __fmaf_rn(x, 128.0f, kMagic);
-    x = __fmaf_rn(x, 128.0f, -__fsub_rn(s, kMagic));
-    q[p] += __float_as_uint(s);
-  }
-  x = __fmul_rn(lo, 4398046511104.0f);    // 2^42: lo enters at 2^49
-#pragma unroll
-  for (int p = 6; p < kNS; ++p) {
-    const float s = __fmaf_rn(x, 128.0f, kMagic);
-    x = __fmaf_rn(x, 128.0f, -__fsub_rn(s, kMagic));
-    q[p] += __float_as_uint(s);
-  }
-}
-
-// the low bytes of four words, in order, as one word
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
-                                          uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
-                     0x5410);
 }
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src,
@@ -225,15 +170,15 @@ wide_a_prep(const double* __restrict__ a, long long sa0, long long sa1,
 #pragma unroll
       for (int u = 0; u < 8; ++u) v[u] = ar[(k + 8 * u) * sa1];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) am = nanmax(fabs(v[u]), am);
+      for (int u = 0; u < 8; ++u) am = peel::nanmax(fabs(v[u]), am);
     }
-    for (; k < K; k += 8) am = nanmax(fabs(ar[k * sa1]), am);
+    for (; k < K; k += 8) am = peel::nanmax(fabs(ar[k * sa1]), am);
   }
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1) {
-    am = nanmax(am, __shfl_xor_sync(0xffffffffu, am, o));
+    am = peel::nanmax(am, __shfl_xor_sync(0xffffffffu, am, o));
   }
-  const double g = wide_grid(am);
+  const double g = peel::grid2(am, kTiny);
   if (c == 0 && part == 0) sa_g[r] = g;
   if (c == 0 && tid == 0) counter[rt] = 0;
   if (c >= nchunks) return;          // K = 0: the grids only
@@ -243,13 +188,13 @@ wide_a_prep(const double* __restrict__ a, long long sa0, long long sa1,
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int k = c * kKC + kq + t;
-    peel8(__dmul_rn(live && k < K ? ar[k * sa1] : 0.0, inv), q[t]);
+    peel::peel8(__dmul_rn(live && k < K ? ar[k * sa1] : 0.0, inv), q[t]);
   }
   uint8_t* dst = apl + ((size_t)rt * nchunks + c) * kAChunk + row * kKC + kq;
 #pragma unroll
   for (int p = 0; p < kNS; ++p) {
     *reinterpret_cast<uint32_t*>(dst + p * kMR * kKC) =
-        pack4(q[0][p], q[1][p], q[2][p], q[3][p]);
+        peel::pack4(q[0][p], q[1][p], q[2][p], q[3][p]);
   }
 }
 
@@ -292,11 +237,11 @@ wide_mm_kernel(const double* __restrict__ b, long long sb0, long long sb1,
         uint32_t q[4][kNS];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          peel8(__dmul_rn(src[(4 * h + t) * kNW], inv_sb), q[t]);
+          peel::peel8(__dmul_rn(src[(4 * h + t) * kNW], inv_sb), q[t]);
         }
 #pragma unroll
         for (int p = 0; p < kNS; ++p) {
-          w[p][h] = pack4(q[0][p], q[1][p], q[2][p], q[3][p]);
+          w[p][h] = peel::pack4(q[0][p], q[1][p], q[2][p], q[3][p]);
         }
       }
     } else {                         // rows past K: zero planes
@@ -333,11 +278,14 @@ wide_mm_kernel(const double* __restrict__ b, long long sb0, long long sb1,
       for (; k + 12 < K; k += 16) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          m4[u] = nanmax(fabs(raw[(k + 4 * u) * kNW + jl]), m4[u]);
+          m4[u] = peel::nanmax(fabs(raw[(k + 4 * u) * kNW + jl]), m4[u]);
         }
       }
-      for (; k < K; k += 4) m4[0] = nanmax(fabs(raw[k * kNW + jl]), m4[0]);
-      mx = nanmax(nanmax(m4[0], m4[1]), nanmax(m4[2], m4[3]));
+      for (; k < K; k += 4) {
+        m4[0] = peel::nanmax(fabs(raw[k * kNW + jl]), m4[0]);
+      }
+      mx = peel::nanmax(peel::nanmax(m4[0], m4[1]),
+                        peel::nanmax(m4[2], m4[3]));
     } else {
       if (!first) {                  // the tile's first two chunks
         for (int c = 0; c < min(2, nchunks); ++c) {
@@ -354,15 +302,15 @@ wide_mm_kernel(const double* __restrict__ b, long long sb0, long long sb1,
 #pragma unroll
           for (int u = 0; u < 8; ++u) v[u] = col[(k + 4 * u) * sb0];
 #pragma unroll
-          for (int u = 0; u < 8; ++u) mx = nanmax(fabs(v[u]), mx);
+          for (int u = 0; u < 8; ++u) mx = peel::nanmax(fabs(v[u]), mx);
         }
-        for (; k < K; k += 4) mx = nanmax(fabs(col[k * sb0]), mx);
+        for (; k < K; k += 4) mx = peel::nanmax(fabs(col[k * sb0]), mx);
       }
       wait_all();                    // the chunks peel_chunk(0, 1) reads
       __syncwarp();
     }
-    mx = nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-    mx = nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    mx = peel::nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = peel::nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
     if (first) {
       // a's side comes from the launch before this one, which may still
       // be running (programmatic dependent launch): wait for it before
@@ -372,7 +320,7 @@ wide_mm_kernel(const double* __restrict__ b, long long sb0, long long sb1,
       first = false;
     }
     if (lane < kNW) {
-      const double gr = wide_grid(mx);
+      const double gr = peel::grid2(mx, kTiny);
       sb_w[lane] = gr;
       inv_sb_w[lane] = __drcp_rn(gr);  // a power of two: exact
     }

@@ -68,7 +68,10 @@ def as_arrays(obj) -> dict:
 def bsr_from_arrays(d, device=None, dtype=None) -> BSRMatrix:
     """BSRMatrix from the JAX dataclass's fields: a dict of numpy arrays or
     numbers (static fields included), or the dataclass itself (see
-    :func:`as_arrays`).  ``dtype`` converts the blocks."""
+    :func:`as_arrays`).  ``dtype`` converts the blocks.  Built on the
+    current CUDA device unless ``device`` names another (RuntimeError
+    without a card: pass ``device="cpu"``)."""
+    device = resolve_device(device)
     d = as_arrays(d)
 
     def t(name, dtype=None):

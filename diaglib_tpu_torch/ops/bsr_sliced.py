@@ -25,9 +25,10 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import _build
 from .bsr import BSRMatrix, as_arrays, bsr_diagonal
-from .slicing import combine_weights, pow2_grid, slice_operand, slice_scaled
+from .slicing import combine_weights, pow2_grid, slice_rows, slice_scaled
 
 __all__ = ["SlicedBSR", "slice_bsr", "sliced_bsr_matvec", "sliced_spmm",
            "sliced_spmm_plain", "sliced_store_from_arrays"]
@@ -35,16 +36,18 @@ __all__ = ["SlicedBSR", "slice_bsr", "sliced_bsr_matvec", "sliced_spmm",
 _BITS = 7
 
 
-def _slice_x(x: torch.Tensor, nx: int):
+def _slice_x(x: torch.Tensor, nx: int, *, col_scale=None, acc_dtype=None):
     """Row-aligned int8 planes of x, ``(nx*k, n)``, and the row scales
-    ``sx`` (``(k, 1)``, ``sx = 2 * pow2_grid(max|x|)``).  The float64 tier
-    (nx > 4) peels x in float64; the float32 tier keeps x's dtype and
-    returns sx in it."""
+    ``sx`` (``(k, 1)``, ``sx = 2 * pow2_grid(max|x|)``), in one launch of
+    kernel K2 on the card (:func:`~.slicing.slice_rows`).  x is cast to
+    ``acc_dtype`` (its own by default) and multiplied by the column grid
+    ``col_scale`` where one is given (the symmetric store's u); the float64
+    tier (nx > 4) peels in float64, the float32 tier in the accumulation
+    type; sx comes back in the accumulation type."""
     k, n = x.shape
-    work = x.to(torch.float64) if nx > 4 else x
-    planes, sx = slice_operand(work, n_slices=nx, bits=_BITS)
-    if x.dtype != torch.float64:
-        sx = sx.to(x.dtype)
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    planes, sx = slice_rows(x, nx, col_scale=col_scale, acc_dtype=acc,
+                            work_dtype=torch.float64 if nx > 4 else acc)
     return planes.reshape(nx * k, n), sx
 
 
@@ -198,7 +201,10 @@ def sliced_store_from_arrays(d, device=None) -> SlicedBSR:
 
     Rejects arrays the kernel would misread: rows not sorted, ``row_start``
     not the first entry of each row, coordinates or plane widths that do
-    not fit the store's dimensions."""
+    not fit the store's dimensions.  Built on the current CUDA device
+    unless ``device`` names another (RuntimeError without a card: pass
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     d = as_arrays(d)
 
     def t(name, dtype=None):

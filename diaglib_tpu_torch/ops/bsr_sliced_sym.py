@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import _build
 from .bsr import BSRMatrix, as_arrays, bsr_diagonal
 from .bsr_sliced import (
@@ -100,7 +101,10 @@ class SymSlicedBSR:
 def sym_store_from_arrays(d, device=None) -> SymSlicedBSR:
     """SymSlicedBSR from the JAX dataclass's fields: a dict of numpy arrays
     or numbers (static fields included), or the dataclass itself (for
-    example each store of the JAX package's ``bsr_gen_problem`` pair)."""
+    example each store of the JAX package's ``bsr_gen_problem`` pair).
+    Built on the current CUDA device unless ``device`` names another
+    (RuntimeError without a card: pass ``device="cpu"``)."""
+    device = resolve_device(device)
     d = as_arrays(d)
 
     def t(name, dtype=None):
@@ -385,8 +389,9 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
         k = x.shape[0]
         if not buckets:
             return torch.zeros_like(x, dtype=dtype)
-        # fold the separable grid into x (exact power-of-two multiply)
-        xs, sx = _slice_x(x.to(acc_dtype) * u[None, :], nx)
+        # fold the separable grid into x (exact power-of-two multiply), in
+        # K2's launch on the card
+        xs, sx = _slice_x(x, nx, col_scale=u, acc_dtype=acc_dtype)
         acc = torch.zeros((nlev * k, n), dtype=torch.int32, device=x.device)
         for rows_b, cols_b, slices_b, na_b, plane_off, work in buckets:
             sym_spmm(xs, slices_b, rows_b, cols_b, acc, nx=nx, na=na_b,

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .bsr_sliced import (
     _BITS,
     SlicedBSR,
@@ -149,7 +150,10 @@ def dist_sliced_from_arrays(d, rank: int, device=None) -> DistSlicedBSR:
     Rejects arrays the kernel would misread: shapes that do not fit the
     static fields, local rows outside 0..nbr_loc or not sorted within a
     group, local columns outside the x shard, or padding entries whose
-    planes are not zero."""
+    planes are not zero.  Built on the current CUDA device unless
+    ``device`` names another (RuntimeError without a card: pass
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     if not isinstance(d, dict):
         d = {f.name: getattr(d, f.name) for f in dataclasses.fields(d)}
     steps = tuple(int(s) for s in np.asarray(d["steps"]).reshape(-1))
@@ -275,6 +279,8 @@ def dist_sliced_matvec(dm: DistSlicedBSR, sharding, *, dtype=torch.float64,
     w = combine_weights(nlev, _BITS, acc_dtype, device=sh.col_scale.device)
     cs = sh.col_scale[None, :].to(acc_dtype)
     row_starts = [group_row_start(lr, nbr_loc) for lr in sh.loc_rows]
+    # the float32 tier slices x in float32, the float64 tier as it comes
+    x_acc = None if dtype == torch.float64 else torch.float32
 
     def mv(x):
         k, n_loc = x.shape
@@ -282,8 +288,7 @@ def dist_sliced_matvec(dm: DistSlicedBSR, sharding, *, dtype=torch.float64,
         y = torch.zeros((k, n_loc), dtype=acc_dtype, device=x.device)
         for i, pend in enumerate(pending):
             x_s = pend.wait()
-            xs, sx = _slice_x(x_s if dtype == torch.float64
-                              else x_s.to(torch.float32), nx)
+            xs, sx = _slice_x(x_s, nx, acc_dtype=x_acc)
             p = group_spmm(xs, sh.slices[i], sh.loc_rows[i], sh.loc_cols[i],
                            nx=nx, na=na_used, nlev=nlev, nbr_loc=nbr_loc,
                            row_start=row_starts[i])

@@ -11,8 +11,11 @@ is exact float32 arithmetic on the (hi, mid, lo) float32 triple of a
 float64 value, so the planes are integers that any correct implementation
 reproduces bit for bit.
 
-:func:`peel_rows` is the wrapper of the CUDA kernel ``csrc/peel.cu``; on a
-CPU tensor it runs :func:`peel_rows_plain`, the same chain in torch.
+Kernel K2 (``csrc/peel.cu``) has two wrappers: :func:`slice_rows`, the x
+side of the sliced matvec in one launch (x to planes and row scales), and
+:func:`peel_rows`, the planes of pre-scaled values.  On CPU tensors they
+run :func:`slice_rows_plain` and :func:`peel_rows_plain`, the same chains
+in torch.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ __all__ = ["pow2_grid", "slice_operand", "slice_scaled",
 
 _BITS = 6
 _SLICES = 9  # 54 bits >= f64's 53-bit mantissa
+_X_BITS = 7  # the sliced matvec's x planes: a doubled grid, |q| <= 64
 
 
 def pow2_grid(m: torch.Tensor) -> torch.Tensor:
@@ -107,12 +111,11 @@ def _peel_lib():
     lib = _build.library("peel")
     if not getattr(lib, "_typed", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("peel_f64", "peel_f32"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, i64, i32, i32, p]
-            fn.restype = i32
-        lib.peel_f32x3.argtypes = [p, p, p, p, i64, i32, i32, p]
-        lib.peel_f32x3.restype = i32
+        lib.slice_rows.argtypes = [p, i32, i64, i64, p] + [i32] * 6 + [p] * 3
+        lib.slice_rows.restype = i32
+        lib.peel_prescaled.argtypes = [p, p, p, i32, i64, i32, i32, i32, p,
+                                       p]
+        lib.peel_prescaled.restype = i32
         lib.peel_error_string.argtypes = [i32]
         lib.peel_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -120,7 +123,8 @@ def _peel_lib():
 
 
 def peel_rows(t_or_components, nx: int, bits: int) -> torch.Tensor:
-    """``(nx,) + shape`` int8 planes of pre-scaled values (kernel K2).
+    """``(nx,) + shape`` int8 planes of pre-scaled values (kernel K2's
+    pre-scaled entry, the grid pinned to 1).
 
     ``t_or_components`` is a float64 or float32 tensor ``t`` with
     |t| <= 1/2, or a (hi, mid, lo) tuple of float32 tensors.  On the CPU
@@ -133,7 +137,7 @@ def peel_rows(t_or_components, nx: int, bits: int) -> torch.Tensor:
         return peel_rows_plain(t_or_components, nx, bits)
     if first.device.type != "cuda":
         raise ValueError(f"peel_rows: unsupported device {first.device}")
-    if nx <= 0 or bits * nx >= 127:
+    if nx <= 0 or bits <= 0 or bits * nx >= 127:
         raise ValueError(f"peel_rows: nx={nx} planes of {bits} bits")
     if comps is not None:
         if (len(comps) != 3 or any(c.dtype != torch.float32 for c in comps)
@@ -142,25 +146,26 @@ def peel_rows(t_or_components, nx: int, bits: int) -> torch.Tensor:
             raise ValueError("peel_rows: components must be three float32 "
                              "tensors of one shape on one device")
         comps = tuple(c.contiguous() for c in comps)
+        first, mode = comps[0], 2
     elif first.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"peel_rows: unsupported dtype {first.dtype}")
     else:
         first = first.contiguous()
+        mode = 0 if first.dtype == torch.float64 else 1
+    n = first.shape[-1] if first.ndim else 1
+    rows = first.numel() // n if n else 0
+    if n >= 2 ** 31 or rows >= 2 ** 31:
+        raise ValueError(f"peel_rows: shape {tuple(first.shape)} too large")
     out = torch.empty((nx,) + tuple(first.shape), dtype=torch.int8,
                       device=first.device)
-    numel = first.numel()
     lib = _peel_lib()
-    stream = torch.cuda.current_stream(first.device).cuda_stream
-    if comps is not None:
-        err = lib.peel_f32x3(comps[0].data_ptr(), comps[1].data_ptr(),
-                             comps[2].data_ptr(), out.data_ptr(), numel, nx,
-                             bits, stream)
-    elif first.dtype == torch.float64:
-        err = lib.peel_f64(first.data_ptr(), out.data_ptr(), numel, nx, bits,
-                           stream)
-    else:
-        err = lib.peel_f32(first.data_ptr(), out.data_ptr(), numel, nx, bits,
-                           stream)
+    # the raw handle: torch.cuda.current_stream() costs microseconds of a
+    # call this short
+    stream = torch._C._cuda_getCurrentRawStream(first.device.index)
+    mid, lo = ((comps[1].data_ptr(), comps[2].data_ptr()) if comps
+               else (None, None))
+    err = lib.peel_prescaled(first.data_ptr(), mid, lo, mode, rows, n, nx,
+                             bits, out.data_ptr(), stream)
     if err:
         raise RuntimeError(
             f"peel kernel: {lib.peel_error_string(err).decode()}")
@@ -168,7 +173,92 @@ def peel_rows(t_or_components, nx: int, bits: int) -> torch.Tensor:
     return out
 
 
-peel_rows.launches = 0
+peel_rows.launches = 0     # every launch of K2, through either entry
+
+
+def slice_rows_plain(x: torch.Tensor, nx: int, *, col_scale=None,
+                     acc_dtype=None, work_dtype=None, sx_dtype=None):
+    """The plain torch version of kernel K2's fused entry: ``(nx, k, n)``
+    int8 planes of 2-D ``x`` on its per-row grid at 7 bits, and the row
+    scales ``sx`` ``(k, 1)``.
+
+    The chain the sliced matvecs run, step by step: ``work = x`` cast to
+    ``acc_dtype`` (x's own by default), times ``col_scale.to(acc_dtype)``
+    where a column grid ``col_scale`` ``(n,)`` is given (powers of two,
+    exact unless float32 leaves its range), cast to ``work_dtype`` (the
+    accumulation type by default); ``sx = 2 * pow2_grid(max|work|)`` per
+    row (pow2_grid's rule for the work type: a NaN propagates through the
+    max and gives sx = 2, inf gives sx = inf); ``t = work / sx`` in float64,
+    rounded back to the work type; :func:`peel_rows_plain` of t at 7 bits.
+    ``sx`` comes back in ``sx_dtype`` (the accumulation type by default).
+    """
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    work = x.to(acc)
+    if col_scale is not None:
+        work = work * col_scale.to(acc)
+    work = work.to(acc if work_dtype is None else work_dtype)
+    t, sx = _row_grid(work, _X_BITS)
+    return (peel_rows_plain(t, nx, _X_BITS),
+            sx.to(acc if sx_dtype is None else sx_dtype))
+
+
+_FLOATS = (torch.float32, torch.float64)
+
+
+def slice_rows(x: torch.Tensor, nx: int, *, col_scale=None, acc_dtype=None,
+               work_dtype=None, sx_dtype=None):
+    """The x side of a sliced matvec (kernel K2's fused entry): the planes
+    and row scales of :func:`slice_rows_plain`, bit for bit.
+
+    On CPU tensors this is the plain version.  On a CUDA tensor it is one
+    launch of ``csrc/peel.cu``, which reads x (any strides) and
+    ``col_scale`` once, takes each row's grid on the card and writes the
+    planes and ``sx``; it raises ``ValueError`` on arguments the kernel
+    does not take (x not 2-D float32 / float64, ``col_scale`` not a
+    contiguous ``(n,)`` tensor of the accumulation type on x's device, a
+    float32 work type over a float64 accumulation type, nx outside 1..8)
+    and ``RuntimeError`` when the launch fails.
+    """
+    if x.device.type == "cpu":
+        return slice_rows_plain(x, nx, col_scale=col_scale,
+                                acc_dtype=acc_dtype, work_dtype=work_dtype,
+                                sx_dtype=sx_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"slice_rows: unsupported device {x.device}")
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    work = acc if work_dtype is None else work_dtype
+    sxd = acc if sx_dtype is None else sx_dtype
+    if (x.ndim != 2 or x.dtype not in _FLOATS or acc not in _FLOATS
+            or work not in _FLOATS or sxd not in _FLOATS
+            or (work == torch.float32 and acc == torch.float64)):
+        raise ValueError(f"slice_rows: unsupported x {x.dtype} "
+                         f"{tuple(x.shape)} or types {acc}, {work}, {sxd}")
+    k, n = x.shape
+    if not 0 < nx <= 8 or n == 0 or n >= 2 ** 31 or k >= 2 ** 26:
+        raise ValueError(f"slice_rows: nx={nx} planes of x {(k, n)}")
+    if col_scale is not None and (
+            col_scale.dtype != acc or col_scale.shape != (n,)
+            or col_scale.device != x.device
+            or not col_scale.is_contiguous()):
+        raise ValueError(f"slice_rows: col_scale must be a contiguous {acc} "
+                         f"({n},) tensor on {x.device}")
+    planes = torch.empty((nx, k, n), dtype=torch.int8, device=x.device)
+    sx = torch.empty((k, 1), dtype=sxd, device=x.device)
+    if k == 0:
+        return planes, sx
+    lib = _peel_lib()
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    f32 = torch.float32
+    err = lib.slice_rows(
+        x.data_ptr(), x.dtype == f32, x.stride(0), x.stride(1),
+        None if col_scale is None else col_scale.data_ptr(), k, n, nx,
+        acc == f32, work == f32, sxd == f32, planes.data_ptr(),
+        sx.data_ptr(), stream)
+    if err:
+        raise RuntimeError(
+            f"peel kernel: {lib.peel_error_string(err).decode()}")
+    peel_rows.launches += 1
+    return planes, sx
 
 
 def slice_operand(x: torch.Tensor, n_slices: int = _SLICES,
@@ -180,8 +270,13 @@ def slice_operand(x: torch.Tensor, n_slices: int = _SLICES,
     ``x ~= scale * sum_i planes[i] * 2^{-bits*(i+1)}`` to
     ``2^{-bits*n_slices}`` of each row's max.  At ``bits >= 7`` the grid is
     doubled (|t| <= 1/2) so the top plane stays inside int8.  Float32 ``x``
-    is peeled from float32 (mid = lo = 0), float64 from its triple.
+    is peeled from float32 (mid = lo = 0), float64 from its triple.  At 7
+    bits and up to 8 planes this is :func:`slice_rows` (one launch of K2 on
+    the card); otherwise the grid is taken in torch and K2's pre-scaled
+    entry peels.
     """
+    if bits == _X_BITS and 0 < n_slices <= 8 and x.ndim == 2:
+        return slice_rows(x, n_slices, sx_dtype=torch.float64)
     t, scale = _row_grid(x, bits)
     return peel_rows(t, n_slices, bits), scale
 
@@ -209,7 +304,7 @@ def combine_weights(n_levels: int, bits: int = _BITS,
 # wide-output small-K contraction (the solvers' rotations and projections)
 # ---------------------------------------------------------------------------
 
-_WIDE_BITS = 7        # half grid, |q| <= 64
+_WIDE_BITS = _X_BITS  # half grid, |q| <= 64
 _WIDE_SLICES = 8      # 7 * 8 - 1 = 55 >= 53 mantissa bits
 _WIDE_LEVELS = 9      # levels i + p < 9 are kept
 

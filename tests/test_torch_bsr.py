@@ -33,7 +33,7 @@ from diaglib_tpu_torch.problems import diag_precnd
 
 
 def _carry(jm, dtype=None):
-    return tbsr.bsr_from_arrays(jm, dtype=dtype)
+    return tbsr.bsr_from_arrays(jm, dtype=dtype, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +150,7 @@ def test_bsr_from_arrays_rejects_malformed_arrays(jm32):
     d = tbsr.as_arrays(jm32)
     bad = dict(d, cols=np.asarray(d["cols"]) + 100)
     with pytest.raises(ValueError):
-        tbsr.bsr_from_arrays(bad)
+        tbsr.bsr_from_arrays(bad, device="cpu")
 
 
 def test_plain_bsr_ladder_matches_reference():

@@ -71,7 +71,7 @@ def problem(request):
             jm = dataclasses.replace(
                 jm, blocks_t=jm.blocks_t.astype(jnp.float64))
     js = jbs.slice_bsr(jm)
-    ts = slice_bsr(bsr_from_arrays(_arrays(jm)))
+    ts = slice_bsr(bsr_from_arrays(_arrays(jm), device="cpu"))
     return jm, js, ts, np.asarray(j_bsr_to_dense(jm), np.float64)
 
 
@@ -84,7 +84,7 @@ def test_store_bit_equal(problem):
         np.testing.assert_array_equal(got, ref, err_msg=name)
     assert (ts.n, ts.block, ts.na, ts.max_bpr, ts.nnzb, ts.nnz) == (
         js.n, js.block, js.na, js.max_bpr, js.nnzb, js.nnz)
-    carried = sliced_store_from_arrays(js)
+    carried = sliced_store_from_arrays(js, device="cpu")
     for name in FIELDS:
         assert torch.equal(getattr(carried, name), getattr(ts, name)), name
 
@@ -233,7 +233,7 @@ def _bad(d, field):
 def test_store_from_arrays_rejects_malformed_arrays(problem, field):
     _, js, _, _ = problem
     d = _arrays(js)
-    sliced_store_from_arrays(d)                     # the intact arrays pass
+    sliced_store_from_arrays(d, device="cpu")       # the intact arrays pass
     with pytest.raises(ValueError, match="malformed"):
-        sliced_store_from_arrays(_bad(d, field))
+        sliced_store_from_arrays(_bad(d, field), device="cpu")
 

@@ -14,6 +14,8 @@ float32 tier within 2^-17 of a dense oracle; solves within 1e-10 of JAX's
 sharded eigenvalues and within +-2 iterations and matvec blocks.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,18 +28,21 @@ from diaglib_tpu.ops import bsr_to_dense as j_bsr_to_dense
 from diaglib_tpu.ops import dist_sliced as jds
 from diaglib_tpu.ops import random_bsr_spd as j_random_bsr_spd
 from diaglib_tpu.ops import slice_bsr as j_slice_bsr
+from diaglib_tpu.ops import slice_bsr_sym as j_slice_bsr_sym
 from diaglib_tpu.ops.bsr_sliced import _slice_x as j_slice_x
 from diaglib_tpu.parallel import VectorSharding as JSharding
 from diaglib_tpu.parallel import make_mesh
 from diaglib_tpu.problems import diag_precnd as j_diag_precnd
 from diaglib_tpu.solvers import davidson as j_davidson
 from diaglib_tpu.solvers import davidson_ladder as j_davidson_ladder
+from diaglib_tpu_torch.ops.bsr import bsr_from_arrays
 from diaglib_tpu_torch.ops.bsr_sliced import (
     _slice_x,
     _tier_params,
     sliced_bsr_matvec,
     sliced_store_from_arrays,
 )
+from diaglib_tpu_torch.ops.bsr_sliced_sym import sym_store_from_arrays
 from diaglib_tpu_torch.ops.dist_sliced import (
     dist_sliced_from_arrays,
     distribute_sliced_bsr,
@@ -68,7 +73,8 @@ def problem():
     jm = j_random_bsr_spd(N, B, BPR, jax.random.PRNGKey(11),
                           dtype=jnp.float64)
     js = j_slice_bsr(jm)
-    return js, sliced_store_from_arrays(js), np.asarray(j_bsr_to_dense(jm))
+    return (js, sliced_store_from_arrays(js, device="cpu"),
+            np.asarray(j_bsr_to_dense(jm)))
 
 
 def _irregular():
@@ -80,7 +86,7 @@ def _irregular():
     for r, c in {(r, r) for r in range(nbr)} | {(0, 2), (1, 3), (4, 6)}:
         dense[r*B:(r+1)*B, c*B:(c+1)*B] = rng.standard_normal((B, B))
     js = j_slice_bsr(j_bsr_from_dense(jnp.asarray(dense), B))
-    return js, sliced_store_from_arrays(js), dense
+    return js, sliced_store_from_arrays(js, device="cpu"), dense
 
 
 @pytest.mark.parametrize("D", [4, 8])
@@ -108,7 +114,7 @@ def test_partition_bit_equal(problem, D):
     for r in (0, D - 1):
         own = distribute_sliced_bsr(ts, D, rank=r)
         view = td.shard(r)
-        carried = dist_sliced_from_arrays(_store_arrays(jd), r)
+        carried = dist_sliced_from_arrays(_store_arrays(jd), r, device="cpu")
         for other in (view, carried):
             assert other.steps == own.steps and other.rank == r
             for name in GROUP_FIELDS:
@@ -203,7 +209,7 @@ def test_group_levels_by_explicit_loops():
 def test_carry_rejects_malformed_arrays(problem):
     js, _, _ = problem
     d = _store_arrays(jds.distribute_sliced_bsr(js, 4))
-    dist_sliced_from_arrays(d, 1)                     # the intact arrays
+    dist_sliced_from_arrays(d, 1, device="cpu")       # the intact arrays
     bad = []
     rows = [a.copy() for a in d["loc_rows"]]
     rows[0][1] = rows[0][1][::-1].copy()              # unsorted rows
@@ -219,7 +225,31 @@ def test_carry_rejects_malformed_arrays(problem):
     bad.append(dict(d, steps=d["steps"][:-1]))
     for b in bad:
         with pytest.raises(ValueError, match="malformed"):
-            dist_sliced_from_arrays(b, 1)
+            dist_sliced_from_arrays(b, 1, device="cpu")
+
+
+def test_carried_stores_build_on_the_card_unless_told(problem, monkeypatch):
+    """The four functions that carry the JAX package's stores across make
+    their tensors on CUDA when no device is named, and refuse to fall back
+    to the CPU where there is none; device='cpu' builds on the CPU."""
+    js, _, _ = problem
+    jm = j_random_bsr_spd(N, B, BPR, jax.random.PRNGKey(11),
+                          dtype=jnp.float32)
+    jd = _store_arrays(jds.distribute_sliced_bsr(js, 4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda **d: bsr_from_arrays(jm, **d),
+             lambda **d: sym_store_from_arrays(j_slice_bsr_sym(jm), **d),
+             lambda **d: sliced_store_from_arrays(js, **d),
+             lambda **d: dist_sliced_from_arrays(jd, 1, **d)]
+    for carry in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            carry()
+        built = carry(device="cpu")
+        for field in dataclasses.fields(built):
+            value = getattr(built, field.name)
+            for t in value if isinstance(value, tuple) else (value,):
+                if isinstance(t, torch.Tensor):
+                    assert t.device.type == "cpu", field.name
 
 
 def test_indivisible_rows_rejected(problem):

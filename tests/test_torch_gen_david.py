@@ -219,7 +219,8 @@ def test_gen_david_restart_path(toy):
 
 def test_gen_david_ladder_matches_reference():
     ja, jb = j_bsr_gen_problem(256, 32, 3, jax.random.PRNGKey(0))
-    ta, tb = sym_store_from_arrays(ja), sym_store_from_arrays(jb)
+    ta, tb = (sym_store_from_arrays(ja, device="cpu"),
+              sym_store_from_arrays(jb, device="cpu"))
     for js, ts in ((ja, ta), (jb, tb)):
         for f in dataclasses.fields(js):
             want = getattr(js, f.name)

@@ -5,11 +5,15 @@ no JAX, so they also run where only the port's dependencies are installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-The peel (K2), the symmetric sliced SpMM (K1), the general sliced SpMM
-(K5), the distributed group SpMM (K6, on an irregular partition with
-padding entries and uncovered rows) and the wide-rotation product (K3)
-must be bitwise equal to their plain versions (integer planes and level
-sums; K3 also combines its levels in the plain version's order).  K1 and K5
+The peel (K2: its pre-scaled entry, and its fused entry from x to planes
+and row scales as every caller drives it, at k = 1 to 33 rows and rows
+longer than a cluster keeps in registers, strided rows, and rows of zeros,
+inf, NaN and denormal quotients), the symmetric sliced SpMM (K1), the
+general sliced SpMM (K5), the distributed group SpMM (K6, on an irregular
+partition with padding entries and uncovered rows) and the wide-rotation
+product (K3) must be bitwise equal to their plain versions (integer planes,
+scales and level sums; K3 also combines its levels in the plain version's
+order).  K1 and K5
 are also held so on synthetic stores at the edges of their tensor-core
 tiles: k = 1, 15, 16, 17, 33 rows of x, B = 64, 128, 512, a store of
 diagonal entries only, one whose first bucket holds no diagonal entry, one
@@ -90,6 +94,155 @@ def test_peel_components_bit_equal(dev):
     got = slicing.peel_rows((hi, mid, lo), 8, 7)
     assert torch.equal(got, slicing.peel_rows_plain((hi, mid, lo), 8, 7))
     assert torch.equal(got, slicing.peel_rows(t, 8, 7))
+
+
+f64, f32 = torch.float64, torch.float32
+
+# The fused front end (K2's slice_rows) as its callers drive it: (x's dtype,
+# nx, slice_rows's keywords, the column grid u, in the accumulation type,
+# or none).
+FRONT_ENDS = {
+    # sym_sliced_matvec: x.to(acc) * u, the float64 and float32 tiers
+    "sym f64": (f64, 8, dict(acc_dtype=f64, work_dtype=f64), True),
+    "sym f32": (f32, 4, dict(acc_dtype=f32, work_dtype=f32), True),
+    "sym f32 of f64 x": (f64, 4, dict(acc_dtype=f32, work_dtype=f32), True),
+    "sym f32 at nx 8": (f64, 8, dict(acc_dtype=f32, work_dtype=f64), True),
+    # sliced_bsr_matvec: x as it comes, float64 above 4 planes
+    "general f64": (f64, 8, dict(work_dtype=f64), False),
+    "general f32 x at nx 8": (f32, 8, dict(work_dtype=f64), False),
+    "general f32": (f32, 4, dict(work_dtype=f32), False),
+    "general f64 at nx 4": (f64, 4, dict(work_dtype=f64), False),
+    # dist_sliced_matvec's float32 tier: x.to(float32)
+    "dist f32": (f64, 4, dict(acc_dtype=f32, work_dtype=f32), False),
+    # slice_operand at 7 bits: float64 scales
+    "operand f32": (f32, 8, dict(sx_dtype=f64), False),
+}
+
+
+def _front_end_inputs(name, k, n, dev, seed):
+    xdt, nx, kw, fold = FRONT_ENDS[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((k, n), generator=g, dtype=f64, device=dev)
+    x = x * 2.0 ** torch.randint(-30, 30, (k, 1), generator=g, device=dev)
+    x[:, :5] *= 2.0 ** -40                      # deep tails in every row
+    if k > 2:
+        x[2] = 0.0                              # an all-zero row
+    u = None
+    if fold:
+        u = 2.0 ** torch.randint(-20, 20, (n,), generator=g,
+                                 device=dev).to(kw.get("acc_dtype", xdt))
+    return x.to(xdt), nx, dict(kw, col_scale=u)
+
+
+def _front_end_check(x, nx, kw):
+    """One counted launch, planes and scales equal to the plain chain."""
+    before = slicing.peel_rows.launches
+    planes, sx = slicing.slice_rows(x, nx, **kw)
+    torch.cuda.synchronize()
+    assert slicing.peel_rows.launches == before + 1
+    want_planes, want_sx = slicing.slice_rows_plain(x, nx, **kw)
+    assert planes.shape == want_planes.shape and sx.dtype == want_sx.dtype
+    assert torch.equal(sx, want_sx)
+    assert torch.equal(planes, want_planes)
+    return planes, sx
+
+
+@pytest.mark.parametrize("n", [64, 4160, 65536, 131084])
+@pytest.mark.parametrize("k", [1, 10, 15, 33])
+@pytest.mark.parametrize("name", list(FRONT_ENDS))
+def test_slice_rows_bit_equal(dev, name, k, n):
+    # 131084: longer than a cluster keeps in registers (8 x 512 x 4 quads)
+    # and not a multiple of 4
+    x, nx, kw = _front_end_inputs(name, k, n, dev, k + n)
+    _front_end_check(x, nx, kw)
+
+
+def _edge_rows(xdt, n, dev):
+    """Rows at the grid's edges: zero, inf, NaN among values far beyond the
+    grid, a max past 2^1022 (float64), quotients below the least normal
+    number of the work type, and denormal inputs."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn((10, n), generator=g, dtype=f64, device=dev)
+    x[0] = 0.0
+    x[1, 7] = float("inf")
+    x[2, 3] = float("nan")
+    x[2, 4:] *= 1e30
+    x[3, 5] = -float("inf")
+    x[3, 6] = float("nan")
+    if xdt == f64:
+        x[4] = x[4].clamp(-3, 3) * 5e307         # grid 2^1024: sx = inf
+        x[5] *= 2.0 ** 1000                      # float64 quotients ...
+        x[5, ::3] *= 2.0 ** -1060                # ... below 2^-1022
+        x[6] *= 1e-310                           # denormal inputs
+    else:
+        x[4] = x[4].clamp(-3, 3) * 1e38          # near float32's max
+        x[5] *= 2.0 ** 60                        # float32 quotients ...
+        x[5, ::3] *= 2.0 ** -130                 # ... below 2^-126
+        x[6] *= 1e-40
+    x[7] *= 2.0 ** 60                            # float32 quotients from
+    x[7, ::5] *= 2.0 ** -130                     # float64 x too
+    return x.to(xdt)
+
+
+@pytest.mark.parametrize("n", [4163, 65536])
+@pytest.mark.parametrize("name", list(FRONT_ENDS))
+def test_slice_rows_edge_rows_bit_equal(dev, name, n):
+    xdt, nx, kw, fold = FRONT_ENDS[name]
+    x = _edge_rows(xdt, n, dev)
+    u = None
+    if fold:
+        g = torch.Generator(device=dev).manual_seed(32)
+        u = 2.0 ** torch.randint(-20, 20, (n,), generator=g,
+                                 device=dev).to(kw.get("acc_dtype", xdt))
+        u[:9] = 2.0 ** 100                       # float32 overflow in the
+    _, sx = _front_end_check(x, nx, dict(kw, col_scale=u))   # fold
+    assert float(sx[0, 0]) == 2.0                # the zero row
+
+
+@pytest.mark.parametrize("layout", ["offset", "transposed"])
+@pytest.mark.parametrize("name", ["sym f64", "sym f32", "general f32"])
+def test_slice_rows_strided_bit_equal(dev, name, layout):
+    x, nx, kw = _front_end_inputs(name, 15, 4160, dev, 7)
+    if layout == "offset":      # rows 1 element off 16 bytes, stride n + 7
+        wide = torch.zeros((15, 4160 + 8), dtype=x.dtype, device=dev)
+        wide[:, 1:4161] = x
+        x = wide[:, 1:4161]
+    else:                       # columns strided
+        x = x.T.contiguous().T
+    _front_end_check(x, nx, kw)
+
+
+# the CTAs a row the library takes (a quad a thread at least, 8 at most)
+# at the widths on either side of each step
+@pytest.mark.parametrize("n,cluster", [(2048, 1), (2052, 2), (4096, 2),
+                                       (8192, 4), (8196, 8)])
+@pytest.mark.parametrize("name", ["sym f64", "sym f32"])
+def test_slice_rows_cluster_sizes_bit_equal(dev, name, n, cluster):
+    x, nx, kw = _front_end_inputs(name, 15, n, dev, 8)
+    _front_end_check(x, nx, kw)
+
+
+def test_slice_rows_checks_its_inputs(dev):
+    x = torch.zeros((3, 64), dtype=f64, device=dev)
+    u = torch.ones(64, dtype=f64, device=dev)
+    bad = [
+        lambda: slicing.slice_rows(x.int(), 8),
+        lambda: slicing.slice_rows(x[None], 8),
+        lambda: slicing.slice_rows(x, 0),
+        lambda: slicing.slice_rows(x, 9),
+        lambda: slicing.slice_rows(x, 8, col_scale=u.float()),
+        lambda: slicing.slice_rows(x, 8, col_scale=u[:32]),
+        lambda: slicing.slice_rows(x, 8, col_scale=u.cpu()),
+        lambda: slicing.slice_rows(x, 8, acc_dtype=torch.float16),
+        lambda: slicing.slice_rows(x, 4, work_dtype=f32),
+        lambda: slicing.slice_rows(x.float(), 4, col_scale=u),
+        lambda: slicing.slice_rows(x[:, :0], 8),
+    ]
+    before = slicing.peel_rows.launches
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert slicing.peel_rows.launches == before
 
 
 def test_pow2_grid_exact_on_card(dev):

@@ -45,7 +45,7 @@ def store():
     js = j_slice_bsr_sym(jm)
     dense = np.asarray(j_bsr_to_dense(jm), np.float64)
     ts = sym_store_from_arrays({f.name: np.asarray(getattr(js, f.name))
-                                for f in dataclasses.fields(js)})
+                                for f in dataclasses.fields(js)}, device="cpu")
     return js, ts, dense
 
 

@@ -119,7 +119,7 @@ def store():
                           dtype=jnp.float32)
     js = j_slice_bsr_sym(jm)
     ts = sym_store_from_arrays({f.name: np.asarray(getattr(js, f.name))
-                                for f in dataclasses.fields(js)})
+                                for f in dataclasses.fields(js)}, device="cpu")
     return js, ts, np.asarray(j_bsr_to_dense(jm), np.float64)
 
 

@@ -52,8 +52,9 @@ def carried():
     jstores, jdiag = j_bsr_nonsym(N, B, BPR, jax.random.PRNGKey(5),
                                   t_scale=0.05)
     s, st, stt = jstores
-    tstores = (sym_store_from_arrays(s), sliced_store_from_arrays(st),
-               sliced_store_from_arrays(stt))
+    tstores = (sym_store_from_arrays(s, device="cpu"),
+               sliced_store_from_arrays(st, device="cpu"),
+               sliced_store_from_arrays(stt, device="cpu"))
     return jstores, jdiag, tstores
 
 

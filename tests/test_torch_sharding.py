@@ -187,7 +187,7 @@ def test_davidson_on_dist_bsr_equals_serial(fleet):
 def test_distribute_bsr_bit_equal_to_reference():
     jm = j_random_bsr_spd(2 * N, B, 4, jax.random.PRNGKey(11),
                           dtype=jnp.float64)
-    tm = bsr_from_arrays(jm)
+    tm = bsr_from_arrays(jm, device="cpu")
     for D in (4, 8):
         jd = jdb.distribute_bsr(jm, D)
         td = distribute_bsr(tm, D)

@@ -53,7 +53,7 @@ def problem(request):
     """(JAX BSR, JAX store, port BSR, port store, dense f64 oracle)."""
     jm = _jax_problem(request.param)
     js = j_slice_bsr_sym(jm)
-    tm = bsr_from_arrays(_arrays(jm))
+    tm = bsr_from_arrays(_arrays(jm), device="cpu")
     ts = slice_bsr_sym(tm)
     dense = np.asarray(j_bsr_to_dense(jm), np.float64)
     return jm, js, tm, ts, dense
@@ -81,7 +81,7 @@ def test_store_bit_equal(problem):
 
 def test_store_from_arrays_round_trip(problem):
     _, js, _, ts, _ = problem
-    carried = sym_store_from_arrays(_arrays(js))
+    carried = sym_store_from_arrays(_arrays(js), device="cpu")
     for name in STORE_FIELDS:
         assert torch.equal(getattr(carried, name), getattr(ts, name)), name
 
@@ -177,7 +177,7 @@ def test_empty_bucket1_uniform_magnitudes():
         rows=jnp.asarray(rows, jnp.int32), cols=jnp.asarray(cols, jnp.int32),
         row_start=jnp.asarray([0, 4, 7, 9], jnp.int32), n=n, block=B)
     js = j_slice_bsr_sym(jm)
-    ts = slice_bsr_sym(bsr_from_arrays(_arrays(jm)))
+    ts = slice_bsr_sym(bsr_from_arrays(_arrays(jm), device="cpu"))
     assert ts.slices1.shape[0] == 0 and ts.slices.shape[0] == 10
     for name in STORE_FIELDS:
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
@@ -201,7 +201,7 @@ def test_store_from_arrays_rejects_bad_coordinates(problem, field, value):
     d[field] = d[field].copy()
     d[field][0] = value
     with pytest.raises(ValueError, match="malformed"):
-        sym_store_from_arrays(d)
+        sym_store_from_arrays(d, device="cpu")
 
 
 @pytest.mark.parametrize("bucket", [0, 1])
@@ -210,7 +210,7 @@ def test_worklist_covers_every_pair_once(problem, bucket):
     direction) pair exactly once, under the block row it adds to, and no
     mirror on the diagonal."""
     _, js, _, _, _ = problem
-    st = sym_store_from_arrays(_arrays(js))
+    st = sym_store_from_arrays(_arrays(js), device="cpu")
     rows, cols = (st.rows, st.cols) if bucket == 0 else (st.rows1, st.cols1)
     nbr = st.n // st.block
     items, start = sym_worklist(rows, cols, nbr)

@@ -135,6 +135,77 @@ def test_slice_x_bit_equal(dtype, nx):
     assert float(sx[2, 0]) == 2.0 and not planes.reshape(nx, 5, 256)[:, 2].any()
 
 
+def _front_end_rows(dtype, k=8, n=256, seed=14):
+    """Rows for the fused front end: an all-zero row, rows 2^+-1000 apart
+    in scale (2^+-100 in float32), a row of quotients below the least
+    normal number of the work type, and rows over +-20 octaves."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((k, n)) * 2.0 ** rng.integers(-20, 20, (k, 1))
+    big = 1000 if dtype == np.float64 else 100
+    x[0] = 0.0
+    x[2] *= 2.0 ** big
+    x[3] *= 2.0 ** -big
+    if dtype == np.float64:                  # quotients near 2^-1031
+        x[4] = rng.standard_normal(n) * 2.0 ** 100
+        x[4, ::3] *= 2.0 ** -1030
+    else:                                    # quotients near 2^-131
+        x[4] = rng.standard_normal(n) * 2.0 ** 60
+        x[4, ::3] *= 2.0 ** -130
+    return x.astype(dtype)
+
+
+# (x's dtype, nx, the accumulation type, the symmetric store's fold)
+FRONT_ENDS = [(np.float64, 8, np.float64, False),   # general, f64 tier
+              (np.float64, 8, np.float64, True),    # sym, f64 tier
+              (np.float32, 8, np.float32, False),   # f32 x at nx 8
+              (np.float32, 4, np.float32, False),   # general, f32 tier
+              (np.float32, 4, np.float32, True),    # sym, f32 tier
+              (np.float64, 4, np.float32, True),    # sym, f32 tier, f64 x
+              (np.float64, 4, np.float64, False)]   # f64 x at nx 4
+
+
+@pytest.mark.parametrize("dtype,nx,acc,fold", FRONT_ENDS)
+def test_slice_rows_plain_bit_equal_to_reference(dtype, nx, acc, fold):
+    """The fused front end's plain version against JAX's _slice_x (the peel
+    kernel in interpret mode), with the symmetric matvec's fold of
+    x.astype(acc) * u where the store has one."""
+    x = _front_end_rows(dtype)
+    u = None
+    xj = jnp.asarray(x)
+    if fold:
+        u = 2.0 ** np.random.default_rng(15).integers(-10, 10, x.shape[1])
+        xj = xj.astype(acc) * jnp.asarray(u).astype(acc)[None, :]
+    ref_planes, ref_sx = jbs._slice_x(xj, nx, interpret=True)
+    ref_planes = np.asarray(ref_planes).reshape(nx, *x.shape)
+    tacc = torch.from_numpy(np.zeros(1, acc)).dtype
+    kw = dict(col_scale=None if u is None else torch.from_numpy(u),
+              acc_dtype=tacc, work_dtype=torch.float64 if nx > 4 else tacc)
+    planes, sx = tsl.slice_rows_plain(torch.from_numpy(x), nx, **kw)
+    assert planes.dtype == torch.int8 and sx.dtype == tacc
+    np.testing.assert_array_equal(planes.numpy(), ref_planes)
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(ref_sx))
+    assert float(sx[0, 0]) == 2.0 and not planes[:, 0].any()
+    assert planes[:, 4].any()                 # not every quotient is lost
+    # the matvecs' entry and the wrapper take this chain on the CPU
+    xs, sx2 = tbs._slice_x(torch.from_numpy(x), nx, col_scale=kw[
+        "col_scale"], acc_dtype=tacc)
+    assert torch.equal(xs, planes.reshape(nx * x.shape[0], -1))
+    assert torch.equal(sx2, sx)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_slice_operand_at_7_bits_is_the_front_end(dtype):
+    """slice_operand at 7 bits and up to 8 planes goes through the fused
+    entry: the grid and planes of the unfused chain, the scale in
+    float64."""
+    x = torch.from_numpy(_front_end_rows(dtype, seed=16))
+    planes, scale = tsl.slice_operand(x, 8, 7)
+    t, want_scale = tsl._row_grid(x, 7)
+    assert scale.dtype == torch.float64
+    assert torch.equal(scale, want_scale)
+    assert torch.equal(planes, tsl.peel_rows_plain(t, 8, 7))
+
+
 def test_combine_weights_match():
     for dt, jdt in ((torch.float64, jnp.float64), (torch.float32,
                                                    jnp.float32)):
