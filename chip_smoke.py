@@ -13,9 +13,12 @@ Phases (any failure raises and the script exits non-zero):
    bench.py headlines and the README's plain-BSR operator), its symmetric
    int8 store, its general int8 store (slice_bsr, 4 GB, for the K5 check),
    a float64 copy of its blocks, bsr_gen_problem(65536, 512, 8), the
-   generalized flagship's (A, B) pair of stores, and
+   generalized flagship's (A, B) pair of stores,
    bsr_nonsym_similarity(65536, 512, 8), the nonsymmetric flagship's S, T
-   and T^T stores (its S is the operator above);
+   and T^T stores (its S is the operator above), and
+   bsr_casida_tdscf(65536, 512, 4), the Casida flagship's A+B and A-B
+   symmetric stores, with the two float32 BSR matrices they slice (the
+   same random_bsr_spd calls) kept as their residual oracle;
 4. kernels: each kernel against its plain torch version on the card at the
    shapes the paths give it, with median times of kernel and plain version
    and the least time the card could take for the same work (bound):
@@ -66,7 +69,13 @@ Phases (any failure raises and the script exits non-zero):
        sharding= over dist_sliced_matvec of the general store, both tiers
        (K6 under every matvec; n_max 15, lo_iter 35), then the unsharded
        davidson_ladder over sliced_bsr_matvec of the same store (K5): the
-       same iteration and matvec counts, eigenvalues within 1e-12.
+       same iteration and matvec counts, eigenvalues within 1e-12;
+   (g) caslr_eff_ladder over casida_tdscf_ops of the Casida pair (prec
+       "eff") and caslr_ladder with algorithm 0 (prec "std"), n_max 15,
+       lo_iter 60, a zero (15, 131072) paired guess: each pair's residuals
+       rp = (A+B) p - w m, rm = (A-B) m - w p, p = (Y+Z)/2, m = (Y-Z)/2,
+       recomputed by plain products in each solver's own norm, and the
+       two ladders' eigenvalues within rtol 1e-9 of each other.
    Each returned set of 10 pairs must be ok, with residuals recomputed by
    plain float64 BSR products of the original blocks: rms < 1e-10, max <
    1e-9 (A x - lambda B x for (b), whose vectors must also be B-orthonormal
@@ -95,6 +104,7 @@ ROOT = Path(__file__).resolve().parent
 N, BLOCK, BPR = 65536, 512, 8
 N_TARG, N_MAX = 10, 15
 NS_MAX = 10                        # the nonsymmetric ladder's n_max
+CASIDA_BPR = 4                     # the Casida pair's blocks a row
 K3_M, K3_K = N_MAX, 11 * N_MAX     # the f64 Davidson rotation: lda_pad = 165
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds
 HBM_BPS, INT8_OPS, F32_FLOPS = 3.35e12, 1.979e15, 67e12
@@ -857,6 +867,70 @@ def check_nonsym_pairs(tag, res, s_bsr, t_bsr, tt_bsr, eig_sym):
         raise AssertionError(f"{tag}: the returned pairs fail the checks")
 
 
+def check_casida_pairs(tag, res, apb_bsr, amb_bsr, eff):
+    """ok, and the returned paired rows' residuals by plain float64
+    products of the float32 blocks, in the solver's own norm: caslr's
+    (||rp|| + ||rm||) / sqrt(n); caslr_eff's residuals are the same ones
+    scaled by 1/w and normed over sqrt(2)/w, so sqrt(2) more here."""
+    import torch
+
+    if not res.ok:
+        raise AssertionError(f"{tag}: the ladder did not converge")
+    y, z = res.evec[:N_TARG, :N], res.evec[:N_TARG, N:]
+    p, q = 0.5 * (y + z), 0.5 * (y - z)
+    w = res.eig[:N_TARG, None]
+    rp = plain_bsr_matvec(apb_bsr, p) - w * q
+    rm = plain_bsr_matvec(amb_bsr, q) - w * p
+    scale = 2.0 ** 0.5 if eff else 1.0
+    rms = float(((rp.norm(dim=1) + rm.norm(dim=1)) / (scale * N ** 0.5))
+                .max())
+    rmax = float(((rp.abs().amax(dim=1) + rm.abs().amax(dim=1)) / scale)
+                 .max())
+    log(f"[{tag}] eig[:3]={res.eig[:3].tolist()} plain-product residuals: "
+        f"max rms {rms:.3e}, max |r| {rmax:.3e}")
+    if not (rms < 1e-10 and rmax < 1e-9 and bool(torch.isfinite(
+            res.eig).all()) and tuple(res.evec.shape) == (N_MAX, 2 * N)):
+        raise AssertionError(f"{tag}: residuals of the returned pairs above "
+                             "tol")
+
+
+def casida_ladders(casida, timed, card):
+    """Phase 5(g): the two Casida ladders on the (A+B, A-B) pair, checked
+    by plain products, and against each other."""
+    import torch
+
+    from diaglib_tpu_torch import (
+        SolverOptions,
+        caslr_eff_ladder,
+        caslr_ladder,
+    )
+    from diaglib_tpu_torch.problems import casida_tdscf_ops
+
+    apb, amb, apb_bsr, amb_bsr = casida
+    guess = torch.zeros((N_MAX, 2 * N), dtype=torch.float64,
+                        device=apb.diagonal.device)
+    ladder_kw = dict(lo_tol=2e-6, lo_iter=60)
+    opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                         tol=1e-10, max_dav=10)
+    eff_tiers = casida_tdscf_ops(apb, amb)
+    std_tiers = casida_tdscf_ops(apb, amb, prec="std")
+    re, we = timed("caslr_eff_ladder", lambda gen: caslr_eff_ladder(
+        *eff_tiers, guess, opts, generator=gen, **ladder_kw))
+    check_casida_pairs("caslr_eff_ladder", re, apb_bsr, amb_bsr, eff=True)
+    rs, ws = timed("caslr_ladder algorithm=0", lambda gen: caslr_ladder(
+        *std_tiers, guess, opts, algorithm=0, generator=gen, **ladder_kw))
+    check_casida_pairs("caslr_ladder algorithm=0", rs, apb_bsr, amb_bsr,
+                       eff=False)
+    rel = float(((re.eig[:N_TARG] - rs.eig[:N_TARG]).abs()
+                 / rs.eig[:N_TARG].abs()).max())
+    log(f"[casida] caslr_eff_ladder vs caslr_ladder: eigenvalues {rel:.3e} "
+        f"apart (relative), iterations {re.n_iter} vs {rs.n_iter}, matvecs "
+        f"{re.n_matvec} vs {rs.n_matvec}, wall {we:.3f} vs {ws:.3f} s "
+        f"({card})")
+    if not rel <= 1e-9:
+        raise AssertionError("the two Casida ladders disagree")
+
+
 def sharded_vs_unsharded(general, m, timed, guess, opts, card,
                          backend=None):
     """Phase 5(f): davidson_ladder with ``sharding=`` over
@@ -947,6 +1021,7 @@ def main():
     from diaglib_tpu_torch.problems import (
         _band_bsr,
         _bsr_transpose_band,
+        bsr_casida_tdscf,
         bsr_gen_problem,
         bsr_nonsym_similarity,
         diag_precnd,
@@ -1010,6 +1085,26 @@ def main():
                             ns_stores[2].slices)):
         raise AssertionError("the residual oracles are not "
                              "bsr_nonsym_similarity's (S, T, T^T)")
+    t0 = time.perf_counter()
+    _, _, _, (c_apb, c_amb) = bsr_casida_tdscf(N, BLOCK, CASIDA_BPR, seed=0,
+                                               device=dev)
+    torch.cuda.synchronize()
+    # the A+B and A-B oracles: the same random_bsr_spd calls
+    # bsr_casida_tdscf makes (one seed, off_scale 0.3 and 0.15)
+    c_bsr = [random_bsr_spd(N, BLOCK, CASIDA_BPR, seed=0,
+                            dtype=torch.float32, off_scale=scale, device=dev)
+             for scale in (0.3, 0.15)]
+    log(f"[operator] bsr_casida_tdscf({N}, {BLOCK}, {CASIDA_BPR}): A+B and "
+        f"A-B stores {c_apb.slices.shape[0]} + {c_apb.slices1.shape[0]} "
+        f"entries, {c_apb.nbytes / 2**30:.3f} + {c_amb.nbytes / 2**30:.3f} "
+        f"GiB; float32 oracles {c_bsr[0].nnzb} blocks, "
+        f"{sum(b.blocks_t.numel() * 4 for b in c_bsr) / 2**30:.3f} GiB "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not (torch.equal(bsr.bsr_diagonal(c_bsr[0]).double(), c_apb.diagonal)
+            and torch.equal(bsr.bsr_diagonal(c_bsr[1]).double(),
+                            c_amb.diagonal)):
+        raise AssertionError("the residual oracles are not "
+                             "bsr_casida_tdscf's (A+B, A-B)")
 
     # ---- 4. kernels against their plain versions ----
     stats = {"peel_rows": {}, "sym_spmm": {}, "sliced_wide_mm": {},
@@ -1135,6 +1230,10 @@ def main():
     # (f) the sharded ladder over the distributed sliced operator (K6)
     sharded_vs_unsharded(general, m, timed, guess, opts, card)
     del general
+
+    # (g) the Casida ladders on the (A+B, A-B) pair
+    casida_ladders((c_apb, c_amb, *c_bsr), timed, card)
+    del c_apb, c_amb, c_bsr
 
     # ---- 6. kernel usage ----
     sources = {

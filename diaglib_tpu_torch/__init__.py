@@ -2,10 +2,12 @@
 
 This package carries the float32 -> float64 solve ladders of the symmetric
 drivers (Davidson, standard and generalized, and LOBPCG, standard and
-generalized) and of the two-sided nonsymmetric Davidson, over the
-symmetric and general integer-sliced BSR operators or the plain BSR
-operator.  Plain tensor code is PyTorch; the kernels are CUDA C++ in
-``csrc/``, built by ``nvcc`` at first use: the slice peel, which also
+generalized), of the Casida linear-response solvers (``caslr``, both
+reduced-solve algorithms, and ``caslr_eff``) and of the two-sided
+nonsymmetric Davidson, over the symmetric and general integer-sliced BSR
+operators or the plain BSR operator.  Plain tensor code is PyTorch; the
+kernels are CUDA C++ in ``csrc/``, built by ``nvcc`` at first use: the
+slice peel, which also
 takes the whole x side of a sliced matvec in one launch
 (``ops.slicing.slice_rows``, ``peel_rows``), the symmetric sliced SpMM
 (``ops.bsr_sliced_sym.sym_spmm``), the exact wide-rotation product
@@ -17,7 +19,7 @@ torch versions.  The problem generators, and the functions that carry
 the JAX package's stores across, make their tensors on the CUDA device
 unless the caller names another.
 
-The symmetric drivers and their ladders also run sharded over a
+The symmetric and Casida solvers and their ladders also run sharded over a
 ``torch.distributed`` group (``sharding=`` a
 :class:`~diaglib_tpu_torch.parallel.VectorSharding`; NCCL on the cards,
 gloo on the CPU when asked), with the distributed BSR and sliced operators
@@ -28,6 +30,10 @@ from . import ops, ortho, parallel, solvers, utils
 from .ops.bsr import bsr_from_dense, bsr_matvec
 from .solvers import (
     NonsymPassResult,
+    caslr,
+    caslr_eff,
+    caslr_eff_ladder,
+    caslr_ladder,
     davidson,
     davidson_ladder,
     gen_david,
@@ -40,10 +46,18 @@ from .solvers import (
     nonsym_pass,
     nonsym_seed_left,
 )
-from .types import NonsymResult, SolverOptions, SolverResult
+from .types import (
+    LROps,
+    LRSolverResult,
+    NonsymResult,
+    SolverOptions,
+    SolverResult,
+)
 
-__all__ = ["SolverOptions", "SolverResult", "NonsymResult", "davidson",
-           "gen_david", "lobpcg", "nonsym", "nonsym_pass", "NonsymPassResult",
+__all__ = ["SolverOptions", "SolverResult", "LROps", "LRSolverResult",
+           "NonsymResult", "davidson", "gen_david", "lobpcg", "caslr",
+           "caslr_eff", "nonsym", "nonsym_pass", "NonsymPassResult",
            "nonsym_seed_left", "nonsym_finalize", "davidson_ladder",
-           "gen_david_ladder", "lobpcg_ladder", "nonsym_ladder",
-           "bsr_matvec", "bsr_from_dense"]
+           "gen_david_ladder", "lobpcg_ladder", "caslr_ladder",
+           "caslr_eff_ladder", "nonsym_ladder", "bsr_matvec",
+           "bsr_from_dense"]

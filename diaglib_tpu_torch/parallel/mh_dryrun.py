@@ -180,13 +180,28 @@ def _job_dist_sliced(dev, inp):
     return out
 
 
+def _paired_local(sh, full):
+    """A rank's ``[Y_local | Z_local]`` block of (k, 2n) paired rows."""
+    import torch
+
+    return torch.cat([sh.local_cols(full[:, :sh.n]),
+                      sh.local_cols(full[:, sh.n:])], dim=1)
+
+
 def _job_sharded_solvers(dev, inp):
     """``davidson``, ``gen_david`` and ``lobpcg`` on the dense pair
     (``a``, ``s``) with each rank holding its rows, and ``dist_bsr_matvec``
     on the BSR arrays ``bsr`` (applied to ``x``, and under ``davidson``
     from ``bsr_guess``), sharded over the world;
     plus, under ``mm_sharding``, a Gram product gathered from every rank,
-    the QR fallback of ``guess`` and the random guess of ``check_guess``.
+    the QR fallback of ``guess`` and the random guess of ``check_guess``;
+    plus ``caslr`` (algorithm 0) and ``caslr_eff`` on the Casida blocks
+    ``casida`` (a dict of numpy arrays: apb, amb, spd, smd and the
+    preconditioner's diagonals aa, sigma) with each rank holding its rows,
+    from the paired guess ``casida_guess`` (each rank passes its
+    ``[Y_local | Z_local]``), and ``caslr`` once more from
+    ``casida_zero_guess``, whose zero rows are filled from a generator
+    seeded with 5.
     """
     import torch
 
@@ -239,6 +254,46 @@ def _job_sharded_solvers(dev, inp):
         diag_precnd(shb.local_cols(bsr_diagonal(m))),
         shb.local_cols(torch.as_tensor(inp["bsr_guess"], device=dev)), opts,
         sharding=shb), shb))
+    out.update(_casida_solves(dev, inp, opts))
+    return out
+
+
+def _casida_solves(dev, inp, opts):
+    import torch
+
+    from ..problems import lrprec_eff, lrprec_std
+    from ..solvers import caslr, caslr_eff
+    from .sharding import VectorSharding
+
+    blk = {k: torch.as_tensor(v, device=dev)
+           for k, v in inp["casida"].items()}
+    sh = VectorSharding(blk["apb"].shape[0])
+
+    def rows_op(name):
+        loc = sh.local_cols(blk[name].T).T
+
+        def mv(x):
+            return sh.all_gather(x) @ loc.T
+
+        return mv
+
+    ops = {f"{k}mul": rows_op(k) for k in ("apb", "amb", "spd", "smd")}
+    aa, sg = sh.local_cols(blk["aa"]), sh.local_cols(blk["sigma"])
+    guess = _paired_local(sh, torch.as_tensor(inp["casida_guess"],
+                                              device=dev))
+    zero = _paired_local(sh, torch.as_tensor(inp["casida_zero_guess"],
+                                             device=dev))
+    out = {}
+    out.update(_result("caslr", caslr(
+        lrprec=lrprec_std(aa, sg), evec_guess=guess, options=opts,
+        algorithm=0, sharding=sh, **ops), sh))
+    out.update(_result("caslr_eff", caslr_eff(
+        lrprec=lrprec_eff(aa, sg), evec_guess=guess, options=opts,
+        sharding=sh, **ops), sh))
+    out.update(_result("caslr_zero", caslr(
+        lrprec=lrprec_std(aa, sg), evec_guess=zero, options=opts,
+        algorithm=0, generator=torch.Generator(device=dev).manual_seed(5),
+        sharding=sh, **ops), sh))
     return out
 
 

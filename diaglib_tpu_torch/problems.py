@@ -16,9 +16,11 @@ import torch
 
 from ._device import resolve_device
 
-__all__ = ["symm_matrix", "metric_matrix", "nonsym_matrix", "dense_matvec",
-           "diag_precnd", "bsr_gen_problem", "bsr_nonsym_similarity",
-           "nonsym_similarity_ops", "nonsym_similarity_sided"]
+__all__ = ["symm_matrix", "metric_matrix", "casida_blocks", "nonsym_matrix",
+           "dense_matvec", "diag_precnd", "bsr_casida_tdscf",
+           "casida_tdscf_ops", "bsr_gen_problem", "bsr_nonsym_similarity",
+           "nonsym_similarity_ops", "nonsym_similarity_sided", "lrprec_eff",
+           "lrprec_std"]
 
 
 def symm_matrix(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -36,6 +38,37 @@ def metric_matrix(n: int, generator: torch.Generator | None = None,
     m = torch.rand((n, n), generator=generator, dtype=dtype,
                    device=resolve_device(device))
     return m.T @ m
+
+
+def casida_blocks(n: int, generator: torch.Generator | None = None,
+                  tdscf: bool = False, dtype=torch.float64,
+                  device=None) -> dict:
+    """Casida test blocks of the reference's test_caslr.
+
+    A+B has diagonal 5+i and off-diagonal 0.2/(i+j) (1-based); A-B is
+    diagonal, 2+i (the reference's loop overwrites its off-diagonals, and
+    the converged data is what is reproduced); sigma = I + M^T M and
+    delta = R - R^T with M, then R, uniform in [0, 1) from ``generator``.
+    With ``tdscf=True``, sigma = I and delta = 0 (test_scflr) and nothing
+    is drawn.  Returns a dict with apb, amb, sigma, delta, aa, bb, spd,
+    smd.
+    """
+    dev = resolve_device(device)
+    i = torch.arange(1, n + 1, dtype=dtype, device=dev)
+    apb = 0.2 / (i[:, None] + i[None, :])
+    apb.diagonal().copy_(5.0 + i)
+    amb = torch.diag(2.0 + i)
+    if tdscf:
+        sigma = torch.eye(n, dtype=dtype, device=dev)
+        delta = torch.zeros((n, n), dtype=dtype, device=dev)
+    else:
+        m = torch.rand((n, n), generator=generator, dtype=dtype, device=dev)
+        sigma = m.T @ m + torch.eye(n, dtype=dtype, device=dev)
+        r = torch.rand((n, n), generator=generator, dtype=dtype, device=dev)
+        delta = r - r.T
+    return dict(apb=apb, amb=amb, sigma=sigma, delta=delta,
+                aa=0.5 * (apb + amb), bb=0.5 * (apb - amb),
+                spd=sigma + delta, smd=sigma - delta)
 
 
 def nonsym_matrix(n: int, generator: torch.Generator | None = None,
@@ -257,3 +290,106 @@ def diag_precnd(diagonal: torch.Tensor, guard: float = 1.0e-5):
                            x / torch.where(safe, denom, 1.0), x)
 
     return pc
+
+
+def _guard_denom(denom: torch.Tensor, scale: torch.Tensor,
+                 rel: float = 1.0e-5) -> torch.Tensor:
+    """Clamp a preconditioner denominator away from zero, relative to the
+    row's magnitude ``scale`` (the mprec guard extended to the paired
+    preconditioners): a row resonant with the current root would
+    otherwise give a huge expansion vector nearly parallel to others,
+    which breaks the metric Cholesky downstream."""
+    floor = rel * torch.clamp(scale, min=1.0)
+    return torch.where(denom.abs() < floor,
+                       torch.where(denom < 0.0, -floor, floor), denom)
+
+
+def lrprec_std(aa_diag: torch.Tensor, sigma_diag: torch.Tensor):
+    """Paired preconditioner of ``caslr`` (the reference's lrprec_1, called
+    with fac = w): yp = -(a xp + f s xm) / (a^2 - f^2 s^2), ym the same
+    with xp and xm swapped."""
+    a, sg = aa_diag, sigma_diag
+
+    def pc(fac, xp, xm):
+        denom = a * a - fac * fac * sg * sg
+        denom = _guard_denom(denom, a * a + fac * fac * sg * sg)
+        yp = -(a * xp + fac * sg * xm) / denom
+        ym = -(a * xm + fac * sg * xp) / denom
+        return yp, ym
+
+    return pc
+
+
+def lrprec_eff(aa_diag: torch.Tensor, sigma_diag: torch.Tensor):
+    """Paired preconditioner of ``caslr_eff`` (the reference's lrprec_2,
+    called with fac = 1/w): denom = f^2 a^2 - s^2, yp = (f a xp + s xm) /
+    denom, ym the same with xp and xm swapped."""
+    a, sg = aa_diag, sigma_diag
+
+    def pc(fac, xp, xm):
+        denom = fac * fac * a * a - sg * sg
+        denom = _guard_denom(denom, fac * fac * a * a + sg * sg)
+        yp = (fac * a * xp + sg * xm) / denom
+        ym = (fac * a * xm + sg * xp) / denom
+        return yp, ym
+
+    return pc
+
+
+def bsr_casida_tdscf(n: int, block: int, blocks_per_row: int, seed: int,
+                     na: int | None = None, device=None):
+    """Flagship-scale Casida problem on symmetric sliced BSR stores.
+
+    TD-SCF structure (sigma = I, delta = 0, so spd = smd = identity): the
+    heavy operators are A+B and A-B, both ``random_bsr_spd(n, block,
+    blocks_per_row, seed)`` float32 matrices with ``off_scale`` 0.3 and
+    0.15.  The same seed gives them the same sparsity pattern and the same
+    separated low rows, so the low modes of the product spectrum sit on
+    rows the paired diagonal preconditioner resolves.  Each is sliced
+    with ``slice_bsr_sym``; one store serves both tiers of a ladder.
+    Built on the CUDA device unless ``device`` names another.
+
+    Returns ``(ops_lo, ops_hi, diag_aa, (apb, amb))``: the float32 and
+    float64 :class:`~diaglib_tpu_torch.types.LROps` tiers (with
+    ``lrprec_eff``), the averaged diagonal (A+B + A-B)/2 and the two
+    stores.
+    """
+    from .ops.bsr import random_bsr_spd
+    from .ops.bsr_sliced_sym import slice_bsr_sym
+
+    dev = resolve_device(device)
+    apb, amb = (slice_bsr_sym(random_bsr_spd(n, block, blocks_per_row, seed,
+                                             dtype=torch.float32,
+                                             off_scale=scale, device=dev),
+                              na=na) for scale in (0.3, 0.15))
+    ops_lo, ops_hi = casida_tdscf_ops(apb, amb)
+    return ops_lo, ops_hi, 0.5 * (apb.diagonal + amb.diagonal), (apb, amb)
+
+
+def casida_tdscf_ops(apb, amb, prec: str = "eff"):
+    """``(ops_lo, ops_hi)`` LROps tiers over two sliced stores (either
+    flavor) of A+B and A-B, TD-SCF structure: ``spdmul`` and ``smdmul``
+    are the identity, and the preconditioner works on diag_aa = (diag(A+B)
+    + diag(A-B))/2 with unit sigma, in float32 for the float32 tier.
+    ``prec``: "eff" pairs the tiers with ``lrprec_eff`` (for
+    ``caslr_eff``), "std" with ``lrprec_std`` (for ``caslr``)."""
+    from .ops.bsr_sliced_sym import sliced_matvec_any
+    from .types import LROps
+
+    if prec not in ("eff", "std"):
+        raise ValueError(f"prec must be 'eff' or 'std', got {prec!r}")
+    diag_aa = 0.5 * (apb.diagonal + amb.diagonal)
+    make_prec = lrprec_eff if prec == "eff" else lrprec_std
+
+    def ident(x):
+        return x
+
+    def tier(dtype):
+        return LROps(
+            apbmul=sliced_matvec_any(apb, dtype=dtype),
+            ambmul=sliced_matvec_any(amb, dtype=dtype),
+            spdmul=ident, smdmul=ident,
+            lrprec=make_prec(diag_aa.to(dtype), torch.ones_like(
+                diag_aa, dtype=dtype)))
+
+    return tier(torch.float32), tier(torch.float64)

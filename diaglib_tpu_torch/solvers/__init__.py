@@ -1,8 +1,11 @@
 """Eigensolver drivers."""
 
+from .caslr import caslr, caslr_eff
 from .davidson import davidson, gen_david
 from .lobpcg import lobpcg
 from .mixed import (
+    caslr_eff_ladder,
+    caslr_ladder,
     davidson_ladder,
     gen_david_ladder,
     lobpcg_ladder,
@@ -16,7 +19,8 @@ from .nonsym import (
     nonsym_seed_left,
 )
 
-__all__ = ["davidson", "gen_david", "lobpcg", "nonsym", "nonsym_pass",
-           "NonsymPassResult", "nonsym_seed_left", "nonsym_finalize",
-           "davidson_ladder", "gen_david_ladder", "lobpcg_ladder",
+__all__ = ["davidson", "gen_david", "lobpcg", "caslr", "caslr_eff", "nonsym",
+           "nonsym_pass", "NonsymPassResult", "nonsym_seed_left",
+           "nonsym_finalize", "davidson_ladder", "gen_david_ladder",
+           "lobpcg_ladder", "caslr_ladder", "caslr_eff_ladder",
            "nonsym_ladder"]

@@ -1,5 +1,6 @@
 """The float32 -> float64 solve ladders (port of ``davidson_ladder``,
-``lobpcg_ladder``, ``gen_david_ladder`` and ``nonsym_ladder`` of
+``lobpcg_ladder``, ``gen_david_ladder``, ``caslr_ladder``,
+``caslr_eff_ladder`` and ``nonsym_ladder`` of
 ``diaglib_tpu/solvers/mixed.py``).
 
 1. Run the solver in float32 until the residuals reach the float32 noise
@@ -7,7 +8,8 @@
    converge.
 2. Warm-start the float64 solver from the float32 Ritz vectors;
    ``check_guess`` (and, with a metric, ``b_ortho``) re-orthonormalizes
-   them in float64.
+   them in float64 (the Casida solvers split the paired rows and
+   orthonormalize the halves again, in their metrics for ``caslr_eff``).
 
 The result is the float64 stage's, with both stages' iteration and matvec
 counts added up.
@@ -24,13 +26,20 @@ import dataclasses
 
 import torch
 
-from ..types import NonsymResult, SolverOptions, SolverResult
+from ..types import (
+    LROps,
+    LRSolverResult,
+    NonsymResult,
+    SolverOptions,
+    SolverResult,
+)
+from .caslr import caslr, caslr_eff
 from .davidson import davidson, gen_david
 from .lobpcg import lobpcg
 from .nonsym import nonsym
 
-__all__ = ["davidson_ladder", "lobpcg_ladder", "gen_david_ladder",
-           "nonsym_ladder"]
+__all__ = ["LROps", "davidson_ladder", "lobpcg_ladder", "gen_david_ladder",
+           "caslr_ladder", "caslr_eff_ladder", "nonsym_ladder"]
 
 
 def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
@@ -116,6 +125,49 @@ def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
                    options, generator=generator, sharding=sharding)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
                                n_matvec=lo.n_matvec + hi.n_matvec)
+
+
+def _lr_two_stage(solver, ops_lo: LROps, ops_hi: LROps, evec_guess,
+                  options, lo_tol, lo_iter, generator, sharding, **kw):
+    lo = solver(ops_lo.apbmul, ops_lo.ambmul, ops_lo.spdmul, ops_lo.smdmul,
+                ops_lo.lrprec, evec_guess.to(torch.float32),
+                _lo_options(options, lo_tol, lo_iter), generator=generator,
+                sharding=sharding, **kw)
+    hi = solver(ops_hi.apbmul, ops_hi.ambmul, ops_hi.spdmul, ops_hi.smdmul,
+                ops_hi.lrprec, lo.evec.to(torch.float64), options,
+                generator=generator, sharding=sharding, **kw)
+    return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
+                               n_matvec=lo.n_matvec + hi.n_matvec)
+
+
+def caslr_ladder(ops_lo: LROps, ops_hi: LROps, evec_guess: torch.Tensor,
+                 options: SolverOptions, *, algorithm: int = 1,
+                 lo_tol: float = 2e-6, lo_iter: int | None = None,
+                 generator: torch.Generator | None = None,
+                 sharding=None) -> LRSolverResult:
+    """float32-then-float64 Casida solver (:func:`~.caslr.caslr`, reduced
+    solve ``algorithm`` in both stages).  ``ops_lo``/``ops_hi`` are the
+    float32 and float64 :class:`LROps` tiers; ``evec_guess`` holds (n_max,
+    2n) paired rows (``[Y_local | Z_local]`` under ``sharding``).  The
+    float64 stage re-orthonormalizes the split warm-start rows in float64,
+    so the float32 stage only has to land in the right subspace.  The
+    result is the float64 stage's with both stages' counts added up."""
+    return _lr_two_stage(caslr, ops_lo, ops_hi, evec_guess, options, lo_tol,
+                         lo_iter, generator, sharding, algorithm=algorithm)
+
+
+def caslr_eff_ladder(ops_lo: LROps, ops_hi: LROps, evec_guess: torch.Tensor,
+                     options: SolverOptions, *, lo_tol: float = 2e-6,
+                     lo_iter: int | None = None,
+                     generator: torch.Generator | None = None,
+                     sharding=None) -> LRSolverResult:
+    """float32-then-float64 efficient Casida solver
+    (:func:`~.caslr.caslr_eff`).  The float64 stage B-orthonormalizes the
+    split warm-start rows against (A+B) and (A-B) from scratch, which
+    erases the float32 metric noise.  Arguments and result as
+    :func:`caslr_ladder`."""
+    return _lr_two_stage(caslr_eff, ops_lo, ops_hi, evec_guess, options,
+                         lo_tol, lo_iter, generator, sharding)
 
 
 def nonsym_ladder(matvec_lo, matvec_l_lo, precnd_lo, matvec_hi, matvec_l_hi,

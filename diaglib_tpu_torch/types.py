@@ -6,6 +6,10 @@ Callback contract, as in the JAX package:
   ``x: (k, n) -> (k, n)``; it must be linear (zero rows stay zero).
 * ``precnd(shift, r)`` is a shift-aware preconditioner,
   ``(float, (k, n)) -> (k, n)``.
+* The Casida operators ``apbmul``/``ambmul``/``spdmul``/``smdmul`` map
+  ``(k, n) -> (k, n)``, and the paired preconditioner
+  ``lrprec(fac, rp, rm) -> (yp, ym)`` takes a 0-d tensor ``fac`` on the
+  solve's device.
 """
 
 from __future__ import annotations
@@ -17,9 +21,23 @@ import torch
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 PrecndFn = Callable[[float, torch.Tensor], torch.Tensor]
+LRPrecndFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                      tuple]
 
-__all__ = ["MatVec", "PrecndFn", "SolverOptions", "SolverResult",
-           "NonsymResult"]
+__all__ = ["MatVec", "PrecndFn", "LRPrecndFn", "LROps", "SolverOptions",
+           "SolverResult", "LRSolverResult", "NonsymResult"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LROps:
+    """The Casida four-operator bundle and its paired preconditioner, for
+    example one precision tier of a linear-response ladder."""
+
+    apbmul: MatVec
+    ambmul: MatVec
+    spdmul: MatVec
+    smdmul: MatVec
+    lrprec: LRPrecndFn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +100,28 @@ class SolverResult:
     done: (n_max,) per-root converged flags (a contiguous prefix).
     rms_history/max_history/eig_history: (max_iter, n_max) tables.
     ortho_ok: False if any orthogonalization step failed to converge.
+    """
+
+    eig: torch.Tensor
+    evec: torch.Tensor
+    ok: bool
+    n_iter: int
+    n_matvec: int
+    done: torch.Tensor
+    rms_history: torch.Tensor
+    max_history: torch.Tensor
+    eig_history: torch.Tensor
+    ortho_ok: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class LRSolverResult:
+    """Result of a Casida linear-response solver (``caslr``/``caslr_eff``).
+
+    The fields are :class:`SolverResult`'s; ``evec`` rows are the paired
+    vectors (Y, Z) of length 2n (under a sharding, ``[Y_local |
+    Z_local]``, 2 n_local wide) and ``eig`` the excitation energies w,
+    ascending.
     """
 
     eig: torch.Tensor

@@ -23,6 +23,7 @@ def test_port_covers_the_slice_modules():
                  "ortho.core", "utils.guess", "utils.masking",
                  "utils.reduced", "utils.mm", "solvers.davidson",
                  "solvers.lobpcg", "solvers.mixed", "solvers.nonsym",
+                 "solvers.caslr",
                  "_device", "ops.dist_bsr", "ops.dist_sliced",
                  "parallel.sharding", "parallel.multihost",
                  "parallel.mh_dryrun"):

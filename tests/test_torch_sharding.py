@@ -19,8 +19,16 @@ import torch.distributed as dist
 
 from diaglib_tpu.ops import dist_bsr as jdb
 from diaglib_tpu.ops import random_bsr_spd as j_random_bsr_spd
+from diaglib_tpu.problems import casida_blocks as j_casida_blocks
 from diaglib_tpu.problems import metric_matrix as j_metric_matrix
-from diaglib_tpu_torch import SolverOptions, davidson, gen_david, lobpcg
+from diaglib_tpu_torch import (
+    SolverOptions,
+    caslr,
+    caslr_eff,
+    davidson,
+    gen_david,
+    lobpcg,
+)
 from diaglib_tpu_torch.ops.bsr import (
     as_arrays,
     bsr_diagonal,
@@ -43,7 +51,13 @@ from diaglib_tpu_torch.parallel import (
 )
 from diaglib_tpu_torch.ortho.core import ortho_qr
 from diaglib_tpu_torch.parallel import mh_dryrun
-from diaglib_tpu_torch.problems import dense_matvec, diag_precnd, symm_matrix
+from diaglib_tpu_torch.problems import (
+    dense_matvec,
+    diag_precnd,
+    lrprec_eff,
+    lrprec_std,
+    symm_matrix,
+)
 from diaglib_tpu_torch.utils.guess import check_guess
 
 N, B = 256, 32
@@ -57,10 +71,19 @@ def fleet():
     s = np.array(j_metric_matrix(N, jax.random.PRNGKey(1)))
     m = random_bsr_spd(2 * N, B, 4, seed=11, dtype=torch.float64,
                        device="cpu")
+    blk = j_casida_blocks(N, jax.random.PRNGKey(17))
+    casida = {k: np.asarray(blk[k]) for k in ("apb", "amb", "spd", "smd")}
+    casida.update(aa=np.diagonal(np.asarray(blk["aa"])).copy(),
+                  sigma=np.diagonal(np.asarray(blk["sigma"])).copy())
+    casida_guess = rng.uniform(-0.5, 0.5, (8, 2 * N))
+    zero = casida_guess.copy()
+    zero[4:] = 0.0
     inputs = dict(a=a, s=s, guess=rng.uniform(-0.5, 0.5, (8, N)),
                   options=OPTS, bsr=as_arrays(m),
                   x=rng.standard_normal((5, 2 * N)),
-                  bsr_guess=rng.uniform(-0.5, 0.5, (8, 2 * N)))
+                  bsr_guess=rng.uniform(-0.5, 0.5, (8, 2 * N)),
+                  casida=casida, casida_guess=casida_guess,
+                  casida_zero_guess=zero)
     _, results = mh_dryrun.run_fleet("sharded_solvers", inputs,
                                      num_processes=4, backend="gloo",
                                      device="cpu", timeout=120)
@@ -155,6 +178,65 @@ def test_rms_uses_the_global_length(fleet, solver):
     want = ref.rms_history[0].numpy()
     for r in results:
         np.testing.assert_allclose(r[f"{solver}_rms0"], want, rtol=1e-9)
+
+
+def _casida_serial(inputs, run, guess, **kw):
+    c = {k: torch.from_numpy(np.array(v))
+         for k, v in inputs["casida"].items()}
+    ops = {f"{k}mul": dense_matvec(c[k]) for k in ("apb", "amb", "spd",
+                                                   "smd")}
+    opts = SolverOptions(**OPTS)
+    if run == "caslr_eff":
+        return caslr_eff(lrprec=lrprec_eff(c["aa"], c["sigma"]),
+                         evec_guess=torch.from_numpy(guess), options=opts,
+                         **ops, **kw)
+    return caslr(lrprec=lrprec_std(c["aa"], c["sigma"]),
+                 evec_guess=torch.from_numpy(guess), options=opts,
+                 algorithm=0, **ops, **kw)
+
+
+def _paired(results, key):
+    """(k, 2n) paired rows from every rank's [Y_local | Z_local]."""
+    half = results[0][key].shape[1] // 2
+    return np.concatenate(
+        [np.concatenate([r[key][:, :half] for r in results], axis=1),
+         np.concatenate([r[key][:, half:] for r in results], axis=1)],
+        axis=1)
+
+
+@pytest.mark.parametrize("run,guess", [("caslr", "casida_guess"),
+                                       ("caslr_eff", "casida_guess"),
+                                       ("caslr_zero", "casida_zero_guess")])
+def test_sharded_casida_equals_unsharded(fleet, run, guess):
+    """caslr (algorithm 0) and caslr_eff over 4 ranks, each passing and
+    receiving [Y_local | Z_local], against the unsharded runs: the same
+    eigenvalues, counts and paired vectors (up to sign), and the same
+    first-iteration residuals (global n).  From a guess with zero rows the
+    fill is drawn at global width, so the sharded start is the unsharded
+    one and so are the first residuals."""
+    inputs, _, results = fleet
+    kw = ({"generator": torch.Generator().manual_seed(5)}
+          if run == "caslr_zero" else {})
+    ref = _casida_serial(inputs, "caslr_eff" if run == "caslr_eff"
+                         else "caslr", inputs[guess], **kw)
+    assert ref.ok and ref.ortho_ok
+    n_targ = OPTS["n_targ"]
+    for r in results:
+        assert r[f"{run}_ok"]
+        np.testing.assert_allclose(r[f"{run}_eig"][:n_targ],
+                                   ref.eig[:n_targ].numpy(), rtol=0,
+                                   atol=1e-10)
+        assert abs(r[f"{run}_iter"] - ref.n_iter) <= 2
+        assert abs(r[f"{run}_matvec"] - ref.n_matvec) <= 4 * OPTS["n_max"]
+        np.testing.assert_allclose(r[f"{run}_rms0"],
+                                   ref.rms_history[0].numpy(), rtol=1e-9)
+        hist = r[f"{run}_eig_ranks"]
+        assert all(np.array_equal(h, hist[0]) for h in hist[1:])
+    ev = _paired(results, f"{run}_evec")[:n_targ]
+    want = ref.evec[:n_targ].numpy()
+    cos = np.abs(np.sum(ev * want, axis=1)) / (
+        np.linalg.norm(ev, axis=1) * np.linalg.norm(want, axis=1))
+    np.testing.assert_allclose(cos, 1.0, rtol=0, atol=1e-8)
 
 
 def test_dist_bsr_matvec_equals_serial(fleet):
