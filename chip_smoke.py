@@ -76,6 +76,28 @@ Phases (any failure raises and the script exits non-zero):
        rp = (A+B) p - w m, rm = (A-B) m - w p, p = (Y+Z)/2, m = (Y-Z)/2,
        recomputed by plain products in each solver's own norm, and the
        two ladders' eigenvalues within rtol 1e-9 of each other.
+   (h) the options the reference accepts beyond the main routes:
+       (h2, after (d)) sliced_mmT at the Gram shape (15, 65536) .
+       (165, 65536)^T on the card, bit for bit against the same call on
+       CPU copies, its median time beside float64 a @ b.T; (h1) (d)'s
+       davidson_ladder under reduced_solver "host", "jacobi" (eager
+       sweeps on the card, run once, without a warm-up) and sliced_mm
+       "always" (every float64 Gram product through sliced_mmT at
+       K = 65536): eigenvalues within 1e-10 of (d)'s "auto" run, and for
+       "always" iterations within 2 of it (the host route solves the
+       float32 stage's reduced problems in float64, as the reference's
+       does, and the Jacobi route to an adaptive target, so their counts
+       are logged beside (d)'s, not held), walls beside it, and the
+       median time of one
+       reduced solve at L = 150 (a Rayleigh quotient of the store) by
+       jacobi_eigh, torch.linalg.eigh and the host route; (h3, inside (e),
+       on its stores) nonsym_ladder with driver "device" (the Eberlein
+       reduced solve on the card, run once) and with sharding= under a
+       one-rank NCCL group: (e)'s checks, eigenvalues within 1e-9 of
+       (e)'s, the sharded run with (e)'s iteration and matvec counts
+       exactly, and the median time of one reduced solve at L = 100 (the
+       ladder's largest) by eberlein_eig on the card and by host dgeev.
+       No route falls back to another: a failure raises.
    Each returned set of 10 pairs must be ok, with residuals recomputed by
    plain float64 BSR products of the original blocks: rms < 1e-10, max <
    1e-9 (A x - lambda B x for (b), whose vectors must also be B-orthonormal
@@ -83,8 +105,8 @@ Phases (any failure raises and the script exits non-zero):
    vectors must be biorthonormal to 1e-10 and whose eigenvalues must lie
    within 1e-7 of (d)'s, R being similar to S);
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
-   the timed runs of 5 and each kernel's times and bound; every kernel (six)
-   must have run there.
+   the timed runs of 5, (h) included, and each kernel's times and bound;
+   every kernel (six) must have run there.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -92,6 +114,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -980,6 +1003,164 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
                              "one disagree")
 
 
+def sliced_gram_on_card(dev, card):
+    """Phase 5(h2): the exact sliced Gram product of sliced_mm="always" at
+    the flagship shape, on the card against CPU copies, bit for bit."""
+    import torch
+
+    from diaglib_tpu_torch.ops import slicing
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn((N_MAX, N), generator=g, dtype=torch.float64, device=dev)
+    b = torch.randn((K3_K, N), generator=g, dtype=torch.float64, device=dev)
+    got = slicing.sliced_mmT(a, b)
+    same = torch.equal(got.cpu(), slicing.sliced_mmT(a.cpu(), b.cpu()))
+    exact = a @ b.T
+    rel = float((got - exact).abs().max() / exact.abs().max())
+    ms = time_ms(lambda: slicing.sliced_mmT(a, b), 20)
+    ref_ms = time_ms(lambda: a @ b.T, 20)
+    log(f"[sliced_mm] sliced_mmT ({N_MAX}, {N}) . ({K3_K}, {N})^T: card == "
+        f"CPU bit for bit {same}, vs float64 a @ b.T {rel:.3e} of max; "
+        f"{ms:.4f} ms, a @ b.T {ref_ms:.4f} ms ({card})")
+    if not (same and rel < 1e-14):
+        raise AssertionError("sliced_mmT on the card differs from the CPU")
+
+
+def f64_iters(res):
+    """Iterations of a ladder's float64 stage (its history rows)."""
+    import torch
+
+    return int(torch.isfinite(res.rms_history[:, 0]).sum())
+
+
+def rayleigh_quotient(mv, rows, L, dev, seed):
+    """An L x L reduced matrix Q A Q^T of the operator ``mv`` (row
+    vectors), Q orthonormal rows spanning ``rows`` and seeded random
+    rows, applied in blocks of len(rows)."""
+    import torch
+
+    k = rows.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.cat([rows, torch.randn((L - k, rows.shape[1]), generator=g,
+                                     dtype=torch.float64, device=dev)])
+    q = torch.linalg.qr(x.T)[0].T.contiguous()
+    aq = torch.cat([mv(q[i:i + k]) for i in range(0, L, k)])
+    return q @ aq.T
+
+
+def davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi):
+    """Phase 5(h1): (d)'s sliced Davidson ladder under the host and Jacobi
+    reduced routes and the sliced Gram route, against (d)'s "auto" run;
+    then one reduced solve at L = 150 by each route."""
+    import torch
+
+    from diaglib_tpu_torch import SolverOptions
+    from diaglib_tpu_torch.utils import reduced
+    from diaglib_tpu_torch.utils.jacobi import jacobi_eigh
+
+    for tag, kw in (("reduced_solver=host", dict(reduced_solver="host")),
+                    ("reduced_solver=jacobi", dict(reduced_solver="jacobi")),
+                    ("sliced_mm=always", dict(sliced_mm="always"))):
+        o = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                          tol=1e-10, max_dav=10, **kw)
+        res, wall = timed(f"davidson_ladder {tag}",
+                          lambda gen, o=o: run_d(o, gen),
+                          warm=tag != "reduced_solver=jacobi")
+        check_pairs(f"davidson_ladder {tag}", res, m)
+        d_eig = float((res.eig[:N_TARG] - ra.eig[:N_TARG]).abs().max())
+        hi, hi_a = f64_iters(res), f64_iters(ra)
+        log(f"[davidson_ladder] {tag} vs auto: eigenvalues {d_eig:.3e} "
+            f"apart, iterations {res.n_iter} vs {ra.n_iter} (f64 stage {hi} "
+            f"vs {hi_a}), matvecs {res.n_matvec} vs {ra.n_matvec}, wall "
+            f"{wall:.3f} vs {wa:.3f} s ({card})")
+        # counts are held where the arithmetic is "auto"'s: the sliced
+        # products are exact.  The host route solves the float32 stage's
+        # reduced problems in float64 (as the reference's callback does)
+        # and the Jacobi route to an adaptive target, so their float32
+        # stages end elsewhere and the float64 stages start elsewhere
+        same_path = tag == "sliced_mm=always"
+        if not (d_eig <= 1e-10
+                and (not same_path or abs(res.n_iter - ra.n_iter) <= 2)):
+            raise AssertionError(f"davidson_ladder {tag} and auto disagree")
+    L = 10 * N_MAX                      # the f64 stage's largest ldu
+    red = rayleigh_quotient(mv_hi, ra.evec, L, dev, 11)
+    red = 0.5 * (red + red.T)
+    w_ref = torch.linalg.eigh(red)[0]
+    w_j = jacobi_eigh(red)[0]
+    err = float((w_j - w_ref).abs().max() / w_ref.abs().max().clamp(min=1))
+    ms_j = time_ms(lambda: jacobi_eigh(red), 5)
+    ms_d = time_ms(lambda: torch.linalg.eigh(red), 20)
+    ms_h = time_ms(lambda: reduced.eigh(red, "host"), 20)
+    log(f"[reduced] L={L} symmetric: jacobi_eigh {ms_j:.3f} ms (off_tol 0, "
+        f"eigenvalues {err:.3e} of max from eigh), torch.linalg.eigh "
+        f"{ms_d:.3f} ms, host scipy eigh {ms_h:.3f} ms ({card})")
+    if not err < 1e-11:
+        raise AssertionError("jacobi_eigh on the card is off")
+
+
+def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
+                  dev, mv_hi, backend=None):
+    """Phase 5(h3): (e)'s nonsymmetric ladder with the Eberlein reduced
+    solve on the card, and under a one-rank process group with sharding=;
+    then one reduced solve at the ladder's largest L by each route."""
+    import scipy.linalg
+    import torch
+    import torch.distributed as dist
+
+    from diaglib_tpu_torch.parallel import multihost
+    from diaglib_tpu_torch.utils.eberlein import eberlein_eig
+
+    rd, wd = timed("nonsym_ladder driver=device",
+                   lambda gen: run_e(gen, driver="device"), warm=False)
+    check_nonsym_pairs("nonsym_ladder driver=device", rd, m, t_bsr, tt_bsr,
+                       eig_sym)
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                         backend=backend)
+    try:
+        sh = multihost.global_sharding(N)
+        log(f"[sharded] {sh} on {dist.get_backend()} "
+            f"{multihost.rank_device()}")
+        rs, ws = timed("sharded nonsym_ladder",
+                       lambda gen: run_e(gen, sharding=sh))
+        check_nonsym_pairs("sharded nonsym_ladder", rs, m, t_bsr, tt_bsr,
+                           eig_sym)
+    finally:
+        dist.destroy_process_group()
+    d_dev = float((rd.eig[:N_TARG] - re_.eig[:N_TARG]).abs().max())
+    d_sh = float((rs.eig[:N_TARG] - re_.eig[:N_TARG]).abs().max())
+    log(f"[nonsym_ladder] device driver vs host: eigenvalues {d_dev:.3e} "
+        f"apart, iterations {rd.n_iter} vs {re_.n_iter}, matvecs "
+        f"{rd.n_matvec} vs {re_.n_matvec}, wall {wd:.3f} vs {we:.3f} s; "
+        f"one-rank sharded vs unsharded: eigenvalues {d_sh:.3e} apart, "
+        f"iterations {rs.n_iter} vs {re_.n_iter}, matvecs {rs.n_matvec} vs "
+        f"{re_.n_matvec}, wall {ws:.3f} vs {we:.3f} s ({card})")
+    if not (d_dev <= 1e-9 and d_sh <= 1e-9 and rs.n_iter == re_.n_iter
+            and rs.n_matvec == re_.n_matvec):
+        raise AssertionError("the device-driver or sharded nonsymmetric "
+                             "ladder disagrees with (e)")
+    L = 10 * NS_MAX                     # dim_dav * n_max: the largest ldu
+    red = rayleigh_quotient(mv_hi, rd.evec_r, L, dev, 13)
+    w_e = eberlein_eig(red)[0]
+
+    def host():
+        out = scipy.linalg.lapack.dgeev(red.cpu().numpy(), 1, 1)
+        return [torch.from_numpy(x).to(dev) for x in out[:4]]
+
+    wr, wi = host()[:2]
+    real = wi == 0.0
+    w_ref = wr[real].sort().values
+    err = float((w_e[:w_ref.shape[0]] - w_ref).abs().max()
+                / w_ref.abs().max().clamp(min=1))
+    ms_e = time_ms(lambda: eberlein_eig(red), 5)
+    ms_h = time_ms(host, 20)
+    log(f"[reduced] L={L} nonsymmetric: eberlein_eig on the card "
+        f"{ms_e:.3f} ms (off_tol 0; eigenvalues {err:.3e} of max(1, "
+        f"max|w|) from dgeev's), "
+        f"host dgeev with the copies {ms_h:.3f} ms ({card})")
+    if not (bool(real.all()) and err < 1e-11):
+        raise AssertionError("eberlein_eig on the card is off")
+
+
 def main():
     import torch
 
@@ -1134,15 +1315,18 @@ def main():
     guess = torch.zeros((N_MAX, N), dtype=torch.float64, device=dev)
     f32 = torch.float32
 
-    def timed(tag, run):
-        """Warm-up run, then a run with every launch count at 0."""
+    def timed(tag, run, warm=True):
+        """Warm-up run (unless not ``warm``), then a run with every launch
+        count at 0."""
         def once():
             res = run(torch.Generator(device=dev).manual_seed(1))
             torch.cuda.synchronize()
             return res
-        t0 = time.perf_counter()
-        once()
-        warm_s = time.perf_counter() - t0
+        warm_s = math.nan
+        if warm:
+            t0 = time.perf_counter()
+            once()
+            warm_s = time.perf_counter() - t0
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1214,17 +1398,31 @@ def main():
     if not (d_eig <= 1e-10 and abs(ra.n_iter - rn.n_iter) <= 2):
         raise AssertionError("wide_mm='auto' and 'never' disagree")
 
+    # (h2) the sliced Gram product on the card; (h1) (d) under the host and
+    # Jacobi reduced routes and the sliced Gram route
+    sliced_gram_on_card(dev, card)
+    davidson_routes(lambda o, gen: davidson_ladder(
+        mv_lo, pc_lo, mv_hi, pc_hi, guess, o, lo_tol=2e-6, lo_iter=35,
+        generator=gen), ra, wa, m, timed, card, dev, mv_hi)
+
     # (e) the two-sided nonsymmetric ladder on R = E_- S E_+
     ns_opts = SolverOptions(n_targ=N_TARG, n_max=NS_MAX, max_iter=150,
                             tol=1e-10, max_dav=10)
     ns_guess = torch.zeros((NS_MAX, N), dtype=torch.float64, device=dev)
     ns_lo = nonsym_similarity_ops(ns_stores, dtype=f32)
     ns_hi = nonsym_similarity_ops(ns_stores)
-    res, _ = timed("nonsym_ladder", lambda gen: nonsym_ladder(
-        *ns_lo, diag_precnd(ns_diag.to(f32)), *ns_hi, diag_precnd(ns_diag),
-        ns_guess, ns_opts, side="c", lo_tol=2e-6, lo_iter=60,
-        generator=gen))
+
+    def run_e(gen, **kw):
+        return nonsym_ladder(
+            *ns_lo, diag_precnd(ns_diag.to(f32)), *ns_hi,
+            diag_precnd(ns_diag), ns_guess, ns_opts, side="c", lo_tol=2e-6,
+            lo_iter=60, generator=gen, **kw)
+
+    res, we = timed("nonsym_ladder", run_e)
     check_nonsym_pairs("nonsym_ladder", res, m, t_bsr, tt_bsr, ra.eig)
+    # (h3) the device driver and the one-rank sharded ladder on (e)'s stores
+    nonsym_routes(run_e, res, we, m, t_bsr, tt_bsr, ra.eig, timed, card,
+                  dev, ns_hi[0])
     del ns_stores, ns_lo, ns_hi
 
     # (f) the sharded ladder over the distributed sliced operator (K6)

@@ -19,11 +19,15 @@ torch versions.  The problem generators, and the functions that carry
 the JAX package's stores across, make their tensors on the CUDA device
 unless the caller names another.
 
-The symmetric and Casida solvers and their ladders also run sharded over a
-``torch.distributed`` group (``sharding=`` a
-:class:`~diaglib_tpu_torch.parallel.VectorSharding`; NCCL on the cards,
-gloo on the CPU when asked), with the distributed BSR and sliced operators
-of ``ops.dist_bsr`` / ``ops.dist_sliced`` as their matvecs.
+Every driver and ladder also runs sharded over a ``torch.distributed``
+group (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`;
+NCCL on the cards, gloo on the CPU when asked), with the distributed BSR
+and sliced operators of ``ops.dist_bsr`` / ``ops.dist_sliced`` as their
+matvecs.  Every option of the JAX package's ``SolverOptions`` and drivers
+is taken: the reduced solves on the device, the host or by cyclic Jacobi
+(``reduced_solver``), the exact sliced long contractions
+(``sliced_mm="always"``), and the nonsymmetric reduced solve on the device
+by Eberlein's method (``nonsym(driver="device")``).
 """
 
 from . import ops, ortho, parallel, solvers, utils

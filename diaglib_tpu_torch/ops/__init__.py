@@ -1,7 +1,7 @@
 """Operators: the BSR container and its SpMM kernel, integer slicing, the
 general and symmetric sliced BSR stores with their CUDA kernels, and the
 distributed (row-partitioned, ring halo exchange) BSR and sliced
-operators."""
+operators, and the exact sliced long contractions."""
 
 from .bsr import (
     BSRMatrix,
@@ -30,6 +30,7 @@ from .dist_sliced import (
     dist_sliced_matvec,
     distribute_sliced_bsr,
 )
+from .slicing import sliced_mm, sliced_mmT, sliced_mTm
 
 __all__ = ["BSRMatrix", "bsr_diagonal", "bsr_from_dense", "bsr_matvec",
            "bsr_to_dense", "random_bsr_spd", "SlicedBSR", "slice_bsr",
@@ -37,4 +38,5 @@ __all__ = ["BSRMatrix", "bsr_diagonal", "bsr_from_dense", "bsr_matvec",
            "slice_bsr_sym", "sliced_matvec_any", "sym_sliced_matvec",
            "DistBSRMatrix", "distribute_bsr", "dist_bsr_matvec",
            "DistSlicedBSR", "distribute_sliced_bsr", "dist_sliced_matvec",
-           "dist_sliced_from_arrays"]
+           "dist_sliced_from_arrays", "sliced_mm", "sliced_mmT",
+           "sliced_mTm"]

@@ -1,5 +1,5 @@
 """Ozaki-style integer slices of floating-point operands (port of
-``diaglib_tpu/ops/slicing.py``, the parts the sliced matvec needs).
+``diaglib_tpu/ops/slicing.py``).
 
 A row of x is put on a power-of-two grid and peeled into int8 planes,
 
@@ -15,7 +15,14 @@ Kernel K2 (``csrc/peel.cu``) has two wrappers: :func:`slice_rows`, the x
 side of the sliced matvec in one launch (x to planes and row scales), and
 :func:`peel_rows`, the planes of pre-scaled values.  On CPU tensors they
 run :func:`slice_rows_plain` and :func:`peel_rows_plain`, the same chains
-in torch.
+in torch.  Kernel K3 (``csrc/wide_mm.cu``, :func:`sliced_wide_mm`) is the
+exact small-K, wide-output product of the solvers' rotations.
+
+:func:`sliced_mm`, :func:`sliced_mmT` and :func:`sliced_mTm`, the exact
+long contractions of ``SolverOptions(sliced_mm="always")``, are plain
+torch around K2's peel, as the reference's are plain XLA: one int8 matmul
+of all plane pairs (``torch._int_mm`` on the card) and the reference's
+level combine, bit-equal to it.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from . import _build
 
 __all__ = ["pow2_grid", "slice_operand", "slice_scaled",
            "slice_scaled_components", "combine_weights", "peel_rows",
-           "peel_rows_plain", "wide_feasible", "sliced_wide_mm",
+           "peel_rows_plain", "fits_exact", "sliced_mm", "sliced_mmT",
+           "sliced_mTm", "wide_feasible", "sliced_wide_mm",
            "sliced_wide_mm_plain"]
 
 _BITS = 6
@@ -126,8 +134,9 @@ def peel_rows(t_or_components, nx: int, bits: int) -> torch.Tensor:
     """``(nx,) + shape`` int8 planes of pre-scaled values (kernel K2's
     pre-scaled entry, the grid pinned to 1).
 
-    ``t_or_components`` is a float64 or float32 tensor ``t`` with
-    |t| <= 1/2, or a (hi, mid, lo) tuple of float32 tensors.  On the CPU
+    ``t_or_components`` is a float64 or float32 tensor ``t`` whose top
+    plane fits int8 (|t| <= 1/2 at 7 bits, <= 1 at 6), or a (hi, mid, lo)
+    tuple of float32 tensors.  On the CPU
     this is :func:`peel_rows_plain`; on a CUDA tensor it launches
     ``csrc/peel.cu`` (bit-identical) or raises.
     """
@@ -262,28 +271,31 @@ def slice_rows(x: torch.Tensor, nx: int, *, col_scale=None, acc_dtype=None,
 
 
 def slice_operand(x: torch.Tensor, n_slices: int = _SLICES,
-                  bits: int = _BITS):
-    """Row-aligned int8 planes of 2-D ``x`` on a per-row power-of-two grid.
+                  bits: int = _BITS, *, axis: int = -1):
+    """int8 planes of 2-D ``x`` on a power-of-two grid per line along the
+    contraction axis ``axis`` (-1: a grid per row; 0: a grid per column).
 
-    Returns ``(planes, scale)``: ``planes`` is ``(n_slices, k, n)`` int8,
-    ``scale`` is ``(k, 1)`` float64, and
+    Returns ``(planes, scale)``: ``planes`` is ``(n_slices,) + x.shape``
+    int8, ``scale`` is x's shape with ``axis`` reduced to 1 (float64), and
     ``x ~= scale * sum_i planes[i] * 2^{-bits*(i+1)}`` to
-    ``2^{-bits*n_slices}`` of each row's max.  At ``bits >= 7`` the grid is
-    doubled (|t| <= 1/2) so the top plane stays inside int8.  Float32 ``x``
-    is peeled from float32 (mid = lo = 0), float64 from its triple.  At 7
-    bits and up to 8 planes this is :func:`slice_rows` (one launch of K2 on
-    the card); otherwise the grid is taken in torch and K2's pre-scaled
-    entry peels.
+    ``2^{-bits*n_slices}`` of each line's max.  At ``bits >= 7`` the grid
+    is doubled (|t| <= 1/2) so the top plane stays inside int8.  Float32
+    ``x`` is peeled from float32 (mid = lo = 0), float64 from its triple.
+    Rows at 7 bits and up to 8 planes go through :func:`slice_rows` (one
+    launch of K2 on the card); otherwise the grid is taken in torch and
+    K2's pre-scaled entry peels.
     """
-    if bits == _X_BITS and 0 < n_slices <= 8 and x.ndim == 2:
+    ax = axis % x.ndim
+    if bits == _X_BITS and 0 < n_slices <= 8 and x.ndim == 2 and ax == 1:
         return slice_rows(x, n_slices, sx_dtype=torch.float64)
-    t, scale = _row_grid(x, bits)
+    t, scale = _row_grid(x, bits, ax)
     return peel_rows(t, n_slices, bits), scale
 
 
-def _row_grid(x: torch.Tensor, bits: int):
-    """(t, scale) of slice_operand: x's rows divided by their grid."""
-    scale = pow2_grid(x.abs().amax(dim=-1, keepdim=True))
+def _row_grid(x: torch.Tensor, bits: int, axis: int = -1):
+    """(t, scale) of slice_operand: x's lines along ``axis`` divided by
+    their grid."""
+    scale = pow2_grid(x.abs().amax(dim=axis, keepdim=True))
     if bits >= 7:
         scale = 2.0 * scale
     # exact: a power-of-two division, done in float64 so that no float32
@@ -298,6 +310,128 @@ def combine_weights(n_levels: int, bits: int = _BITS,
     return torch.tensor([2.0 ** (-bits * (lev + 2))
                          for lev in range(n_levels)], dtype=dtype,
                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# long contractions (the Gram products of sliced_mm="always")
+# ---------------------------------------------------------------------------
+
+def fits_exact(k: int, bits: int = _BITS) -> bool:
+    """True iff a length-k contraction of ``bits``-bit plane products
+    accumulates exactly in int32 (products below 2^{2*bits+2}, k of them
+    below 2^31)."""
+    return (2 * bits + 2) + max(1, k).bit_length() <= 31
+
+
+def _check_exact(k: int, bits: int):
+    if not fits_exact(k, bits):
+        raise ValueError(f"contraction length {k} overflows exact int32 "
+                         f"accumulation at {bits}-bit slices")
+
+
+def _slice_pair_products(xs: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
+    """All plane-pair products at once: ``xs`` (ns1, M, K) and ``bs``
+    (ns2, K, N) int8 give (ns1, M, ns2, N) int32, exactly.
+
+    On CUDA tensors this is one ``torch._int_mm`` (int8 x int8 -> int32 on
+    the tensor cores), its operands padded with zero rows and columns to
+    the shapes it takes (more than 16 rows, K and the columns multiples of
+    8), which changes no sum; elsewhere a float64 product of the
+    integer-valued planes, exact because every sum stays below 2^53.
+    """
+    ns1, mdim, k = xs.shape
+    ns2, k2, ndim = bs.shape
+    if k != k2:
+        raise ValueError(f"plane products: K {k} != {k2}")
+    lhs = xs.reshape(ns1 * mdim, k)
+    rhs_t = bs.permute(0, 2, 1).reshape(ns2 * ndim, k)   # (ns2*N, K)
+    rows, cols = lhs.shape[0], rhs_t.shape[0]
+    if lhs.device.type == "cuda":
+        pad_k = -k % 8
+        lhs = torch.nn.functional.pad(lhs, (0, pad_k, 0, max(17 - rows, 0)))
+        rhs_t = torch.nn.functional.pad(rhs_t, (0, pad_k, 0, -cols % 8))
+        out = torch._int_mm(lhs, rhs_t.T)[:rows, :cols]
+    else:
+        out = (lhs.to(torch.float64) @ rhs_t.to(torch.float64).T).to(
+            torch.int32)
+    return out.reshape(ns1, mdim, ns2, ndim)
+
+
+def _combine(prods: torch.Tensor, sx: torch.Tensor, sa: torch.Tensor,
+             bits: int, k: int) -> torch.Tensor:
+    """The float64 result from the int32 plane products, in the
+    reference's order, so the two agree bit for bit.
+
+    ``prods`` (ns1, M, ns2, N), ``sx`` (M, 1) and ``sa`` (1, N) scales,
+    ``k`` the contraction length (it bounds each product for the int32
+    headroom test).  The pair products of one level are summed first, in
+    int32 where the level sum provably fits (float64 otherwise, still
+    exact), and the levels are added deepest diagonal first; the weights
+    and scales are powers of two, so the only rounding is the float64
+    summation of the levels.
+    """
+    ns1, ns2 = prods.shape[0], prods.shape[2]
+    headroom = 31 - ((2 * bits + 2) + max(1, k).bit_length())
+    total = torch.zeros((prods.shape[1], prods.shape[3]), dtype=torch.float64,
+                        device=prods.device)
+    for lev in range(ns1 + ns2 - 2, -1, -1):
+        pairs = [prods[i, :, lev - i, :]
+                 for i in range(ns1) if 0 <= lev - i < ns2]
+        exact_i32 = headroom >= (len(pairs) - 1).bit_length()
+        acc = None
+        for p in pairs:
+            p = p if exact_i32 else p.to(torch.float64)
+            acc = p if acc is None else acc + p
+        total = total + acc.to(torch.float64) * 2.0 ** (-bits * (lev + 2))
+    return total * sx * sa
+
+
+def _check_pair(name, a, b, k_a, k_b):
+    if a.ndim != 2 or b.ndim != 2 or k_a != k_b:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"{name}: operands on two devices")
+
+
+def sliced_mm(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
+              bits: int = _BITS) -> torch.Tensor:
+    """Float64 ``a @ b`` through exact integer slices: a cut into planes
+    on a grid per row, b on a grid per column, every plane-pair product an
+    exact int32 sum, the levels combined as the reference does.  Both
+    operands are truncated ``bits * n_slices`` bits below their line
+    maxima (54 > 53 at the defaults); there is no rounding inside the
+    contraction.  Raises ``ValueError`` when the contraction overflows the
+    int32 budget (:func:`fits_exact`)."""
+    _check_pair("sliced_mm", a, b, a.shape[-1], b.shape[0])
+    _check_exact(a.shape[-1], bits)
+    xs, sx = slice_operand(a, n_slices, bits, axis=-1)
+    bs, sb = slice_operand(b, n_slices, bits, axis=0)
+    return _combine(_slice_pair_products(xs, bs), sx, sb, bits, a.shape[-1])
+
+
+def sliced_mmT(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
+               bits: int = _BITS) -> torch.Tensor:
+    """Float64 ``a @ b.T`` (the Gram layout, contracting the last axes)
+    as :func:`sliced_mm`."""
+    _check_pair("sliced_mmT", a, b, a.shape[-1], b.shape[-1])
+    _check_exact(a.shape[-1], bits)
+    xs, sx = slice_operand(a, n_slices, bits, axis=-1)
+    bs, sb = slice_operand(b, n_slices, bits, axis=-1)
+    prods = _slice_pair_products(xs, bs.transpose(1, 2))
+    return _combine(prods, sx, sb.T, bits, a.shape[-1])
+
+
+def sliced_mTm(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
+               bits: int = _BITS) -> torch.Tensor:
+    """Float64 ``a.T @ b`` (contracting the first axes) as
+    :func:`sliced_mm`."""
+    _check_pair("sliced_mTm", a, b, a.shape[0], b.shape[0])
+    _check_exact(a.shape[0], bits)
+    xs, sx = slice_operand(a, n_slices, bits, axis=0)
+    bs, sb = slice_operand(b, n_slices, bits, axis=0)
+    prods = _slice_pair_products(xs.transpose(1, 2), bs)
+    return _combine(prods, sx.T, sb, bits, a.shape[0])
 
 
 # ---------------------------------------------------------------------------

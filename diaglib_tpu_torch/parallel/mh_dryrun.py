@@ -201,7 +201,10 @@ def _job_sharded_solvers(dev, inp):
     from the paired guess ``casida_guess`` (each rank passes its
     ``[Y_local | Z_local]``), and ``caslr`` once more from
     ``casida_zero_guess``, whose zero rows are filled from a generator
-    seeded with 5.
+    seeded with 5; plus ``nonsym`` side "c" on the nonsymmetric matrix
+    ``nonsym`` (each rank holding its rows of it and of its transpose)
+    from ``nonsym_guess`` under ``nonsym_options``, with the host and the
+    device drivers.
     """
     import torch
 
@@ -255,6 +258,35 @@ def _job_sharded_solvers(dev, inp):
         shb.local_cols(torch.as_tensor(inp["bsr_guess"], device=dev)), opts,
         sharding=shb), shb))
     out.update(_casida_solves(dev, inp, opts))
+    out.update(_nonsym_solves(dev, inp))
+    return out
+
+
+def _nonsym_solves(dev, inp):
+    import torch
+
+    from ..problems import diag_precnd
+    from ..solvers import nonsym
+    from .sharding import VectorSharding
+
+    a = torch.as_tensor(inp["nonsym"], device=dev)
+    sh = VectorSharding(a.shape[0])
+    a_loc, at_loc = sh.local_cols(a.T).T, sh.local_cols(a).T
+    opts = _solve_opts(**inp["nonsym_options"])
+    guess = sh.local_cols(torch.as_tensor(inp["nonsym_guess"], device=dev))
+    out = {}
+    for driver in ("host", "device"):
+        res = nonsym(lambda x: sh.all_gather(x) @ a_loc.T,
+                     lambda x: sh.all_gather(x) @ at_loc.T,
+                     diag_precnd(sh.local_cols(torch.diagonal(a))), guess,
+                     opts, side="c", sharding=sh, driver=driver)
+        tag = f"nonsym_{driver}"
+        out.update({f"{tag}_eig": res.eig.cpu().numpy(),
+                    f"{tag}_evec_r": res.evec_r.cpu().numpy(),
+                    f"{tag}_evec_l": res.evec_l.cpu().numpy(),
+                    f"{tag}_ok": bool(res.ok), f"{tag}_iter": res.n_iter,
+                    f"{tag}_matvec": res.n_matvec,
+                    f"{tag}_eig_ranks": _gathered(sh, res.eig_history)})
     return out
 
 

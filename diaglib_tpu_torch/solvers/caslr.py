@@ -25,8 +25,10 @@ The loops are eager Python over the reference's state: fixed
 ``(lda_pad, n)`` buffers with a row count ``ldu``, the reduced Gram
 matrices updated only in their new rows and columns.  The reduced solves
 work on the leading ``ldu x ldu`` block directly, so the reference's
-prefix buckets with identity or large-negative padding, and its TPU
-reroute of the Helmich-Paris SVDs to two-sided Jacobi, are not carried.
+prefix buckets with identity or large-negative padding are not carried.
+They take ``options.reduced_solver`` and, on the Jacobi route, the
+reference's adaptive off-norm target; there the Helmich-Paris SVDs are the
+two-sided (augmented) ``jacobi_svd``, as the reference calls them.
 
 Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`
 over n): each rank passes and receives the paired rows as ``[Y_local |
@@ -47,6 +49,7 @@ import torch
 from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_cd, ortho_vs_x
 from ..types import LRSolverResult, SolverOptions
 from ..utils import reduced
+from ..utils.jacobi import jacobi_svd
 from ..utils.masking import gather_rows, prefix_lock, prefix_mask, scatter_rows
 from ..utils.mm import (
     amax_n,
@@ -104,17 +107,19 @@ def _sym(a: torch.Tensor) -> torch.Tensor:
 
 
 def _reduced_inverse_pencil(ep: torch.Tensor, em: torch.Tensor,
-                            s: torch.Tensor, n_max: int):
+                            s: torch.Tensor, n_max: int, method: str,
+                            off_tol=0.0):
     """``algorithm=0`` on the leading blocks: the 2L pencil S_red x = e
     A_red x with A_red = diag(ep, em), S_red = [[0, s^T], [s, 0]],
     eliminated exactly to the L-size SPD pencil (s ep^-1 s^T) um = e^2 em
     um, up = ep^-1 s^T um / e, whose n_max largest e are the ones the full
     solve returns, with its x^T A_red x = 1 normalization (both halves
-    weigh 1/2, hence 1/sqrt(2)).  Returns (w, up, um), w = 1/e."""
-    lp = reduced.cholesky(_sym(ep))
+    weigh 1/2, hence 1/sqrt(2)).  Returns (w, up, um), w = 1/e.
+    ``method``/``off_tol``: the reduced route and its Jacobi target."""
+    lp = reduced.cholesky(_sym(ep), method)
     w = torch.linalg.solve_triangular(lp, s.T, upper=False)   # lp^-1 s^T
     g = w.T @ w                                               # s ep^-1 s^T
-    e2, um = reduced.eigh_gen(_sym(g), _sym(em))
+    e2, um = reduced.eigh_gen(_sym(g), _sym(em), method, off_tol=off_tol)
     e2_top = e2.flip(0)[:n_max]
     um_top = um.flip(1)[:, :n_max]
     eig = 1.0 / torch.sqrt(torch.clamp(e2_top, min=0.0))
@@ -123,24 +128,34 @@ def _reduced_inverse_pencil(ep: torch.Tensor, em: torch.Tensor,
     return eig, up_top * eig[None, :] * inv_sqrt2, um_top * inv_sqrt2
 
 
+def _hp_svd(a: torch.Tensor, method: str, off_tol):
+    """The Helmich-Paris SVDs: the reduced route's SVD, except that the
+    Jacobi route is the two-sided augmented form, as in the reference."""
+    if method == "jacobi":
+        return jacobi_svd(a, off_tol=off_tol)
+    return reduced.svd(a, method)
+
+
 def _reduced_helmich_paris(ep: torch.Tensor, em: torch.Tensor,
-                           s: torch.Tensor, n_max: int):
+                           s: torch.Tensor, n_max: int, method: str,
+                           off_tol=0.0):
     """``algorithm=1`` on the leading blocks: SVD s = U1 S1 V1^T, scale by
     S1^-1/2, project ep and em, Cholesky both, C = Lm^T Lp, SVD C = U2 S2
     V2^T; the eigenvalues are the n_max smallest singular values of C
     (ascending), the components xp = V1s Lm U2 and xm = U1s Lp V2 scaled
     by 1/(sqrt(2) w).  Singular vectors may differ in sign between LAPACK
-    builds; only the products xp, xm enter the result."""
+    builds; only the products xp, xm enter the result.  ``method`` /
+    ``off_tol``: the reduced route and its Jacobi target."""
     L = s.shape[0]
-    u1, s1, vt1 = reduced.svd(s)
+    u1, s1, vt1 = _hp_svd(s, method, off_tol)
     inv_sqrt = 1.0 / torch.sqrt(s1)
     u1s = u1 * inv_sqrt[None, :]
     vt1s = vt1 * inv_sqrt[:, None]
     ept = vt1s @ (_sym(ep) @ vt1s.T)
     emt = u1s.T @ (_sym(em) @ u1s)
-    lp = reduced.cholesky(_sym(ept))
-    lm = reduced.cholesky(_sym(emt))
-    u2, s2, vt2 = reduced.svd(lm.T @ lp)
+    lp = reduced.cholesky(_sym(ept), method)
+    lm = reduced.cholesky(_sym(emt), method)
+    u2, s2, vt2 = _hp_svd(lm.T @ lp, method, off_tol)
     pos = L - 1 - torch.arange(n_max, device=s.device)
     eig = s2[pos]
     scale = 1.0 / (math.sqrt(2.0) * eig)
@@ -208,7 +223,7 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
     """The loop of both solvers; ``algorithm`` None is ``caslr_eff``."""
     eff = algorithm is None
     name = "caslr_eff" if eff else "caslr"
-    reduced.resolve(options.reduced_solver)
+    method = reduced.resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
     lda_pad = options.dim_dav * n_max + n_max
     max_iter = options.max_iter
@@ -269,11 +284,17 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
         col_ok = prefix_mask(lda_pad, ldu_new, dev)
         smat = _gram_update(smat, vm, bvm, ldu, n_act, n_max)
         lead = slice(0, ldu_new)
+        off_tol = 0.0
+        if method == "jacobi":
+            # the reference's adaptive Jacobi target, an order tighter
+            # than the symmetric drivers' (the eigenvalue map adds one)
+            prev_rms = torch.where(~done, rms, math.inf).min()
+            off_tol = torch.clamp(1e-3 * prev_rms, 0.0, 1e-5)
         if eff:
             # the reduced problem s^T s u+ = (1/w)^2 u+, largest first
             smat = torch.where(col_ok[:, None] & col_ok[None, :], smat, 0.0)
             s_l = smat[lead, lead]
-            e_red, c = reduced.eigh(s_l.T @ s_l, options.reduced_solver)
+            e_red, c = reduced.eigh(s_l.T @ s_l, method, off_tol=off_tol)
             inv_w = torch.sqrt(e_red.flip(0)[:n_max].abs())
             up = scatter_rows(zeros(lda_pad, n_max), c.flip(1)[:, :n_max], 0)
             um = mm(smat, up) / inv_w[None, :]
@@ -284,7 +305,7 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
             solve = (_reduced_inverse_pencil if algorithm == 0
                      else _reduced_helmich_paris)
             eig, up, um = solve(epmat[lead, lead], emmat[lead, lead],
-                                smat[lead, lead], n_max)
+                                smat[lead, lead], n_max, method, off_tol)
             up = scatter_rows(zeros(lda_pad, n_max), up, 0)
             um = scatter_rows(zeros(lda_pad, n_max), um, 0)
 

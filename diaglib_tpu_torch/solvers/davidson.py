@@ -106,7 +106,7 @@ def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
 def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
                    sharding):
     gen_eig = bvec is not None
-    resolve(options.reduced_solver)
+    method = resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
     lda = options.dim_dav * n_max
     lda_pad = lda + n_max
@@ -161,8 +161,16 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         a_red = scatter_rows(a_red, new_rows, start)
 
         sym = torch.tril(a_red) + torch.tril(a_red, diagonal=-1).T
-        e_red, c_full = masked_eigh_prefix(sym, ldu_new,
-                                           options.reduced_solver)
+        off_tol = 0.0
+        if method == "jacobi":
+            # the reference's adaptive Jacobi target: the intermediate
+            # solves stay two orders below the current residual level and
+            # tighten to eps as the roots converge
+            prev_rms = torch.where(~done & targ, rms, math.inf).min()
+            scale = torch.clamp(eig.abs().max(), min=1.0)
+            off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
+        e_red, c_full = masked_eigh_prefix(sym, ldu_new, method,
+                                           off_tol=off_tol)
         eig = e_red[:n_max]
         c = c_full[:, :n_max]                      # (lda_pad, n_max)
         evec = mTm(c, space)

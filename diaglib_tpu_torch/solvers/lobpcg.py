@@ -75,7 +75,7 @@ def lobpcg(matvec, precnd, evec_guess: torch.Tensor, options: SolverOptions,
 def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator,
                  sharding):
     gen_eig = bvec is not None
-    reduced.resolve(options.reduced_solver)
+    method = reduced.resolve(options.reduced_solver)
     n_targ, n_max = options.n_targ, options.n_max
     max_iter = options.max_iter
     if evec_guess.shape[0] != n_max:
@@ -120,7 +120,7 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator,
         x, bx = guess, None
     ax = apply_a(x)
     g0 = mmT(x, ax)
-    eig, c0 = reduced.eigh(0.5 * (g0 + g0.T), options.reduced_solver)
+    eig, c0 = reduced.eigh(0.5 * (g0 + g0.T), method)
     x = mTm(c0, x)
     ax = mTm(c0, ax)
     if gen_eig:
@@ -154,8 +154,14 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator,
 
         mask = torch.cat([ones, p_valid, w_mask])
         g = mmT(space, aspace)
-        e_red, c_full = masked_eigh(0.5 * (g + g.T), mask,
-                                    options.reduced_solver)
+        off_tol = 0.0
+        if method == "jacobi":
+            # the adaptive Jacobi target of the reference (see davidson)
+            prev_rms = torch.where(~done, rms, math.inf).min()
+            scale = torch.clamp(eig.abs().max(), min=1.0)
+            off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
+        e_red, c_full = masked_eigh(0.5 * (g + g.T), mask, method,
+                                    off_tol=off_tol)
         eig = e_red[:n_max]
         c = c_full[:, :n_max]                       # (3*n_max, n_max)
         x_new = mTm(c, space)

@@ -174,7 +174,7 @@ def nonsym_ladder(matvec_lo, matvec_l_lo, precnd_lo, matvec_hi, matvec_l_hi,
                   precnd_hi, evec_guess: torch.Tensor,
                   options: SolverOptions, *, side: str = "c",
                   lo_tol: float = 2e-6, lo_iter: int | None = None,
-                  generator: torch.Generator | None = None,
+                  generator: torch.Generator | None = None, sharding=None,
                   driver: str = "auto") -> NonsymResult:
     """float32-then-float64 two-sided nonsymmetric Davidson.
 
@@ -182,16 +182,17 @@ def nonsym_ladder(matvec_lo, matvec_l_lo, precnd_lo, matvec_hi, matvec_l_hi,
     whose float64 stage re-derives its left side from the right vectors
     anyway; the left pass for 'l'), and the float64 stage starts from its
     eigenvectors, re-orthonormalized in float64 by ``check_guess``.
-    ``driver`` is forwarded to both stages (see :func:`nonsym`).  The
-    result is the float64 stage's with both stages' counts added up.
+    ``driver`` and ``sharding`` are forwarded to both stages (see
+    :func:`nonsym`).  The result is the float64 stage's with both stages'
+    counts added up.
     """
     lo_side = "r" if side in ("s", "c") else side
+    kw = dict(generator=generator, sharding=sharding, driver=driver)
     lo = nonsym(matvec_lo, matvec_l_lo, precnd_lo,
                 evec_guess.to(torch.float32),
-                _lo_options(options, lo_tol, lo_iter), side=lo_side,
-                generator=generator, driver=driver)
+                _lo_options(options, lo_tol, lo_iter), side=lo_side, **kw)
     lo_evec = lo.evec_l if side == "l" else lo.evec_r
     hi = nonsym(matvec_hi, matvec_l_hi, precnd_hi, lo_evec.to(torch.float64),
-                options, side=side, generator=generator, driver=driver)
+                options, side=side, **kw)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
                                n_matvec=lo.n_matvec + hi.n_matvec)

@@ -8,8 +8,8 @@ pairing-preserving biorthonormalization of (evec_l, evec_r).
 
 All O(n) work (matvecs, Gram matrices, Ritz vectors, residuals,
 orthogonalization) runs on the tensors' device.  The small nonsymmetric
-reduced eigenproblem runs on the host as LAPACK ``dgeev`` in float64, with
-the reference's two serial post-processing steps:
+reduced eigenproblem is solved by one of two drivers, each followed by the
+reference's two serial post-processing steps:
 
 * ``sort_eigenpairs``: ascending selection sort on the real parts, complex
   pairs (|wi| > 1e-12) parked at the tail.  The targeted roots are the
@@ -18,14 +18,28 @@ the reference's two serial post-processing steps:
   build a max-overlap permutation with tie-breaking fallbacks (the
   reference's intended logic, with correctly shaped arrays).
 
+``driver="host"`` (and "auto", "jit") runs LAPACK ``dgeev`` in float64 on
+the host, the sort and the homing in numpy; the reduced matrix and its
+eigenvectors cross to the host each iteration.  ``driver="device"`` runs
+the Eberlein norm-reducing Jacobi (``utils/eberlein.py``) with the
+reference's adaptive off-norm target and the sort and homing as tensor
+ops, so the reduced matrix and its eigenvectors stay on the operands'
+device.  Both solve the leading ``ldu x ldu`` block (the reference's
+prefix buckets are not carried).
+
 The pass is an eager loop over the JAX package's ``step_pre`` /
-``step_post`` state, with the same fixed ``(lda_pad, n)`` buffers.  The
-reduced solve's input and output cross to the host each iteration; the
-previous reduced eigenvectors used by the homing stay there.
+``step_post`` state, with the same fixed ``(lda_pad, n)`` buffers.
+
+Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`
+over n): every (k, n) block is the rank's column shard, ``n`` in the rms
+is the global length, and the Gram products, norms and maxima are
+all-reduced (``utils.mm.mm_sharding``), so every rank solves the same
+reduced matrix by the same route and takes the same branch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -34,9 +48,18 @@ import torch
 
 from ..ortho.core import ortho_cd, ortho_vs_x
 from ..types import NonsymResult, SolverOptions
+from ..utils.eberlein import eberlein_eig
 from ..utils.guess import check_guess
 from ..utils.masking import gather_rows, prefix_lock, prefix_mask, scatter_rows
-from ..utils.mm import mmT, mTm, routing_for
+from ..utils.mm import (
+    amax_n,
+    global_n,
+    mm_sharding,
+    mmT,
+    mTm,
+    norm_n,
+    routing_for,
+)
 
 __all__ = ["nonsym", "nonsym_pass", "NonsymPassResult", "nonsym_seed_left",
            "nonsym_finalize"]
@@ -181,6 +204,117 @@ def _host_reduced_eig(a_red, ldu, n_sort, do_homing, copy_r, copy_l, n_max,
     )
 
 
+def _swap1(x: torch.Tensor, i, j) -> torch.Tensor:
+    """x with its entries i and j (ints or one-element index tensors)
+    exchanged, as a gather, so that no index is read on the host."""
+    idx = torch.arange(x.shape[0], device=x.device)
+    return x[torch.where(idx == i, j, torch.where(idx == j, i, idx))]
+
+
+def _device_sort_park(wr, wi, ldu: int, n_sort: int) -> torch.Tensor:
+    """The selection sort with complex parking of ``_host_reduced_eig`` as
+    tensor ops: for each of the leading ``n_sort`` slots pick the smallest
+    remaining real part; a complex candidate (|wi| > tol_im) is first
+    swapped to the last unconsumed slot and the pick repeats once.
+    Returns the permutation of the eigenpairs."""
+    L = wr.shape[0]
+    idx = torch.arange(L, device=wr.device)
+    perm = idx.clone()
+    mask = idx < ldu
+    inf = torch.full((), math.inf, dtype=wr.dtype, device=wr.device)
+    for i in range(n_sort):
+        pick1 = torch.where(mask, wr[perm], inf).argmin().reshape(1)
+        is_c = wi[perm].gather(0, pick1).abs() > _TOL_IM
+        fin = (L - 1) - mask.flip(0).to(torch.uint8).argmax()
+        mask_p = mask & (idx != fin)
+        perm_p = _swap1(perm, fin, pick1)
+        pick2 = torch.where(mask_p, wr[perm_p], inf).argmin().reshape(1)
+        mask = torch.where(is_c, mask_p, mask) & (idx != i)
+        perm = _swap1(torch.where(is_c, perm_p, perm), i,
+                      torch.where(is_c, pick2, pick1))
+    return perm
+
+
+def _device_homing(vr, vl, copy_r, copy_l, ldu: int, n_max: int):
+    """Max-overlap root homing as tensor ops (the twin of the homing in
+    ``_host_reduced_eig``): first and second best overlaps a root,
+    collisions resolved by the second-best values, the identity when they
+    persist, and the two sides arbitrated by total overlap.  Returns the
+    permutation of the eigenpairs."""
+    L, dev = vr.shape[0], vr.device
+    m2 = 2 * n_max
+    ar = torch.arange(n_max, device=dev)
+    ncols = min(m2, L)
+
+    def overlaps(copy, v):
+        vp = torch.zeros((L, m2), dtype=v.dtype, device=dev)
+        vp[:, :ncols] = v[:, :ncols]
+        return mTm(copy, vp)                               # (m2, m2)
+
+    def pick(ov):
+        colabs = ov[:, :n_max].abs()
+        k1 = colabs.argmax(dim=0)
+        colabs[k1, ar] = -math.inf
+        k2 = colabs.argmax(dim=0)
+        return k1, ov[k1, ar], k2, ov[k2, ar], (k1 != ar).any()
+
+    idx_r, val_r, idx2_r, val2_r, mv_r = pick(overlaps(copy_r, vr))
+    idx_l, val_l, _, _, mv_l = pick(overlaps(copy_l, vl))
+    not_eye = ~torch.eye(n_max, dtype=torch.bool, device=dev)
+
+    def has_double(idx):
+        return ((idx[:, None] == idx[None, :]) & not_eye).any()
+
+    double_r, double_l = has_double(idx_r), has_double(idx_l)
+    both = idx_r
+    if bool(double_r & double_l):
+        # resolve the right side's collisions by the second-best overlaps,
+        # pair by pair in order (only taken when both sides collide)
+        idx = idx_r.clone()
+        for j in range(n_max):
+            for k in range(n_max):
+                if k == j:
+                    continue
+                collide = idx[j] == idx[k]
+                prefer_j = val2_r[j] > val2_r[k]
+                new_j = torch.where(collide & prefer_j, idx2_r[j], idx[j])
+                new_k = torch.where(collide & ~prefer_j, idx2_r[k], idx[k])
+                idx[j], idx[k] = new_j, new_k
+        both = torch.where(has_double(idx), ar, idx)
+    only_r, only_l = double_r & ~double_l, double_l & ~double_r
+    idx_r_f = torch.where(only_r, idx_l, torch.where(
+        only_l, idx_r, torch.where(double_r & double_l, both, idx_r)))
+    idx_l_f = torch.where(only_r, idx_l, torch.where(
+        only_l, idx_r, torch.where(double_r & double_l, both, idx_l)))
+    use_l = (idx_r_f != idx_l_f).any() & ~(val_r.sum() > val_l.sum())
+    final = torch.where(use_l, idx_l_f, idx_r_f)
+    ident = torch.arange(L, device=dev)
+    perm = torch.cat([torch.where(final < ldu, final, ar), ident[n_max:]])
+    return torch.where(mv_r | mv_l, perm, ident)
+
+
+def _device_reduced_eig(g, ldu: int, n_sort: int, do_homing: bool, copy_r,
+                        copy_l, n_max: int, off_tol):
+    """The device twin of ``_host_reduced_eig`` on the leading ``ldu x
+    ldu`` block of ``g``: the Eberlein eigensolve, the parking sort and
+    the root homing, all on g's device.  Returns (wr, vr, vl) padded with
+    zeros to g's size."""
+    wr, wi, vr, vl = eberlein_eig(g[:ldu, :ldu], off_tol=off_tol)
+    perm = _device_sort_park(wr, wi, ldu, min(n_sort, ldu))
+    wr, vr, vl = wr[perm], vr[:, perm], vl[:, perm]
+    if do_homing:
+        perm = _device_homing(vr, vl, copy_r[:ldu], copy_l[:ldu], ldu, n_max)
+        wr, vr, vl = wr[perm], vr[:, perm], vl[:, perm]
+    full = g.shape[0]
+    wr_out = torch.zeros((full,), dtype=g.dtype, device=g.device)
+    vr_out = torch.zeros((full, full), dtype=g.dtype, device=g.device)
+    vl_out = torch.zeros_like(vr_out)
+    wr_out[:ldu] = wr
+    vr_out[:ldu, :ldu] = vr
+    vl_out[:ldu, :ldu] = vl
+    return wr_out, vr_out, vl_out
+
+
 @dataclasses.dataclass(frozen=True)
 class NonsymPassResult:
     """Result of ONE one-sided pass (:func:`nonsym_pass`); ``eig`` and
@@ -201,22 +335,21 @@ class NonsymPassResult:
 def _check_driver(driver: str):
     if driver not in _DRIVERS:
         raise ValueError("driver must be 'auto', 'jit', 'device' or 'host'")
-    if driver == "device":
-        raise NotImplementedError(
-            "driver='device' needs the on-device Eberlein Jacobi reduced "
-            "solver (diaglib_tpu/utils/eberlein.py), not yet ported to "
-            "diaglib_tpu_torch; use 'auto', 'jit' or 'host' (host dgeev)")
 
 
 def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
-                 generator) -> NonsymPassResult:
+                 generator, sharding=None,
+                 driver: str = "auto") -> NonsymPassResult:
     """One one-sided Davidson pass.
 
     ``op`` is A for the right pass and A^T for the left pass; ``use_left``
     selects which set of reduced eigenvectors drives the Ritz vectors and
-    residuals (VL for the left pass) and the Gram layout.
+    residuals (VL for the left pass) and the Gram layout.  ``driver``
+    "device" solves the reduced problem on the operands' device, any
+    other on the host.  Runs inside the caller's ``mm_sharding``.
     """
     use_left = bool(use_left)
+    on_device = driver == "device"
     n_targ, n_max = options.n_targ, options.n_max
     lda_pad = options.dim_dav * n_max + n_max
     max_iter = options.max_iter
@@ -225,7 +358,7 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
         raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
     dtype, dev = guess.dtype, guess.device
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    sqrtn = math.sqrt(n)
+    sqrtn = math.sqrt(global_n(n, sharding))
     tol_rms, tol_max = options.tol, options.tol_max
     rows_max = torch.arange(n_max, device=dev)
     targ = rows_max < n_targ
@@ -235,9 +368,14 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
                          guess, 0)
     aspace = torch.zeros((lda_pad, n), dtype=dtype, device=dev)
     ldu, n_act, m_dim, fresh = 0, n_max, 1, True
-    # previous reduced eigenvectors for the homing, kept on the host
-    copy_r = np.zeros((lda_pad, 2 * n_max), np_dtype)
-    copy_l = np.zeros((lda_pad, 2 * n_max), np_dtype)
+    # the previous reduced eigenvectors, for the homing: on the host for
+    # the host driver, on the device for the device driver
+    if on_device:
+        copy_r = torch.zeros((lda_pad, 2 * n_max), dtype=dtype, device=dev)
+        copy_l = torch.zeros_like(copy_r)
+    else:
+        copy_r = np.zeros((lda_pad, 2 * n_max), np_dtype)
+        copy_l = np.zeros_like(copy_r)
     eig = torch.zeros((n_max,), dtype=dtype, device=dev)
     evec = torch.zeros((n_max, n), dtype=dtype, device=dev)
     done = torch.zeros((n_max,), dtype=torch.bool, device=dev)
@@ -262,15 +400,27 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
         g = torch.where(col_ok[:, None] & col_ok[None, :], g, 0.0)
         n_sort = n_max if fresh else n_max + n_act
 
-        # ---- the reduced solve on the host ----
-        wr, vr, vl, _ = _host_reduced_eig(
-            g.cpu().numpy(), ldu_new, n_sort, not fresh, copy_r, copy_l,
-            n_max, out_dtype=np_dtype)
-        copy_r = vr[:, :2 * n_max].copy()
-        copy_l = vl[:, :2 * n_max].copy()
-        eig = torch.from_numpy(wr[:n_max].copy()).to(dev)
-        c_use = torch.from_numpy(
-            (vl if use_left else vr)[:, :n_max].copy()).to(dev)
+        # ---- the reduced solve ----
+        if on_device:
+            # the reference's adaptive Eberlein target: the homing rests on
+            # eigenvector overlaps, so an order of margin more than the
+            # symmetric drivers and a tighter cap
+            prev_rms = torch.where(~done, rms, math.inf).min()
+            off_tol = torch.clamp(1e-3 * prev_rms, 0.0, 1e-6)
+            wr, vr, vl = _device_reduced_eig(g, ldu_new, n_sort, not fresh,
+                                             copy_r, copy_l, n_max, off_tol)
+            copy_r, copy_l = vr[:, :2 * n_max], vl[:, :2 * n_max]
+            eig = wr[:n_max]
+            c_use = (vl if use_left else vr)[:, :n_max]
+        else:
+            wr, vr, vl, _ = _host_reduced_eig(
+                g.cpu().numpy(), ldu_new, n_sort, not fresh, copy_r, copy_l,
+                n_max, out_dtype=np_dtype)
+            copy_r = vr[:, :2 * n_max].copy()
+            copy_l = vl[:, :2 * n_max].copy()
+            eig = torch.from_numpy(wr[:n_max].copy()).to(dev)
+            c_use = torch.from_numpy(
+                (vl if use_left else vr)[:, :n_max].copy()).to(dev)
 
         # ---- step_post: Ritz vectors, residuals, expand or restart ----
         n_matvec += n_act
@@ -278,8 +428,8 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
         r = mTm(c_use, aspace) - eig[:, None] * evec
 
         active = ~done & targ
-        rms = torch.where(active, torch.linalg.norm(r, dim=1) / sqrtn, rms)
-        rmx = torch.where(active, r.abs().amax(dim=1), rmx)
+        rms = torch.where(active, norm_n(r) / sqrtn, rms)
+        rmx = torch.where(active, amax_n(r.abs()), rmx)
         conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
         done = prefix_lock(done, conv, n_targ)
         ok = bool(done[:n_targ].all())
@@ -321,7 +471,7 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
 
 def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
            options: SolverOptions, side: str = "c", *,
-           generator: torch.Generator | None = None,
+           generator: torch.Generator | None = None, sharding=None,
            driver: str = "auto") -> NonsymResult:
     """Two-sided Davidson for a real nonsymmetric matrix.
 
@@ -331,12 +481,15 @@ def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
       precnd: ``(shift, block) -> block`` like the symmetric drivers.
       evec_guess: (n_max, n) guess rows (the right guess; the left pass of
         a consecutive run is seeded from the right eigenvectors).  Its
-        dtype and device are the solve's; zeros mean a random start from
+        dtype and device are the solve's.  Zeros mean a random start from
         ``generator``.
       side: 'r' right only, 'l' left only, 's'/'c' both consecutively.
+      sharding: optional VectorSharding; ``evec_guess``, the callbacks'
+        blocks and the returned vectors are then this rank's column
+        shards.
       driver: "auto", "jit" and "host" solve the reduced problem with the
-        host dgeev; "device" (the on-device Eberlein Jacobi) is not ported
-        yet and raises.
+        host dgeev; "device" with the Eberlein Jacobi on the operands'
+        device.
 
     Returns a :class:`NonsymResult`.  For 'c'/'s', ``ok`` also requires the
     left-pass eigenvalues to match the right-pass ones within tol, and
@@ -345,11 +498,12 @@ def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
     if side not in ("r", "l", "s", "c"):
         raise ValueError("side must be one of 'r', 'l', 's', 'c'")
     _check_driver(driver)
-    with routing_for(options, "nonsym"):
+    kw = dict(generator=generator, sharding=sharding, driver=driver)
+    with routing_for(options, "nonsym"), mm_sharding(sharding):
         if side in ("r", "l"):
             op = matvec if side == "r" else matvec_l
             out = _nonsym_pass(op, precnd, evec_guess, options,
-                               use_left=side == "l", generator=generator)
+                               use_left=side == "l", **kw)
             zero_v = torch.zeros_like(out.evec)
             zero_h = torch.zeros_like(out.rms_h)
             is_r = side == "r"
@@ -366,17 +520,21 @@ def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
                 eig_history=out.eig_h, ortho_ok=out.ortho_ok)
         # consecutive: right pass, then the left pass seeded from evec_r
         out_r = _nonsym_pass(matvec, precnd, evec_guess, options,
-                             use_left=False, generator=generator)
+                             use_left=False, **kw)
         guess_l, seed_ok = nonsym_seed_left(out_r.evec)
         out_l = _nonsym_pass(matvec_l, precnd, guess_l, options,
-                             use_left=True, generator=generator)
+                             use_left=True, **kw)
         return _consecutive_result(out_r, out_l, seed_ok, options)
 
 
-def nonsym_seed_left(evec_r: torch.Tensor):
+def nonsym_seed_left(evec_r: torch.Tensor, *, sharding=None):
     """Left-pass seed from the right eigenvectors: their orthonormalized
-    copy.  Returns ``(guess_l, ok)``."""
-    guess_l, _, seed_ok = ortho_cd(evec_r)
+    copy.  Returns ``(guess_l, ok)``.  Under ``sharding`` (or inside a
+    sharded solve) ``evec_r`` is the rank's column shard and the overlaps
+    are all-reduced."""
+    with (mm_sharding(sharding) if sharding is not None
+          else contextlib.nullcontext()):
+        guess_l, _, seed_ok = ortho_cd(evec_r)
     return guess_l, seed_ok
 
 
@@ -394,7 +552,8 @@ def _consecutive_result(out_r: NonsymPassResult, out_l: NonsymPassResult,
     # vector pairing.  The pairing-preserving equivalent is a solve:
     # evec_l <- O^{-1} evec_l (QR of the overlap, then a triangular solve)
     # gives evec_l @ evec_r^T = I, perturbing each vector at the size of
-    # its residual.
+    # its residual.  The overlap is all-reduced under a sharding; the
+    # solve acts on the small axis and stays local.
     overlap = mmT(out_l.evec, out_r.evec)
     q, r_ = torch.linalg.qr(overlap)
     evec_l = torch.linalg.solve_triangular(r_, mTm(q, out_l.evec),
@@ -412,32 +571,34 @@ def _consecutive_result(out_r: NonsymPassResult, out_l: NonsymPassResult,
 
 def nonsym_pass(matvec, precnd, evec_guess: torch.Tensor,
                 options: SolverOptions, *, use_left: bool = False,
-                generator: torch.Generator | None = None,
+                generator: torch.Generator | None = None, sharding=None,
                 driver: str = "auto") -> NonsymPassResult:
     """One one-sided Davidson pass as a public building block.
 
     ``matvec`` is the operator of this side (A for right, A^T for left),
     ``use_left`` a plain bool.  With :func:`nonsym_seed_left` and
-    :func:`nonsym_finalize` as the glue it reproduces ``nonsym(side='c')``.
-    Returns a :class:`NonsymPassResult` (``eig`` has ``options.shift``
-    removed).
+    :func:`nonsym_finalize` as the glue (given the same ``sharding``) it
+    reproduces ``nonsym(side='c')``.  Returns a :class:`NonsymPassResult`
+    (``eig`` has ``options.shift`` removed).
     """
     if not isinstance(use_left, (bool, np.bool_)):
         raise TypeError("use_left must be a bool")
     _check_driver(driver)
-    with routing_for(options, "nonsym"):
+    with routing_for(options, "nonsym"), mm_sharding(sharding):
         return _nonsym_pass(matvec, precnd, evec_guess, options,
-                            use_left=bool(use_left), generator=generator)
+                            use_left=bool(use_left), generator=generator,
+                            sharding=sharding, driver=driver)
 
 
 def nonsym_finalize(res_r: NonsymPassResult, res_l: NonsymPassResult,
-                    options: SolverOptions, seed_ok=None) -> NonsymResult:
+                    options: SolverOptions, seed_ok=None, *,
+                    sharding=None) -> NonsymResult:
     """Consecutive-mode finalize over two one-sided pass results (right,
     then left seeded by :func:`nonsym_seed_left`): the eigenvalue
     cross-check and the pairing-preserving biorthonormalization that
-    ``nonsym(side='c')`` applies.  ``seed_ok`` is ANDed into ``ortho_ok``
-    when given."""
-    with routing_for(options, "nonsym"):
+    ``nonsym(side='c')`` applies (its overlap all-reduced under
+    ``sharding``).  ``seed_ok`` is ANDed into ``ortho_ok`` when given."""
+    with routing_for(options, "nonsym"), mm_sharding(sharding):
         return _consecutive_result(res_r, res_l,
                                    True if seed_ok is None else bool(seed_ok),
                                    options)

@@ -50,8 +50,11 @@ class SolverOptions:
     tol:      rms convergence threshold; the max-norm threshold is ``10*tol``.
     max_dav:  macro-blocks before a restart; effective ``max(10, max_dav)``.
     shift:    diagonal level shift, removed from the reported eigenvalues.
-    reduced_solver: "auto" and "device" solve the reduced problems with
-              ``torch.linalg``; "host" and "jacobi" are not ported yet.
+    reduced_solver: the route of the reduced solves (``utils.reduced``):
+              "auto" and "device" are ``torch.linalg`` on the tensors'
+              device, "host" scipy's LAPACK on a float64 CPU copy,
+              "jacobi" the cyclic-Jacobi solvers of ``utils.jacobi`` on
+              the tensors' device.
     verbose:  print one progress line per iteration.
     wide_mm:  routing of the float64 Ritz rotations and ortho projections
               to the exact int8 wide-rotation kernel (kernel K3,
@@ -59,9 +62,12 @@ class SolverOptions:
               default of ``utils.mm._WIDE_DEFAULTS``, on for every driver),
               "always", "never".  The kernel runs on CUDA tensors only; on
               the CPU every mode is a plain matmul.
-    sliced_mm: the integer-sliced long-contraction route: "auto" and
-              "never" are plain matmuls ("never" also turns the wide route
-              off, as in the reference); "always" is not ported yet.
+    sliced_mm: the integer-sliced long-contraction route: "always" sends
+              every float64 product within the exact int32 budget to
+              ``ops.slicing.sliced_mm`` / ``sliced_mmT`` / ``sliced_mTm``
+              (before the wide route); "auto" and "never" are plain
+              matmuls ("never" also turns the wide route off, as in the
+              reference; "auto" is on only on a TPU there).
     """
 
     n_targ: int

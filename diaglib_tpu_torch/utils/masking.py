@@ -64,22 +64,24 @@ def _pad_value(a: torch.Tensor, outer: torch.Tensor) -> torch.Tensor:
 
 
 def masked_eigh(a: torch.Tensor, mask: torch.Tensor,
-                method: str = "device"):
+                method: str = "device", v0=None, off_tol=0.0):
     """eigh of the masked symmetric matrix.
 
     Masked rows and columns are replaced by a diagonal pad above the
     genuine spectrum, so the genuine eigenpairs come first (ascending) and
     their eigenvectors are exactly zero on masked rows (the padded matrix
-    is block diagonal).  ``method`` as utils.reduced.
+    is block diagonal).  ``method``, ``v0`` and ``off_tol`` as
+    utils.reduced.eigh.
     """
     outer = mask[:, None] & mask[None, :]
     pad = _pad_value(a, outer)
     a_m = torch.where(outer, a, 0.0) + torch.diag(
         torch.where(mask, 0.0, pad).to(a.dtype))
-    return reduced.eigh(a_m, method)
+    return reduced.eigh(a_m, method, v0=v0, off_tol=off_tol)
 
 
-def masked_svd(a: torch.Tensor, mask: torch.Tensor, method: str = "device"):
+def masked_svd(a: torch.Tensor, mask: torch.Tensor, method: str = "device",
+               off_tol=0.0):
     """SVD of the masked square matrix, genuine triplets leading.
 
     Masked rows and columns are padded with a diagonal strictly above the
@@ -87,27 +89,35 @@ def masked_svd(a: torch.Tensor, mask: torch.Tensor, method: str = "device"):
     falls among the genuine ones; the triplets are then stably re-sorted by
     genuineness (a left singular vector supported on valid rows is
     genuine), which gives the SVD of the compacted matrix at the leading
-    positions.
+    positions.  ``method`` and ``off_tol`` as utils.reduced.svd.
     """
     outer = mask[:, None] & mask[None, :]
     a_v = torch.where(outer, a, 0.0)
     pad = torch.sqrt((a_v * a_v).sum()) + 2.0
     a_m = a_v + torch.diag(torch.where(mask, 0.0, pad).to(a.dtype))
-    u, s, vt = reduced.svd(a_m, method)
+    u, s, vt = reduced.svd(a_m, method, off_tol=off_tol)
     score = (torch.where(mask[:, None], u, 0.0) ** 2).sum(dim=0)
     order = torch.argsort((score <= 0.5).to(torch.int8), stable=True)
     return u[:, order], s[order], vt[order, :]
 
 
-def masked_eigh_prefix(a: torch.Tensor, ldu: int, method: str = "device"):
+def masked_eigh_prefix(a: torch.Tensor, ldu: int, method: str = "device",
+                       v0=None, off_tol=0.0):
     """eigh of the leading ``ldu x ldu`` block of symmetric ``a``, padded
     to a's full size: the genuine eigenpairs ascending in the leading
     positions, the rest at a Gershgorin bound above the genuine spectrum
-    with zero eigenvector columns.  ``method`` as utils.reduced."""
+    with zero eigenvector columns.  ``method`` and ``off_tol`` as
+    utils.reduced.eigh; ``v0``, a full-width warm start (the previous
+    call's ``v``), is cut to the block, its zero columns replaced by
+    identity columns so that it stays orthonormal when the block grew."""
     full = a.shape[0]
     lead = a[:ldu, :ldu]
     pad = lead.abs().sum(dim=1).max() + 1.0
-    w, v = reduced.eigh(lead, method)
+    if v0 is not None:
+        v0 = v0[:ldu, :ldu]
+        fill = (v0 * v0).sum(dim=0) == 0.0
+        v0 = v0 + torch.diag(fill.to(a.dtype))
+    w, v = reduced.eigh(lead, method, v0=v0, off_tol=off_tol)
     w_out = torch.cat([w, pad.expand(full - ldu)])
     v_out = torch.zeros((full, full), dtype=a.dtype, device=a.device)
     v_out[:ldu, :ldu] = v

@@ -1,10 +1,17 @@
 """Contractions of the solvers (port of ``diaglib_tpu/utils/mm.py``).
 
 On the H100 float64 is native, so ``mm``/``mmT``/``mTm`` are plain
-matmuls in the operands' dtype, except on the wide-rotation route: a
-float64 product on CUDA tensors with a small contraction and a wide output
-(a Ritz rotation or an ortho projection) goes to the exact integer-sliced
-kernel K3 (``ops.slicing.sliced_wide_mm``) when the route is on.
+matmuls in the operands' dtype, except on two routes, taken in the
+reference's order:
+
+* the sliced route (``sliced_mm="always"``): every float64 product whose
+  contraction fits the exact int32 budget (``ops.slicing.fits_exact``,
+  K < 2^17) goes to the exact integer-sliced ``sliced_mm`` /
+  ``sliced_mmT`` / ``sliced_mTm``, on any device;
+* the wide-rotation route: a float64 product on CUDA tensors with a small
+  contraction and a wide output (a Ritz rotation or an ortho projection)
+  goes to the exact integer-sliced kernel K3 (``ops.slicing.
+  sliced_wide_mm``) when the route is on.
 
 Routing rides :class:`~diaglib_tpu_torch.types.SolverOptions`: each solver
 enters :func:`routing_for` around its run, and ``wide_mm="auto"`` resolves
@@ -75,17 +82,11 @@ class mm_routing:
 def routing_for(options, driver: str) -> mm_routing:
     """Routing context for a solver ``driver`` ("davidson", "lobpcg", ...)
     from ``options.wide_mm`` / ``options.sliced_mm``; "auto" resolves to
-    the driver's default.  ``sliced_mm="always"`` (the long-contraction
-    route) is not ported yet and raises."""
+    the driver's default."""
     for name in ("wide_mm", "sliced_mm"):
         mode = getattr(options, name)
         if mode not in _ROUTES:
             raise ValueError(f"{name} must be one of {_ROUTES}, got {mode!r}")
-    if options.sliced_mm == "always":
-        raise NotImplementedError(
-            "sliced_mm='always' needs the integer-sliced long-contraction "
-            "route (diaglib_tpu/ops/slicing.py::sliced_mm), not yet ported "
-            "to diaglib_tpu_torch")
     wide = options.wide_mm
     if wide == "auto":
         wide = _WIDE_DEFAULTS.get(driver, "never")
@@ -150,6 +151,17 @@ def global_n(n_local: int, sharding) -> int:
     return sharding.n
 
 
+def _use_sliced(a: torch.Tensor, b: torch.Tensor, k: int) -> bool:
+    """Whether a product of 2-D ``a`` and ``b`` contracting ``k`` goes to
+    the exact sliced products: the route is "always", both operands are
+    float64 and the contraction fits the exact int32 budget."""
+    if _ROUTING["sliced"] != "always" or a.ndim != 2 or b.ndim != 2:
+        return False
+    from ..ops.slicing import fits_exact
+    return (a.dtype == torch.float64 and b.dtype == torch.float64
+            and fits_exact(k))
+
+
 def _use_wide(dtype, device, k: int, m: int, n: int) -> bool:
     """Whether ``(m, k) @ (k, n)`` goes to kernel K3: the route is
     "always", the operands are float64 CUDA tensors (the reference asks for
@@ -168,6 +180,9 @@ def _use_wide(dtype, device, k: int, m: int, n: int) -> bool:
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b."""
+    if _use_sliced(a, b, a.shape[-1]):
+        from ..ops.slicing import sliced_mm
+        return sliced_mm(a, b)
     if (a.ndim == 2 and b.ndim == 2
             and _use_wide(a.dtype, a.device, a.shape[1], a.shape[0],
                           b.shape[1])):
@@ -179,13 +194,20 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mmT(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b.T (Gram layout, contracting the last axes); all-reduced over
     the ranks under a sharding."""
-    out = a @ b.T
+    if _use_sliced(a, b, a.shape[-1]):
+        from ..ops.slicing import sliced_mmT
+        out = sliced_mmT(a, b)
+    else:
+        out = a @ b.T
     sh = _SHARDING[0]
     return out if sh is None else sh.sum(out)
 
 
 def mTm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a.T @ b (contracting the first axes)."""
+    if _use_sliced(a, b, a.shape[0]):
+        from ..ops.slicing import sliced_mTm
+        return sliced_mTm(a, b)
     if (a.ndim == 2 and b.ndim == 2
             and _use_wide(a.dtype, a.device, a.shape[0], a.shape[1],
                           b.shape[1])):

@@ -274,10 +274,21 @@ def test_eigh_gen_matches_reference():
 
 @pytest.mark.parametrize("method", ["host", "jacobi"])
 def test_unported_reduced_routes_raise(method):
-    with pytest.raises(NotImplementedError):
-        reduced.cholesky(_t(_spd(0)), method)
-    with pytest.raises(NotImplementedError):
-        reduced.eigh_gen(_t(_spd(0)), _t(_spd(1)), method)
+    """The "host" and "jacobi" routes of the Casida reduced solves, once
+    unported, now run: ``cholesky`` and ``eigh_gen`` agree with the
+    "device" route (the reference's bounds, tests/test_reduced.py) and
+    keep the NaN-on-failure contract; a route no package has raises."""
+    a, s = _spd(0), _spd(1) - 20 * np.eye(12)
+    np.testing.assert_allclose(reduced.cholesky(_t(a), method).numpy(),
+                               reduced.cholesky(_t(a)).numpy(), rtol=0,
+                               atol=1e-12 * np.abs(a).max())
+    assert bool(torch.isnan(reduced.cholesky(_t(-a), method)).any())
+    e, x = (t.numpy() for t in reduced.eigh_gen(_t(s), _t(a), method))
+    np.testing.assert_allclose(e, reduced.eigh_gen(_t(s), _t(a))[0].numpy(),
+                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(x.T @ a @ x, np.eye(12), rtol=0, atol=1e-9)
+    with pytest.raises(ValueError):
+        reduced.cholesky(_t(a), method + "_lapack")
 
 
 # ---- problems ----

@@ -21,7 +21,8 @@ def test_port_covers_the_slice_modules():
     for name in ("types", "problems", "ops.bsr", "ops.slicing",
                  "ops.bsr_sliced", "ops.bsr_sliced_sym", "ops._build",
                  "ortho.core", "utils.guess", "utils.masking",
-                 "utils.reduced", "utils.mm", "solvers.davidson",
+                 "utils.reduced", "utils.mm", "utils.jacobi",
+                 "utils.eberlein", "solvers.davidson",
                  "solvers.lobpcg", "solvers.mixed", "solvers.nonsym",
                  "solvers.caslr",
                  "_device", "ops.dist_bsr", "ops.dist_sliced",

@@ -304,11 +304,11 @@ def test_driver_and_side_are_checked(small):
     args = (dense_matvec(ta), dense_matvec(ta.T),
             diag_precnd(torch.diagonal(ta)), _t(guess),
             SolverOptions(n_targ=2, n_max=N2_WANT))
-    with pytest.raises(NotImplementedError, match="eberlein"):
-        nonsym(*args, driver="device")
+    # driver="device" (the Eberlein reduced solve) runs now: see
+    # test_torch_reduced_routes.py; a driver no package has still raises
     with pytest.raises(ValueError, match="driver"):
         nonsym(*args, driver="gpu")
     with pytest.raises(ValueError, match="side"):
         nonsym(*args, side="x")
-    with pytest.raises(NotImplementedError, match="eberlein"):
-        nonsym_pass(args[0], args[2], args[3], args[4], driver="device")
+    with pytest.raises(ValueError, match="driver"):
+        nonsym_pass(args[0], args[2], args[3], args[4], driver="gpu")

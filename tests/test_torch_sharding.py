@@ -17,10 +17,18 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from diaglib_tpu import SolverOptions as JOptions
 from diaglib_tpu.ops import dist_bsr as jdb
 from diaglib_tpu.ops import random_bsr_spd as j_random_bsr_spd
+from diaglib_tpu.parallel import VectorSharding as JVectorSharding
+from diaglib_tpu.parallel import make_mesh
 from diaglib_tpu.problems import casida_blocks as j_casida_blocks
+from diaglib_tpu.problems import dense_matvec as j_dense_matvec
+from diaglib_tpu.problems import diag_precnd as j_diag_precnd
 from diaglib_tpu.problems import metric_matrix as j_metric_matrix
+from diaglib_tpu.problems import nonsym_matrix as j_nonsym_matrix
+from diaglib_tpu.solvers import nonsym as j_nonsym
+from diaglib_tpu.utils.guess import guess_evec
 from diaglib_tpu_torch import (
     SolverOptions,
     caslr,
@@ -28,6 +36,7 @@ from diaglib_tpu_torch import (
     davidson,
     gen_david,
     lobpcg,
+    nonsym,
 )
 from diaglib_tpu_torch.ops.bsr import (
     as_arrays,
@@ -62,6 +71,7 @@ from diaglib_tpu_torch.utils.guess import check_guess
 
 N, B = 256, 32
 OPTS = dict(n_targ=4, n_max=8, max_iter=200, tol=1e-8, max_dav=10)
+NONSYM = dict(n_targ=5, n_max=5, max_iter=200, tol=1e-8, max_dav=10)
 
 
 @pytest.fixture(scope="module")
@@ -78,12 +88,16 @@ def fleet():
     casida_guess = rng.uniform(-0.5, 0.5, (8, 2 * N))
     zero = casida_guess.copy()
     zero[4:] = 0.0
+    ns = j_nonsym_matrix(N, jax.random.PRNGKey(1), variant=4)
+    ns_guess = guess_evec(6, jax.random.PRNGKey(7), N, NONSYM["n_max"],
+                          diagonal=jnp.diagonal(ns))
     inputs = dict(a=a, s=s, guess=rng.uniform(-0.5, 0.5, (8, N)),
                   options=OPTS, bsr=as_arrays(m),
                   x=rng.standard_normal((5, 2 * N)),
                   bsr_guess=rng.uniform(-0.5, 0.5, (8, 2 * N)),
                   casida=casida, casida_guess=casida_guess,
-                  casida_zero_guess=zero)
+                  casida_zero_guess=zero, nonsym=np.asarray(ns),
+                  nonsym_guess=np.asarray(ns_guess), nonsym_options=NONSYM)
     _, results = mh_dryrun.run_fleet("sharded_solvers", inputs,
                                      num_processes=4, backend="gloo",
                                      device="cpu", timeout=120)
@@ -237,6 +251,62 @@ def test_sharded_casida_equals_unsharded(fleet, run, guess):
     cos = np.abs(np.sum(ev * want, axis=1)) / (
         np.linalg.norm(ev, axis=1) * np.linalg.norm(want, axis=1))
     np.testing.assert_allclose(cos, 1.0, rtol=0, atol=1e-8)
+
+
+def _nonsym_serial(inputs, driver):
+    a = torch.from_numpy(np.array(inputs["nonsym"]))
+    return nonsym(dense_matvec(a), dense_matvec(a.T),
+                  diag_precnd(torch.diagonal(a)),
+                  torch.from_numpy(np.array(inputs["nonsym_guess"])),
+                  SolverOptions(**NONSYM), side="c", driver=driver)
+
+
+@pytest.mark.parametrize("driver", ["host", "device"])
+def test_sharded_nonsym_equals_unsharded(fleet, driver):
+    """nonsym side "c" over 4 ranks (host dgeev and the device Eberlein
+    route, each rank solving the same all-reduced reduced matrix) against
+    the unsharded run of the same driver: ok, eigenvalues within 1e-10,
+    counts within +-2 (+-2 blocks), the same right and left vectors up to
+    sign, biorthonormal across the ranks, and every rank's eigenvalue
+    history the same bits."""
+    inputs, _, results = fleet
+    ref = _nonsym_serial(inputs, driver)
+    assert ref.ok
+    k = NONSYM["n_targ"]
+    tag = f"nonsym_{driver}"
+    for r in results:
+        assert r[f"{tag}_ok"]
+        np.testing.assert_allclose(r[f"{tag}_eig"][:k], ref.eig[:k].numpy(),
+                                   rtol=0, atol=1e-10)
+        assert abs(r[f"{tag}_iter"] - ref.n_iter) <= 2
+        assert abs(r[f"{tag}_matvec"] - ref.n_matvec) <= 2 * NONSYM["n_max"]
+        hist = r[f"{tag}_eig_ranks"]
+        assert all(np.array_equal(h, hist[0]) for h in hist[1:])
+    ev_r = _gathered(results, f"{tag}_evec_r")[:k]
+    ev_l = _gathered(results, f"{tag}_evec_l")[:k]
+    for got, want in ((ev_r, ref.evec_r), (ev_l, ref.evec_l)):
+        want = want[:k].numpy()
+        cos = np.abs(np.sum(got * want, axis=1)) / (
+            np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+        np.testing.assert_allclose(cos, 1.0, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(ev_l @ ev_r.T, np.eye(k), rtol=0, atol=1e-8)
+
+
+def test_sharded_nonsym_device_matches_the_reference_sharded(fleet):
+    """The port's 4-rank device-driver run against the JAX package's
+    sharded ``driver="device"`` run on the 8-device CPU mesh, from the
+    same guess: eigenvalues within tests/test_sharding.py's 1e-7."""
+    inputs, _, results = fleet
+    a = jnp.asarray(inputs["nonsym"])
+    ref = j_nonsym(j_dense_matvec(a), j_dense_matvec(a.T),
+                   j_diag_precnd(jnp.diagonal(a)),
+                   jnp.asarray(inputs["nonsym_guess"]), JOptions(**NONSYM),
+                   side="c", sharding=JVectorSharding(make_mesh()),
+                   driver="device")
+    assert bool(ref.ok)
+    k = NONSYM["n_targ"]
+    np.testing.assert_allclose(results[0]["nonsym_device_eig"][:k],
+                               np.asarray(ref.eig[:k]), rtol=0, atol=1e-7)
 
 
 def test_dist_bsr_matvec_equals_serial(fleet):
