@@ -104,9 +104,34 @@ Phases (any failure raises and the script exits non-zero):
    to 1e-10; both R x - lambda x and R^T y - lambda y for (e), whose
    vectors must be biorthonormal to 1e-10 and whose eigenvalues must lie
    within 1e-7 of (d)'s, R being similar to S);
+   (i) the user's surface on the card (after (g); (i6) inside (f)):
+       (i1) the five demo subcommands (python -m diaglib_tpu_torch.demo) at
+       the demo's defaults (n 1000, n_want 10, tol 1e-8), one process
+       each, all at once: exit 0, the reference's result files, every
+       iterative file's eigenvalues within 2e-6 of its lapack.txt, nonsym's
+       printed max |eig - dense| below 1e-6; (i2) on (d)'s store, the
+       float64 davidson of the ladder's second stage from the zero guess,
+       interrupted at 6 iterations, checkpoint.save and load(like=) (every
+       field bit-equal, on the card), resumed: check_pairs' bounds, ok in
+       fewer iterations than the same solve from the zero guess,
+       eigenvalues within 1e-10 of (d)'s; (i3) profiling.trace around one
+       warm (d) ladder: the Chrome trace names the scopes matvec,
+       rayleigh-ritz and expand-ortho and the kernels K1, K2 and K3; the
+       device-busy share of the window, device kernels an iteration, the
+       host time under each scope and the device time of the kernels
+       launched under it, and the kernels with the most device time; (i4)
+       profiling.phase_timings of the float64 symmetric sliced matvec at
+       (15, 65536) beside phase 4's K1 time, profiling.wall of one (d)
+       ladder beside (d)'s; (i5) the ELL operator of tests/test_ell.py's
+       generator at n = 65536 (built on the host, ell_from_coo onto the
+       card): ell_matvec at k = 15 within 1e-14 max|y| of scipy's CSR
+       product, davidson over it (4 roots, n_max 8, tol 1e-9, max_iter
+       300) ok with host residuals below tol; (i6) profiling.collective_inventory of one
+       sharded davidson iteration over dist_sliced_matvec (K6) under (f)'s
+       one-rank NCCL group;
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
-   the timed runs of 5, (h) included, and each kernel's times and bound;
-   every kernel (six) must have run there.
+   the timed runs of 5, (h) and (i) included, and each kernel's times and
+   bound; every kernel (six) must have run there.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -115,6 +140,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -955,12 +981,13 @@ def casida_ladders(casida, timed, card):
 
 
 def sharded_vs_unsharded(general, m, timed, guess, opts, card,
-                         backend=None):
+                         backend=None, inside=None):
     """Phase 5(f): davidson_ladder with ``sharding=`` over
     dist_sliced_matvec under a one-rank process group (NCCL on the card),
     then the unsharded ladder over sliced_bsr_matvec (K5) on the same
     store: both checked by plain products, with the same counts and
-    eigenvalues within 1e-12."""
+    eigenvalues within 1e-12.  ``inside(one, sh, pc_hi)`` runs under the
+    group, after the sharded ladder."""
     import torch
     import torch.distributed as dist
 
@@ -985,6 +1012,8 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
             dsl.dist_sliced_matvec(one, sh), d_hi, guess, opts, lo_tol=2e-6,
             lo_iter=35, generator=gen, sharding=sh))
         check_pairs("sharded davidson_ladder", rs, m)
+        if inside is not None:
+            inside(one, sh, d_hi)
     finally:
         dist.destroy_process_group()
     ru, wu = timed("K5 davidson_ladder", lambda gen: davidson_ladder(
@@ -1001,6 +1030,31 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
             and rs.n_matvec == ru.n_matvec):
         raise AssertionError("the one-rank sharded ladder and the unsharded "
                              "one disagree")
+
+
+def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
+    """Phase (i6): profiling.collective_inventory of one iteration of the
+    sharded float64 Davidson over dist_sliced_matvec (K6), under (f)'s
+    one-rank group."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from diaglib_tpu_torch import davidson, profiling
+    from diaglib_tpu_torch.ops import dist_sliced as dsl
+
+    o1 = dataclasses.replace(opts, max_iter=1)
+    inv = counted("sharded davidson iteration", lambda: (
+        profiling.collective_inventory(
+            davidson, dsl.dist_sliced_matvec(one, sh), pc, guess, o1,
+            generator=torch.Generator(device=dev).manual_seed(1),
+            sharding=sh)))
+    log(f"[inventory] one sharded davidson iteration over dist_sliced_matvec"
+        f" on a one-rank {dist.get_backend()} group: {json.dumps(inv)} "
+        f"({card})")
+    if not inv.get("all-reduce", {}).get("count"):
+        raise AssertionError("the sharded iteration recorded no all-reduce")
 
 
 def sliced_gram_on_card(dev, card):
@@ -1159,6 +1213,337 @@ def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
         f"host dgeev with the copies {ms_h:.3f} ms ({card})")
     if not (bool(real.all()) and err < 1e-11):
         raise AssertionError("eberlein_eig on the card is off")
+
+
+# ---- phase (i): the user's surface on the card ----
+
+DEMO_FILES = {"symm": ["davidson.txt", "lapack.txt", "lobpcg.txt"],
+              "geneig": ["davidson.txt", "lapack.txt", "lobpcg.txt"],
+              "caslr": ["cashp.txt", "caslr.txt", "caslr_eff.txt",
+                        "lapack.txt"],
+              "scflr": ["caslr.txt", "caslr_eff.txt", "lapack.txt"],
+              "nonsym": ["nonsym.txt"]}
+
+
+def _result_eigs(path):
+    """The eigenvalues of a demo result file."""
+    return [float(m.group(1)) for m in re.finditer(
+        r"eigenvalue #\s+\d+:\s+(\S+)", path.read_text())]
+
+
+def demo_runs(card, timeout=300.0):
+    """Phase (i1): the five demo subcommands at the demo's defaults (n 1000,
+    n_want 10, tol 1e-8) on the card, one process each, all at once, each
+    in its own temporary directory: exit 0, the reference's files, every
+    iterative file's eigenvalues within 2e-6 of its lapack.txt, and for
+    nonsym the printed max |eig - dense| below 1e-6."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="diaglib_demo_") as tmp:
+        procs = {}
+        t0 = time.perf_counter()
+        try:
+            for cmd in DEMO_FILES:
+                procs[cmd] = subprocess.Popen(
+                    [sys.executable, "-m", "diaglib_tpu_torch.demo",
+                     "--out-dir", str(Path(tmp) / cmd), cmd], cwd=ROOT,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+            outs = {}
+            for cmd, p in procs.items():
+                left = max(timeout - (time.perf_counter() - t0), 1.0)
+                outs[cmd], _ = p.communicate(timeout=left)
+                if p.returncode != 0:
+                    raise AssertionError(f"demo {cmd} exited {p.returncode}:"
+                                         f"\n{outs[cmd][-4000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        for cmd, files in DEMO_FILES.items():
+            out_dir = Path(tmp) / cmd
+            if sorted(p.name for p in out_dir.iterdir()) != files:
+                raise AssertionError(f"demo {cmd} wrote "
+                                     f"{sorted(os.listdir(out_dir))}")
+            walls = re.findall(r"timings for (\S+) \(wall\):\s+total:\s+(\S+)",
+                               outs[cmd])
+            if cmd == "nonsym":
+                err = float(re.search(
+                    r"max \|eig - dense\| over \d+ roots: (\S+)",
+                    outs[cmd]).group(1))
+                what = "printed max |eig - dense|"
+            else:
+                ref = _result_eigs(out_dir / "lapack.txt")
+                err = max(max(abs(a - b) for a, b in zip(
+                    _result_eigs(out_dir / f), ref))
+                    for f in files if f != "lapack.txt")
+                what = "result files' eigenvalues against lapack.txt"
+            log(f"[demo {cmd}] exit 0, files {files}; {what} {err:.2e}; "
+                f"walls {', '.join(f'{n} {w} s' for n, w in walls)} "
+                f"(first calls) ({card})")
+            bound_ = 1e-6 if cmd == "nonsym" else 2e-6
+            if not err < bound_:
+                raise AssertionError(f"demo {cmd}: {what} {err:.2e}")
+    log(f"[demo] five subcommands in parallel processes: {secs:.1f} s")
+
+
+def checkpoint_resume(mv_hi, pc_hi, ra, m, dev, counted, card):
+    """Phase (i2): the float64 Davidson of the ladder's second stage on
+    (d)'s store, interrupted at 6 iterations, saved and loaded back (every
+    field bit-equal, on the card), resumed: ok, fewer iterations than the
+    same solve from the zero guess, eigenvalues within 1e-10 of (d)'s and
+    check_pairs' residual bounds."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from diaglib_tpu_torch import SolverOptions, checkpoint, davidson
+
+    opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                         tol=1e-10, max_dav=10)
+    zero = torch.zeros((N_MAX, N), dtype=torch.float64, device=dev)
+
+    def solve(guess, o=opts):
+        return davidson(mv_hi, pc_hi, guess, o,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+
+    part = counted("checkpoint interrupted",
+                   lambda: solve(zero, dataclasses.replace(opts, max_iter=6)))
+    if part.ok:
+        raise AssertionError("checkpoint: the interrupted solve converged")
+    with tempfile.TemporaryDirectory(prefix="diaglib_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save(tmp, part)
+        t1 = time.perf_counter()
+        back = checkpoint.load(tmp, like=part)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nbytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
+    for f in dataclasses.fields(part):
+        x, y = getattr(part, f.name), getattr(back, f.name)
+        same = (torch.equal(x, y) and y.device == x.device
+                if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            raise AssertionError(f"checkpoint: {f.name} did not round-trip")
+    resumed = counted("checkpoint resumed", lambda: solve(back.evec))
+    scratch = counted("checkpoint from the zero guess", lambda: solve(zero))
+    check_pairs("checkpoint resumed", resumed, m)
+    d_eig = float((resumed.eig[:N_TARG] - ra.eig[:N_TARG]).abs().max())
+    log(f"[checkpoint] save {t1 - t0:.3f} s, load {t2 - t1:.3f} s, "
+        f"{nbytes / 1e6:.1f} MB, every field bit-equal on {back.evec.device}"
+        f"; resumed after {part.n_iter} iterations: ok, {resumed.n_iter} "
+        f"iterations against {scratch.n_iter} from the zero guess, "
+        f"eigenvalues {d_eig:.3e} from (d)'s ({card})")
+    if not (resumed.n_iter < scratch.n_iter and d_eig <= 1e-10):
+        raise AssertionError("checkpoint: the resumed solve is no better "
+                             "than a solve from scratch")
+
+
+def scope_breakdown(trace_events, scopes):
+    """From a Chrome trace of torch.profiler: the device's busy ms (the
+    union of its kernels, copies and fills); the number of kernels; for
+    each scope name, (count, host ms under it, device ms of the kernels
+    launched under it); the device ms of kernels launched outside every
+    scope; and the kernels' (short name, count, ms), largest first.  A
+    kernel belongs to the scope whose host interval holds its launch (the
+    runtime call with the same correlation id)."""
+    import bisect
+
+    launch = {}
+    spans = []
+    kernels = []
+    work = []
+    for e in trace_events:
+        cat = e.get("cat", "")
+        if (cat in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})):
+            launch[e["args"]["correlation"]] = e["ts"]
+        elif cat == "user_annotation" and e.get("name") in scopes:
+            spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        if cat == "kernel":
+            kernels.append(e)
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            work.append((e["ts"], e["ts"] + e["dur"]))
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(work):                # the union of the intervals
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    host = {k: [0, 0.0, 0.0] for k in scopes}
+    for lo, hi, name in spans:
+        host[name][0] += 1
+        host[name][1] += (hi - lo) / 1e3
+    outside = 0.0
+    by_name = {}
+    for k in kernels:
+        ms = k["dur"] / 1e3
+        nm = short_names([k["name"]])[0]
+        cnt, tot = by_name.get(nm, (0, 0.0))
+        by_name[nm] = (cnt + 1, tot + ms)
+        t = launch.get(k.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= spans[i][1]:
+            host[spans[i][2]][2] += ms
+        else:
+            outside += ms
+    top = sorted(((n, c, t) for n, (c, t) in by_name.items()),
+                 key=lambda r: -r[2])
+    return busy / 1e3, len(kernels), host, outside, top
+
+
+# what the trace of a (d) ladder must name: the phase scopes and K1-K3
+TRACE_NAMES = ("matvec", "rayleigh-ritz", "expand-ortho", "sym_spmm_kernel",
+               "slice_rows_kernel", "wide_mm_kernel")
+SCOPES = ("matvec", "rayleigh-ritz", "expand-ortho")
+
+
+def traced_ladder(run_d, dev, counted, card):
+    """Phase (i3): profiling.trace around one warm (d) ladder: the trace
+    file names the three phase scopes and the kernels K1, K2 and K3; prints
+    the device-busy share of the window, device kernels an iteration, the
+    host and device time under each scope, and the kernels that take the
+    most device time."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from diaglib_tpu_torch import SolverOptions, profiling
+
+    opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                         tol=1e-10, max_dav=10)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with tempfile.TemporaryDirectory(prefix="diaglib_trace_") as tmp:
+        with profiling.trace(tmp):
+            t0 = time.perf_counter()
+            res = counted("traced davidson_ladder", lambda: run_d(opts, gen))
+            wall_s = time.perf_counter() - t0
+        files = glob.glob(str(Path(tmp) / "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace: {files}")
+        size = Path(files[0]).stat().st_size
+        with open(files[0]) as f:
+            trace_events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in trace_events}
+    missing = [w for w in TRACE_NAMES
+               if not any(w == n or w in short_names([n]) for n in names)]
+    if missing:
+        raise AssertionError(f"trace names no {missing}")
+    busy, n_kernels, host, outside, top = scope_breakdown(trace_events,
+                                                          SCOPES)
+    parts = ", ".join(f"{k} {c} x host {h:.1f} ms device {d:.1f} ms"
+                      for k, (c, h, d) in host.items())
+    tops = ", ".join(f"{n} {c} x {t:.1f} ms" for n, c, t in top[:8])
+    log(f"[trace] davidson_ladder under profiling.trace: ok={res.ok}, "
+        f"{res.n_iter} iterations, wall {wall_s:.3f} s (profiled); trace "
+        f"{size / 1e6:.1f} MB names {list(TRACE_NAMES)}; device busy "
+        f"{busy:.1f} ms of the {wall_s * 1e3:.1f} ms wall "
+        f"({100 * busy / (wall_s * 1e3):.1f} %); {n_kernels} device "
+        f"kernels, {n_kernels / res.n_iter:.1f} an iteration ({card})")
+    log(f"[trace] scopes (kernels by where they were launched): {parts}; "
+        f"launched outside them {outside:.1f} ms")
+    log(f"[trace] device time by kernel: {tops}")
+    if not res.ok:
+        raise AssertionError("the traced ladder did not converge")
+
+
+def host_timers(mv_hi, run_d, k1_ms, wa, dev, counted, card):
+    """Phase (i4): profiling.phase_timings of the float64 symmetric sliced
+    matvec at (15, 65536) beside phase 4's K1 time, and profiling.wall of
+    one (d) ladder beside (d)'s wall."""
+    import torch
+
+    from diaglib_tpu_torch import SolverOptions, profiling
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((N_MAX, N), generator=g, dtype=torch.float64, device=dev)
+    s = counted("phase_timings", lambda: profiling.phase_timings(
+        mv_hi, x, reps=20))
+    opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                         tol=1e-10, max_dav=10)
+    res, secs = counted("wall", lambda: profiling.wall(
+        run_d, opts, torch.Generator(device=dev).manual_seed(1)))
+    log(f"[timers] phase_timings f64 symmetric sliced matvec (15, {N}): "
+        f"{s * 1e3:.4f} ms a call on the host clock (the whole matvec), "
+        f"phase 4's K1 alone {k1_ms:.4f} ms (CUDA events); wall of one "
+        f"davidson_ladder {secs:.3f} s (ok={res.ok}, {res.n_iter} "
+        f"iterations) beside (d)'s {wa:.3f} s ({card})")
+    if not res.ok:
+        raise AssertionError("the timed ladder did not converge")
+
+
+def ell_operator(n, seed=7):
+    """tests/test_ell.py's random sparse SPD at size n, built sparse on the
+    host (scipy CSR): the same numpy draws in the same order, duplicates
+    summed, symmetrized, the diagonal set to 2 + the row's absolute sum +
+    a uniform draw."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    k = 4 * n
+    r = rng.integers(0, n, k)
+    c = rng.integers(0, n, k)
+    v = rng.standard_normal(k) * 0.1
+    a = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
+    a = (0.5 * (a + a.T)).tocsr()
+    diag = 2.0 + np.asarray(abs(a).sum(axis=1)).ravel() + rng.random(n)
+    a.setdiag(diag)
+    a.eliminate_zeros()
+    return a.tocsr()
+
+
+def ell_phase(dev, counted, card):
+    """Phase (i5): the ELL operator at n = 65536 on the card: its matvec at
+    k = 15 within 1e-14 max|y| of a scipy CSR float64 product, and davidson
+    over it with tests/test_ell.py's options (4 roots, n_max 8, tol 1e-9;
+    max_iter 300, not 100) ok, with residuals recomputed on the host below
+    tol."""
+    import numpy as np
+    import torch
+
+    from diaglib_tpu_torch import SolverOptions, davidson
+    from diaglib_tpu_torch.ops import ell_diagonal, ell_from_coo, ell_matvec
+    from diaglib_tpu_torch.problems import diag_precnd
+
+    t0 = time.perf_counter()
+    a = ell_operator(N)
+    coo = a.tocoo()
+    m = ell_from_coo(coo.row, coo.col, coo.data, N, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(8).standard_normal((N_MAX, N))
+    xt = torch.as_tensor(x, device=dev)
+    mv = ell_matvec(m)
+    y = mv(xt).cpu().numpy()
+    ref = (a @ x.T).T
+    err = float(np.abs(y - ref).max() / np.abs(ref).max())
+    mv_ms = time_ms(lambda: mv(xt), 20)
+    # tests/test_ell.py's options, but for max_iter: the lowest diagonal
+    # entries crowd at this n, and 100 iterations are not enough
+    opts = SolverOptions(n_targ=4, n_max=8, max_iter=300, tol=1e-9)
+    zero = torch.zeros((8, N), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    res = counted("ell davidson", lambda: davidson(
+        ell_matvec(m), diag_precnd(ell_diagonal(m)), zero, opts,
+        generator=torch.Generator(device=dev).manual_seed(3)))
+    solve_s = time.perf_counter() - t0
+    ev = res.evec[:4].cpu().numpy()
+    r = (a @ ev.T).T - res.eig[:4, None].cpu().numpy() * ev
+    rms = float((np.linalg.norm(r, axis=1) / N ** 0.5).max())
+    rmax = float(np.abs(r).max())
+    log(f"[ell] n={N}: {m.slots} slots, {m.nnz} nonzeros, built on the host "
+        f"and moved in {build_s:.2f} s; ell_matvec k={N_MAX}: {err:.2e} of "
+        f"max|y| from scipy CSR, {mv_ms:.3f} ms; davidson (4 roots, n_max "
+        f"8, tol 1e-9): ok={res.ok}, {res.n_iter} iterations, {solve_s:.3f} "
+        f"s, host residuals max rms {rms:.2e}, max |r| {rmax:.2e} ({card})")
+    if not (err <= 1e-14 and res.ok and rms < 1e-9 and rmax < 1e-8):
+        raise AssertionError("ELL on the card is off")
 
 
 def main():
@@ -1349,6 +1734,19 @@ def main():
             f"{json.dumps(counts)} ({card})")
         return res, wall_s
 
+    def counted(tag, fn):
+        """``fn()`` with every launch count at 0 before it; its counts join
+        the kernels line."""
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in counters.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        log(f"[{tag}] launches {json.dumps(counts)}")
+        return out
+
     pc_lo = diag_precnd(store.diagonal.to(f32))
     pc_hi = diag_precnd(store.diagonal)
     mv_lo = sym.sym_sliced_matvec(store, dtype=f32)
@@ -1400,10 +1798,12 @@ def main():
 
     # (h2) the sliced Gram product on the card; (h1) (d) under the host and
     # Jacobi reduced routes and the sliced Gram route
+    def run_d(o, gen):
+        return davidson_ladder(mv_lo, pc_lo, mv_hi, pc_hi, guess, o,
+                               lo_tol=2e-6, lo_iter=35, generator=gen)
+
     sliced_gram_on_card(dev, card)
-    davidson_routes(lambda o, gen: davidson_ladder(
-        mv_lo, pc_lo, mv_hi, pc_hi, guess, o, lo_tol=2e-6, lo_iter=35,
-        generator=gen), ra, wa, m, timed, card, dev, mv_hi)
+    davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi)
 
     # (e) the two-sided nonsymmetric ladder on R = E_- S E_+
     ns_opts = SolverOptions(n_targ=N_TARG, n_max=NS_MAX, max_iter=150,
@@ -1425,13 +1825,25 @@ def main():
                   dev, ns_hi[0])
     del ns_stores, ns_lo, ns_hi
 
-    # (f) the sharded ladder over the distributed sliced operator (K6)
-    sharded_vs_unsharded(general, m, timed, guess, opts, card)
+    # (f) the sharded ladder over the distributed sliced operator (K6), and
+    # (i6) the collectives of one sharded iteration under its group
+    sharded_vs_unsharded(general, m, timed, guess, opts, card,
+                         inside=lambda one, sh, pc: sharded_inventory(
+                             one, sh, pc, guess, opts, dev, counted, card))
     del general
 
     # (g) the Casida ladders on the (A+B, A-B) pair
     casida_ladders((c_apb, c_amb, *c_bsr), timed, card)
     del c_apb, c_amb, c_bsr
+
+    # (i) the user's surface on the card: the demo, checkpoint and resume,
+    # the trace and the timers on (d)'s store and ladder, ELL
+    demo_runs(card)
+    checkpoint_resume(mv_hi, pc_hi, ra, m, dev, counted, card)
+    traced_ladder(run_d, dev, counted, card)
+    host_timers(mv_hi, run_d, stats["sym_spmm"]["f64"][0], wa, dev, counted,
+                card)
+    ell_phase(dev, counted, card)
 
     # ---- 6. kernel usage ----
     sources = {

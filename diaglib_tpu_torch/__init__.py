@@ -30,7 +30,7 @@ is taken: the reduced solves on the device, the host or by cyclic Jacobi
 by Eberlein's method (``nonsym(driver="device")``).
 """
 
-from . import ops, ortho, parallel, solvers, utils
+from . import config, ops, ortho, parallel, solvers, utils
 from .ops.bsr import bsr_from_dense, bsr_matvec
 from .solvers import (
     NonsymPassResult,

@@ -1,4 +1,4 @@
-"""The device of the package's problem generators.
+"""The device of the package's problem generators, and host copies.
 
 The generators (``random_bsr_spd``, ``bsr_gen_problem``, ``symm_matrix``,
 ``metric_matrix``, ``nonsym_matrix``, ``bsr_nonsym_similarity``) make
@@ -7,9 +7,17 @@ their tensors on the card unless the caller names another device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "host_array"]
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device=None) -> torch.device:

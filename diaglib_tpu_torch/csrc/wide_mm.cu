@@ -39,11 +39,13 @@
 //      level sums in int32); a's planes come straight from the scratch, a
 //      few KB that stay in L1.  Chunk c's products run beside chunk c + 1's
 //      peel, so the tensor cores and the float32 pipe work at once;
-//   4. the levels are combined straight to float64, deepest first,
-//      sum_L v_L 2^{-7(L+2)}, then scaled by sa[r] and sb[j]: the products
-//      by powers of two are exact and the sums round as the plain version's
-//      do, so the two agree bit for bit.  (The TPU kernel wrote an exact
-//      float32 triple instead, for VMEM reasons only.)
+//   4. the levels are combined as the TPU kernel combines them: deepest
+//      first, each level split exactly into (v >> 12) << 12 and its low 12
+//      bits, weighted by 2^{-7(L+2)} in float32 (exact) and summed into a
+//      float32 triple by a 2Sum cascade (round-to-nearest intrinsics, no
+//      contraction into FMAs); the triple's float64 sum is scaled by sa[r]
+//      and sb[j].  The plain version and the JAX kernel do the same
+//      operations in the same order, so all three agree bit for bit.
 //
 // The grid rule and the peel are K2's (peel.cuh: peel::grid2, peel::peel8),
 // the chain in a form that gives the same planes: the remainders are kept
@@ -136,6 +138,14 @@ __device__ __forceinline__ void stage_b(double* raw, const double* b,
       cp_async8(dst + 1, live >= 2 ? src + sb1 : b, live >= 2 ? 8 : 0);
     }
   }
+}
+
+// Knuth's 2Sum in float32, exact: x + err == s + t
+__device__ __forceinline__ void two_sum(float s, float t, float& x,
+                                        float& err) {
+  x = __fadd_rn(s, t);
+  const float bb = __fsub_rn(x, s);
+  err = __fadd_rn(__fsub_rn(s, __fsub_rn(x, bb)), __fsub_rn(t, bb));
 }
 
 __device__ __forceinline__ void commit() {
@@ -392,14 +402,25 @@ wide_mm_kernel(const double* __restrict__ b, long long sb0, long long sb1,
       const int rl = g + 8 * (i >> 1);
       const int jc = 2 * t4 + (i & 1);
       if (r0 + rl >= m || j0 + jc >= n) continue;
-      double y = 0.0;
+      float s_hi = 0.f, s_mid = 0.f, s_lo = 0.f;
 #pragma unroll
       for (int L = kNLev - 1; L >= 0; --L) {
-        // 2^{-7(L+2)}, exact
-        const double wl = __longlong_as_double(
-            (long long)(1023 - kBits * (L + 2)) << 52);
-        y = __dadd_rn(y, __dmul_rn((double)acc[L][i], wl));
+        // 2^{-7(L+2)}, exact in float32 (down to 2^-70)
+        const float wl = __int_as_float((127 - kBits * (L + 2)) << 23);
+        const int v = acc[L][i];
+        const int vh = (v >> 12) << 12;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // both halves convert exactly: <= 19 and <= 12 significant bits
+          const float t = __fmul_rn(__int2float_rn(h ? v - vh : vh), wl);
+          float e, e2;
+          two_sum(s_hi, t, s_hi, e);
+          two_sum(s_mid, e, s_mid, e2);
+          s_lo = __fadd_rn(s_lo, e2);
+        }
       }
+      const double y = __dadd_rn(__dadd_rn((double)s_hi, (double)s_mid),
+                                 (double)s_lo);
       out[(size_t)(r0 + rl) * n + j0 + jc] =
           __dmul_rn(__dmul_rn(y, sa_w[rl]), sb_w[jc]);
     }

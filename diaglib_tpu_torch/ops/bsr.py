@@ -243,16 +243,18 @@ def bsr_spmm(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm.launches = 0
 
 
-def bsr_matvec(m: BSRMatrix):
+def bsr_matvec(m: BSRMatrix, *, force_reference: bool = False):
     """Row-block matvec closure ``x: (k, n) -> (k, n)`` for the solvers.
 
     float32 and bfloat16 blocks go to kernel K4 (:func:`bsr_spmm`, its
     plain version on the CPU); float64 blocks to the plain float64 segment
     product :func:`bsr_spmm_plain` on the blocks' device, as the reference
-    computes float64 outside its kernel.
+    computes float64 outside its kernel.  ``force_reference=True`` asks for
+    :func:`bsr_spmm_plain` at every dtype, on the blocks' device, as the
+    reference's keyword forces its segment-sum path.
     """
     def mv(x):
-        if m.blocks_t.dtype == torch.float64:
+        if force_reference or m.blocks_t.dtype == torch.float64:
             return bsr_spmm_plain(m, x)
         return bsr_spmm(m, x)
 

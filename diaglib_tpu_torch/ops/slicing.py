@@ -457,17 +457,24 @@ def wide_feasible(m: int, kdim: int, n: int, n_slices: int = _WIDE_SLICES,
     return _fits_int32(kdim + (-kdim) % 4, bits)
 
 
-def _wide_operands(a: torch.Tensor, b: torch.Tensor):
+def _wide_levels(n_slices: int) -> int:
+    """Levels i + p kept by the wide product: the reference's
+    ``min(2 n_slices - 1, 9)``."""
+    return min(2 * n_slices - 1, _WIDE_LEVELS)
+
+
+def _wide_operands(a: torch.Tensor, b: torch.Tensor,
+                   n_slices: int = _WIDE_SLICES, bits: int = _WIDE_BITS):
     """The plain version's operands, as the kernel makes them for itself:
-    a's planes ``(8, m, K)``, its row grid ``sa`` (m, 1) and b's column
-    grid ``sb`` (1, n), ``sb = 2 * pow2_grid(max|b| per column)``."""
-    t, sa = _row_grid(a, _WIDE_BITS)
-    a_sl = peel_rows_plain(t, _WIDE_SLICES, _WIDE_BITS)
+    a's planes ``(n_slices, m, K)``, its row grid ``sa`` (m, 1) and b's
+    column grid ``sb`` (1, n), ``sb = 2 * pow2_grid(max|b| per column)``."""
+    t, sa = _row_grid(a, bits)
+    a_sl = peel_rows_plain(t, n_slices, bits)
     sb = 2.0 * pow2_grid(b.abs().amax(dim=0, keepdim=True))
     return a_sl, sa, sb
 
 
-def _wide_check(a, b):
+def _wide_check(a, b, bits: int = _WIDE_BITS):
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"sliced_wide_mm: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -475,34 +482,67 @@ def _wide_check(a, b):
         raise ValueError("sliced_wide_mm: float64 operands only")
     if a.device != b.device:
         raise ValueError("sliced_wide_mm: operands on two devices")
-    if not _fits_int32(a.shape[1]):
+    if not _fits_int32(a.shape[1], bits):
         raise ValueError(f"K={a.shape[1]} overflows exact int32 "
                          "accumulation")
 
 
-def sliced_wide_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _two_sum(s: torch.Tensor, t: torch.Tensor):
+    """Knuth's 2Sum in float32: ``x + err == s + t`` exactly."""
+    x = s + t
+    bb = x - s
+    return x, (s - (x - bb)) + (t - bb)
+
+
+def _triple_combine(levels, bits: int) -> torch.Tensor:
+    """The reference kernel's combine of the integer level sums
+    ``levels[L]`` (int64 values of int32 range): deepest level first, each
+    split exactly into ``(v >> 12) << 12`` and the low 12 bits, weighted
+    by 2^{-bits(L+2)} in float32 (exact) and summed into a float32 triple
+    by a 2Sum cascade; the triple's float64 sum is returned."""
+    zero = torch.zeros(levels[0].shape, dtype=torch.float32,
+                       device=levels[0].device)
+    s_hi, s_mid, s_lo = zero, zero, zero
+    for L in range(len(levels) - 1, -1, -1):
+        w = 2.0 ** (-bits * (L + 2))
+        v = levels[L]
+        vh = (v >> 12) << 12
+        for part in (vh, v - vh):
+            t = part.to(torch.float32) * w
+            s_hi, e = _two_sum(s_hi, t)
+            s_mid, e2 = _two_sum(s_mid, e)
+            s_lo = s_lo + e2
+    return (s_hi.to(torch.float64) + s_mid.to(torch.float64)
+            + s_lo.to(torch.float64))
+
+
+def sliced_wide_mm_plain(a: torch.Tensor, b: torch.Tensor,
+                         n_slices: int = _WIDE_SLICES,
+                         bits: int = _WIDE_BITS) -> torch.Tensor:
     """The plain torch version of kernel K3: exact-slice float64 ``a @ b``.
 
-    b is cut into the same 8 planes per element as the kernel cuts it
-    (peel_rows_plain of b / sb); each level sum ``v_L = sum_{i+p=L} a_i @
-    q_p`` is a float64 matmul of integers below 2^53, so it is exact; the
-    levels are combined deepest first and scaled by sa * sb exactly as the
-    kernel does, so the two agree bit for bit.
+    b / sb is cut into ``n_slices`` planes of ``bits`` bits per element
+    as the kernel cuts it; each level sum ``v_L = sum_{i+p=L} a_i @ q_p``
+    is a float64 matmul of integers below 2^53, so it is exact; the levels
+    are combined as the JAX kernel combines them (an exact float32 triple,
+    :func:`_triple_combine`) and scaled by sa * sb.  The kernel and the
+    JAX package's ``sliced_wide_mm`` agree with it bit for bit.  Any pair
+    (n_slices, bits) within the int32 bound runs here; the kernel takes
+    (8, 7) only.
     """
-    _wide_check(a, b)
+    _wide_check(a, b, bits)
     m, n = a.shape[0], b.shape[1]
-    a_sl, sa, sb = _wide_operands(a, b)
-    a_sl = a_sl.to(torch.float64)                          # (8, m, K)
-    q = peel_rows_plain(b / sb, _WIDE_SLICES, _WIDE_BITS)  # (8, K, n)
+    nlev = _wide_levels(n_slices)
+    a_sl, sa, sb = _wide_operands(a, b, n_slices, bits)
+    a_sl = a_sl.to(torch.float64)                      # (ns, m, K)
+    q = peel_rows_plain(b / sb, n_slices, bits)        # (ns, K, n)
     lev = [torch.zeros((m, n), dtype=torch.float64, device=a.device)
-           for _ in range(_WIDE_LEVELS)]
-    for p in range(_WIDE_SLICES):
+           for _ in range(nlev)]
+    for p in range(n_slices):
         qp = q[p].to(torch.float64)
-        for i in range(min(_WIDE_SLICES, _WIDE_LEVELS - p)):
+        for i in range(min(n_slices, nlev - p)):
             lev[i + p] += a_sl[i] @ qp
-    y = torch.zeros((m, n), dtype=torch.float64, device=a.device)
-    for L in range(_WIDE_LEVELS - 1, -1, -1):
-        y = y + lev[L] * 2.0 ** (-_WIDE_BITS * (L + 2))
+    y = _triple_combine([v.to(torch.int64) for v in lev], bits)
     return y * sa * sb
 
 
@@ -549,7 +589,9 @@ def _wide_scratch(device: torch.device, stream: int, nbytes: int):
     return buf
 
 
-def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor,
+                   n_slices: int = _WIDE_SLICES,
+                   bits: int = _WIDE_BITS) -> torch.Tensor:
     """Exact float64 ``a @ b`` for small-K, wide-output contractions
     (kernel K3).
 
@@ -560,14 +602,22 @@ def sliced_wide_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     and b in place through their strides; every plane product is an exact
     int32 level sum on the int8 tensor cores.  Accuracy: both operands
     truncated 2^-55 below their row / column scales, no rounding inside the
-    contraction.  On CPU tensors this is :func:`sliced_wide_mm_plain`; on
-    CUDA tensors it launches ``csrc/wide_mm.cu`` (bit-identical) or raises.
+    contraction.  On CPU tensors this is :func:`sliced_wide_mm_plain`,
+    which takes any (``n_slices``, ``bits``) within the int32 bound; on
+    CUDA tensors it launches ``csrc/wide_mm.cu`` (bit-identical), whose
+    shape is fixed at 8 planes of 7 bits, or raises.
     """
-    _wide_check(a, b)
+    _wide_check(a, b, bits)
     if a.device.type == "cpu":
-        return sliced_wide_mm_plain(a, b)
+        return sliced_wide_mm_plain(a, b, n_slices, bits)
     if a.device.type != "cuda":
         raise ValueError(f"sliced_wide_mm: unsupported device {a.device}")
+    if (n_slices, bits) != (_WIDE_SLICES, _WIDE_BITS):
+        raise ValueError(
+            f"sliced_wide_mm: kernel K3 (csrc/wide_mm.cu) is built for "
+            f"{_WIDE_SLICES} planes of {_WIDE_BITS} bits, not n_slices="
+            f"{n_slices}, bits={bits}; pass CPU tensors for the plain "
+            "version")
     m, kdim = a.shape
     n = b.shape[1]
     # the kernel's grid covers 16 rows a CTA in y (at most 65535 CTAs) and

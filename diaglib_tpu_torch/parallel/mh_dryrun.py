@@ -19,7 +19,9 @@ reference's dry run does.  It prints ``MH_DRYRUN_OK`` on success.
 
 :func:`run_fleet` is the general form: it runs named jobs of :data:`JOBS`
 on every rank with inputs pickled from the caller (numpy arrays and plain
-values) and returns each rank's outputs.  The workers import only this
+values) and returns each rank's outputs: the sharded operators and
+solvers, a sharded checkpoint save, load and resume, and the collective
+inventory of a sharded Davidson iteration.  The workers import only this
 package, never JAX.  One worker by hand::
 
     python -m diaglib_tpu_torch.parallel.mh_dryrun --rank 0 \\
@@ -329,8 +331,76 @@ def _casida_solves(dev, inp, opts):
     return out
 
 
+def _dense_rows(dev, a):
+    """The sharding of the dense matrix ``a`` over the world, and its
+    matvec with each rank holding its rows (x is all-gathered)."""
+    import torch
+
+    from .sharding import VectorSharding
+
+    a = torch.as_tensor(a, device=dev)
+    sh = VectorSharding(a.shape[0])
+    a_loc = sh.local_cols(a.T).T
+    return sh, a, lambda x: sh.all_gather(x) @ a_loc.T
+
+
+def _job_checkpoint(dev, inp):
+    """A sharded ``davidson`` on the dense matrix ``a`` from ``guess``,
+    interrupted at ``partial_iter`` iterations and saved with
+    ``checkpoint.save`` into ``dir`` (each rank its file), loaded back
+    with ``like=`` the interrupted result (every field compared, bit for
+    bit), then resumed from the loaded rows and, for comparison, solved
+    from ``guess`` under the same ``options``."""
+    import dataclasses
+
+    import torch
+
+    from .. import checkpoint
+    from ..problems import diag_precnd
+    from ..solvers import davidson
+
+    sh, a, mv = _dense_rows(dev, inp["a"])
+    pc = diag_precnd(sh.local_cols(torch.diagonal(a)))
+    guess = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
+    opts = _solve_opts(**inp["options"])
+    part = davidson(mv, pc, guess, dataclasses.replace(
+        opts, max_iter=inp["partial_iter"]), sharding=sh)
+    checkpoint.save(inp["dir"], part)
+    back = checkpoint.load(inp["dir"], like=part)
+    same = all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(dataclasses.astuple(part),
+                               dataclasses.astuple(back)))
+    resumed = davidson(mv, pc, back.evec, opts, sharding=sh)
+    scratch = davidson(mv, pc, guess, opts, sharding=sh)
+    return {"part_ok": bool(part.ok), "part_evec": part.evec.cpu().numpy(),
+            "loaded_equal": same, "resumed_ok": bool(resumed.ok),
+            "resumed_iter": resumed.n_iter, "scratch_iter": scratch.n_iter,
+            "resumed_eig": resumed.eig.cpu().numpy()}
+
+
+def _job_inventory(dev, inp):
+    """``profiling.collective_inventory`` of one iteration of a sharded
+    ``davidson`` on the dense matrix ``a`` from ``guess`` under
+    ``options``."""
+    import dataclasses
+
+    import torch
+
+    from ..problems import diag_precnd
+    from ..profiling import collective_inventory
+    from ..solvers import davidson
+
+    sh, a, mv = _dense_rows(dev, inp["a"])
+    pc = diag_precnd(sh.local_cols(torch.diagonal(a)))
+    guess = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
+    opts = dataclasses.replace(_solve_opts(**inp["options"]), max_iter=1)
+    return {"inventory": collective_inventory(davidson, mv, pc, guess, opts,
+                                              sharding=sh)}
+
+
 JOBS = {"dryrun": _job_dryrun, "dist_sliced": _job_dist_sliced,
-        "sharded_solvers": _job_sharded_solvers}
+        "sharded_solvers": _job_sharded_solvers,
+        "checkpoint": _job_checkpoint, "inventory": _job_inventory}
 
 
 def _worker(args) -> None:

@@ -9,9 +9,9 @@ machine without a card raises.
 * :func:`initialize` wraps ``torch.distributed.init_process_group`` with an
   explicit rendezvous (``init_method``: ``tcp://host:port`` or a shared
   ``file://`` store) and pins the rank's device.
-* :func:`global_sharding` is the :class:`VectorSharding` over the world;
-  the reference's ``global_mesh`` has no counterpart (the world group is
-  the mesh).
+* :func:`global_sharding` is the :class:`VectorSharding` over the world,
+  and :func:`global_mesh` the world group itself (the world group is the
+  mesh).
 * :func:`make_global` / :func:`make_replicated` turn an array that every
   process holds in full (deterministically generated) into the rank's
   column shard / a replicated tensor on the rank's device.
@@ -30,10 +30,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .sharding import VectorSharding
+from .sharding import VectorSharding, _check_axis
 
-__all__ = ["initialize", "global_sharding", "make_global", "make_replicated",
-           "rank_device", "free_port"]
+__all__ = ["initialize", "global_mesh", "global_sharding", "make_global",
+           "make_replicated", "rank_device", "free_port"]
 
 
 def free_port() -> int:
@@ -101,6 +101,14 @@ def rank_device() -> torch.device:
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def global_mesh(axis_name: str = "n"):
+    """The reference's process-spanning mesh: the world group, whose ranks
+    are ordered by process.  The one axis is ``"n"``; any other name
+    raises ``ValueError``."""
+    _check_axis(axis_name)
+    return dist.group.WORLD
 
 
 def global_sharding(n: int) -> VectorSharding:

@@ -12,7 +12,8 @@ the same branches.
 
 The reference's ``make_mesh`` (a 1-D device mesh) becomes
 :func:`make_group`, a process group over the given ranks (the world by
-default); one rank is one device.
+default); one rank is one device.  :func:`make_mesh` keeps the reference's
+name and signature for it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["VectorSharding", "make_group"]
+__all__ = ["VectorSharding", "make_group", "make_mesh"]
 
 
 def make_group(ranks=None):
@@ -30,6 +31,20 @@ def make_group(ranks=None):
     if ranks is None:
         return dist.group.WORLD
     return dist.new_group(ranks=sorted(int(r) for r in ranks))
+
+
+def _check_axis(axis_name: str) -> None:
+    if axis_name != "n":
+        raise ValueError(f"axis_name={axis_name!r}: the port's groups have "
+                         "one axis, 'n'")
+
+
+def make_mesh(devices=None, axis_name: str = "n"):
+    """The reference's 1-D device mesh as a process group: ``devices`` are
+    ranks (all ranks when None), and this is :func:`make_group`.  The one
+    axis is ``"n"``; any other name raises ``ValueError``."""
+    _check_axis(axis_name)
+    return make_group(devices)
 
 
 class _Pending:

@@ -4,6 +4,7 @@ from .caslr import caslr, caslr_eff
 from .davidson import davidson, gen_david
 from .lobpcg import lobpcg
 from .mixed import (
+    LROps,
     caslr_eff_ladder,
     caslr_ladder,
     davidson_ladder,
@@ -19,8 +20,8 @@ from .nonsym import (
     nonsym_seed_left,
 )
 
-__all__ = ["davidson", "gen_david", "lobpcg", "caslr", "caslr_eff", "nonsym",
-           "nonsym_pass", "NonsymPassResult", "nonsym_seed_left",
+__all__ = ["LROps", "davidson", "gen_david", "lobpcg", "caslr", "caslr_eff",
+           "nonsym", "nonsym_pass", "NonsymPassResult", "nonsym_seed_left",
            "nonsym_finalize", "davidson_ladder", "gen_david_ladder",
            "lobpcg_ladder", "caslr_ladder", "caslr_eff_ladder",
            "nonsym_ladder"]

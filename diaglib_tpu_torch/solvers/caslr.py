@@ -47,6 +47,7 @@ import math
 import torch
 
 from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_cd, ortho_vs_x
+from ..reporting import inflight_progress
 from ..types import LRSolverResult, SolverOptions
 from ..utils import reduced
 from ..utils.jacobi import jacobi_svd
@@ -281,7 +282,7 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
         bvp = apply_new(smdmul, vm, bvp)     # (S-D) vm
         n_matvec += (2 if eff else 4) * n_act
 
-        col_ok = prefix_mask(lda_pad, ldu_new, dev)
+        col_ok = prefix_mask(lda_pad, ldu_new, device=dev)
         smat = _gram_update(smat, vm, bvm, ldu, n_act, n_max)
         lead = slice(0, ldu_new)
         off_tol = 0.0
@@ -334,9 +335,7 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
         rms_h[it] = rms
         max_h[it] = rmx
         if options.verbose:
-            print(f"{name} it={it} n_act={n_act} "
-                  f"eig0={float(eig[0]):.12g} "
-                  f"max_rms={float(rms[:n_targ].max()):.3e}", flush=True)
+            inflight_progress(name, it, n_act, eig_h[it], rms, rmx)
 
         n_frozen = int(done.sum())
         n_act_new = n_max - n_frozen

@@ -18,7 +18,10 @@ Semantics kept from the reference:
   the matvecs of locked roots at the next iteration by seeding the reduced
   matrix's diagonal with their eigenvalues;
 * dual tolerance: rms = ||r||/sqrt(n) < tol and max|r| < 10*tol;
-* ``ortho_ok``, per-iteration histories and ``n_matvec`` counting.
+* ``ortho_ok``, per-iteration histories and ``n_matvec`` counting;
+* the phase scopes ``matvec``, ``rayleigh-ritz`` and ``expand-ortho``
+  (``torch.profiler.record_function``, the reference's
+  ``jax.named_scope``), which a ``profiling.trace`` attributes time to.
 
 Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`):
 every (k, n) block is the rank's column shard, ``n`` in the rms is the
@@ -38,8 +41,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_vs_x
+from ..reporting import inflight_progress
 from ..types import SolverOptions, SolverResult
 from ..utils.guess import check_guess
 from ..utils.masking import (
@@ -148,34 +153,36 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         start = ldu + n_rst
         width_valid = ldu_new - start
 
-        block = gather_rows(space, start, n_max, count=width_valid)
-        ablock = matvec(block)
-        ablock[width_valid:] = 0
-        aspace = scatter_rows(aspace, ablock, start)
+        with record_function("matvec"):
+            block = gather_rows(space, start, n_max, count=width_valid)
+            ablock = matvec(block)
+            ablock[width_valid:] = 0
+            aspace = scatter_rows(aspace, ablock, start)
         n_matvec += n_act
 
         # incremental reduced-matrix rows: a_red[g, j] = aspace_g . space_j
         # (lower triangle filled by rows)
-        col_ok = prefix_mask(lda_pad, ldu_new, dev)
+        col_ok = prefix_mask(lda_pad, ldu_new, device=dev)
         new_rows = torch.where(col_ok[None, :], mmT(ablock, space), 0.0)
         a_red = scatter_rows(a_red, new_rows, start)
 
-        sym = torch.tril(a_red) + torch.tril(a_red, diagonal=-1).T
-        off_tol = 0.0
-        if method == "jacobi":
-            # the reference's adaptive Jacobi target: the intermediate
-            # solves stay two orders below the current residual level and
-            # tighten to eps as the roots converge
-            prev_rms = torch.where(~done & targ, rms, math.inf).min()
-            scale = torch.clamp(eig.abs().max(), min=1.0)
-            off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
-        e_red, c_full = masked_eigh_prefix(sym, ldu_new, method,
-                                           off_tol=off_tol)
-        eig = e_red[:n_max]
-        c = c_full[:, :n_max]                      # (lda_pad, n_max)
-        evec = mTm(c, space)
-        metric_evec = mTm(c, bspace) if gen_eig else evec
-        r = mTm(c, aspace) - eig[:, None] * metric_evec
+        with record_function("rayleigh-ritz"):
+            sym = torch.tril(a_red) + torch.tril(a_red, diagonal=-1).T
+            off_tol = 0.0
+            if method == "jacobi":
+                # the reference's adaptive Jacobi target: the intermediate
+                # solves stay two orders below the current residual level
+                # and tighten to eps as the roots converge
+                prev_rms = torch.where(~done & targ, rms, math.inf).min()
+                scale = torch.clamp(eig.abs().max(), min=1.0)
+                off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
+            e_red, c_full = masked_eigh_prefix(sym, ldu_new, method,
+                                               off_tol=off_tol)
+            eig = e_red[:n_max]
+            c = c_full[:, :n_max]                      # (lda_pad, n_max)
+            evec = mTm(c, space)
+            metric_evec = mTm(c, bspace) if gen_eig else evec
+            r = mTm(c, aspace) - eig[:, None] * metric_evec
 
         active = ~done & targ
         rms = torch.where(active, norm_n(r) / sqrtn, rms)
@@ -188,9 +195,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         rms_h[it] = rms
         max_h[it] = rmx
         if options.verbose:
-            print(f"davidson it={it} n_act={n_act} "
-                  f"eig0={float(eig_h[it, 0]):.12g} "
-                  f"max_rms={float(rms[:n_targ].max()):.3e}", flush=True)
+            inflight_progress("davidson", it, n_act, eig_h[it], rms, rmx)
 
         n_frozen = int(done.sum())
         n_act_new = n_max - n_frozen
@@ -199,22 +204,23 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         elif m_dim < options.dim_dav:
             # expand: precondition the active residuals, orthogonalize them
             # against the space and append them
-            shift = -float(eig[n_frozen])
-            rblk = gather_rows(r, n_frozen, n_max, count=n_act_new)
-            pre = precnd(shift, rblk)
-            pre[n_act_new:] = 0
-            umask = rows_max < n_act_new
-            if gen_eig:
-                unew, o_done = b_ortho_vs_x(space, bspace, pre, xmask=col_ok,
-                                            umask=umask)
-                bnew = torch.where(umask[:, None], bvec(unew), 0.0)
-                unew, bnew, b_ok = b_ortho(unew, bnew, umask)
-                o_done = o_done and b_ok
-                bspace = scatter_rows(bspace, bnew, ldu_new)
-            else:
-                unew, o_done = ortho_vs_x(space, pre, xmask=col_ok,
-                                          umask=umask)
-            space = scatter_rows(space, unew, ldu_new)
+            with record_function("expand-ortho"):
+                shift = -float(eig[n_frozen])
+                rblk = gather_rows(r, n_frozen, n_max, count=n_act_new)
+                pre = precnd(shift, rblk)
+                pre[n_act_new:] = 0
+                umask = rows_max < n_act_new
+                if gen_eig:
+                    unew, o_done = b_ortho_vs_x(space, bspace, pre,
+                                                xmask=col_ok, umask=umask)
+                    bnew = torch.where(umask[:, None], bvec(unew), 0.0)
+                    unew, bnew, b_ok = b_ortho(unew, bnew, umask)
+                    o_done = o_done and b_ok
+                    bspace = scatter_rows(bspace, bnew, ldu_new)
+                else:
+                    unew, o_done = ortho_vs_x(space, pre, xmask=col_ok,
+                                              umask=umask)
+                space = scatter_rows(space, unew, ldu_new)
             ldu, n_act, n_rst, m_dim = ldu_new, n_act_new, 0, m_dim + 1
             ortho_ok = ortho_ok and o_done
         else:

@@ -33,6 +33,7 @@ import math
 import torch
 
 from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_vs_x
+from ..reporting import inflight_progress
 from ..types import SolverOptions, SolverResult
 from ..utils import reduced
 from ..utils.guess import check_guess
@@ -180,9 +181,7 @@ def _lobpcg_impl(matvec, precnd, evec_guess, options, bvec, generator,
         rms_h[it] = rms
         max_h[it] = rmx
         if options.verbose:
-            print(f"lobpcg it={it} n_act={n_act} "
-                  f"eig0={float(eig_h[it, 0]):.12g} "
-                  f"max_rms={float(rms[:n_targ].max()):.3e}", flush=True)
+            inflight_progress("lobpcg", it, n_act, eig_h[it], rms, rmx)
         evec = x_new
 
         if not ok:

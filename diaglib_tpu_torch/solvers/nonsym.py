@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ortho.core import ortho_cd, ortho_vs_x
+from ..reporting import inflight_progress
 from ..types import NonsymResult, SolverOptions
 from ..utils.eberlein import eberlein_eig
 from ..utils.guess import check_guess
@@ -393,7 +394,7 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
         ablk = op(blk)
         ablk = torch.where((rows_max < n_act)[:, None], ablk, 0.0)
         aspace = scatter_rows(aspace, ablk, ldu)
-        col_ok = prefix_mask(lda_pad, ldu_new, dev)
+        col_ok = prefix_mask(lda_pad, ldu_new, device=dev)
         # right pass: G[i,j] = s_i . (A s_j); left pass G[i,j] = (A^T l_i)
         # . l_j — both reduce A in the current basis
         g = mmT(aspace, space) if use_left else mmT(space, aspace)
@@ -438,9 +439,7 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
         rms_h[it] = rms
         max_h[it] = rmx
         if options.verbose:
-            print(f"nonsym it={it} n_act={n_act} "
-                  f"eig0={float(eig_h[it, 0]):.12g} "
-                  f"max_rms={float(rms[:n_targ].max()):.3e}", flush=True)
+            inflight_progress("nonsym", it, n_act, eig_h[it], rms, rmx)
 
         n_frozen = int(done.sum())
         n_act_new = n_max - n_frozen

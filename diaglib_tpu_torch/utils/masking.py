@@ -16,9 +16,10 @@ __all__ = ["prefix_mask", "gather_rows", "scatter_rows", "masked_cholesky",
            "masked_eigh", "masked_eigh_prefix", "masked_svd", "prefix_lock"]
 
 
-def prefix_mask(k: int, count: int, device=None) -> torch.Tensor:
-    """(k,) bool mask, True for indices < count."""
-    return torch.arange(k, device=device) < count
+def prefix_mask(k: int, count: int, dtype=torch.bool,
+                device=None) -> torch.Tensor:
+    """(k,) mask of ``dtype``, true (1) for indices < count."""
+    return (torch.arange(k, device=device) < count).to(dtype)
 
 
 def gather_rows(x: torch.Tensor, start: int, width: int,

@@ -340,6 +340,20 @@ def test_wide_mm_bit_equal(dev, m, k, n):
     assert torch.equal(slicing.sliced_wide_mm(at.T, b), got)
 
 
+@pytest.mark.parametrize("n_slices,bits", [(6, 7), (8, 6)])
+def test_wide_mm_refuses_other_plane_shapes(dev, n_slices, bits):
+    # K3 is built for 8 planes of 7 bits; the plain version takes the rest
+    a = torch.ones((2, 8), dtype=torch.float64, device=dev)
+    b = torch.ones((8, 64), dtype=torch.float64, device=dev)
+    before = slicing.sliced_wide_mm.launches
+    with pytest.raises(ValueError, match="8 planes of 7 bits"):
+        slicing.sliced_wide_mm(a, b, n_slices=n_slices, bits=bits)
+    assert slicing.sliced_wide_mm.launches == before
+    got = slicing.sliced_wide_mm(a.cpu(), b.cpu(), n_slices=n_slices,
+                                 bits=bits)
+    assert torch.equal(got, torch.full((2, 64), 8.0, dtype=torch.float64))
+
+
 def test_wide_mm_longest_k(dev):
     # the largest K the exact int32 level sums allow still runs (streamed
     # a chunk at a time, 8192 chunks through one warp)
