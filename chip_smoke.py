@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive diaglib_tpu_torch's ported paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # phases 1-6 on one card
+    python3 chip_smoke.py --ranks 4     # phase (j) on four cards
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -133,7 +134,43 @@ Phases (any failure raises and the script exits non-zero):
    the timed runs of 5, (h) and (i) included, and each kernel's times and
    bound; every kernel (six) must have run there.
 
-The last line is ``{"ok": true, "device": {...}}``.
+``--ranks R`` (R = 4) runs phase (j) instead of phases 2-6, the multi-card
+path with one NCCL rank a card, through ``parallel.mh_dryrun.run_fleet``:
+it builds the kernels once, needs R cards (else it exits non-zero), and
+   (j1) runs each job of mh_dryrun but the flagship's (dryrun, dist_sliced,
+       sharded_solvers, checkpoint, inventory) on one set of inputs
+       (mh_dryrun.job_inputs, the sizes of its CPU test) under gloo on R
+       CPU ranks and under NCCL on the R cards, and holds the two:
+       integer stages (K6's planes, row scales and levels on the received
+       shards) bit for bit, float64 eigenvalues within 1e-10, iterations
+       and matvecs within +-2 (matvecs in blocks) but for the solve whose
+       guess is drawn from a generator (the CPU and the card draw other
+       streams), every rank's reduced results bit-identical, each NCCL
+       rank on its own card, MH_DRYRUN_OK from every rank;
+   (j2) the flagship over R cards: random_bsr_spd(65536, 512, 8) built on
+       every rank, each keeping its rows of the general store; the sharded
+       davidson_ladder (lo_iter 35) and lobpcg_ladder (lo_iter 70) over
+       dist_sliced_matvec (K2, K6, and K3 in the rotations), run once to
+       warm up and once counted; rank 0's unsharded ladders over
+       sliced_bsr_matvec (K5) on the whole store; every pair's residuals by
+       dist_bsr_matvec of the float64 products of the original blocks (rms
+       < 1e-10, max < 1e-9); eigenvalues within 1e-10 of rank 0's K5
+       ladder, the counts printed beside its (not held: the float32 tier
+       of the distributed operator slices each received shard on its own
+       grid, so the float32 stage ends elsewhere and the float64 stage
+       with it, PERF.md §7.7); K6 bit-equal to its plain version on
+       every rank's received planes, both tiers; the ring permutes posted
+       in one order on every rank; the collectives of one warm float64
+       sharded Davidson iteration on rank 0 by kind, their NCCL kernels'
+       device ms and the device-busy share (torch.profiler);
+   (j3) random_bsr_spd(R * 65536, 512, 8) over R cards, a flagship-sized
+       share a card: the sharded davidson_ladder, the same residual gate,
+       each card's peak memory (under 60 GB);
+   (j4) K2, K3, K5 and K6 on cuda:0 at the shapes of the R-rank path, bit
+       for bit against their plain versions and timed; then a ``kernels``
+       line with their launches in (j2) summed over the ranks.
+The last line is ``{"ok": true, "device": {...}}`` (under ``--ranks``,
+``count`` is the number of cards the run used).
 """
 
 from __future__ import annotations
@@ -1215,6 +1252,454 @@ def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
         raise AssertionError("eberlein_eig on the card is off")
 
 
+# ---- phase (j): the multi-card path (--ranks 4) ----
+
+# the jobs of parallel.mh_dryrun run under gloo on CPU ranks and under NCCL
+# on the cards, on one set of inputs each (mh_dryrun.job_inputs)
+MC_JOBS = ("dryrun", "dist_sliced", "sharded_solvers", "checkpoint",
+           "inventory")
+
+
+def ladder_inputs(n, ladders, unsharded, profile):
+    """The ladders job's inputs: random_bsr_spd(n, 512, 8) built on every
+    rank, the ladders of phase 5 at its options, a zero guess."""
+    return dict(build=dict(n=n, block=BLOCK, bpr=BPR, seed=0),
+                ladders=list(ladders),
+                options=dict(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
+                             tol=1e-10, max_dav=10),
+                lo_tol=2e-6, lo_iter=dict(davidson=35, lobpcg=70),
+                unsharded=unsharded, profile=profile)
+
+
+def eig_gap(a, b, n_targ):
+    """max |a - b| over the first ``n_targ`` eigenvalues, and whether it is
+    within 1e-10 * max(1, |b|)."""
+    import numpy as np
+
+    d = float(np.max(np.abs(np.asarray(a)[:n_targ] - np.asarray(b)[:n_targ])))
+    return d, d <= 1e-10 * max(1.0, float(np.max(np.abs(b[:n_targ]))))
+
+
+def solve_pair(tag, g, c, n_targ, n_max, counts=True):
+    """One solve's result under gloo (``g``, a rank's output dict) and
+    NCCL (``c``) at ``tag``: eigenvalues within 1e-10, iterations within
+    +-2 and matvecs within +-2 blocks (``counts``), both ok."""
+    d, close = eig_gap(c[f"{tag}_eig"], g[f"{tag}_eig"], n_targ)
+    di = abs(c[f"{tag}_iter"] - g[f"{tag}_iter"])
+    dm = abs(c[f"{tag}_matvec"] - g[f"{tag}_matvec"])
+    ok = (close and g[f"{tag}_ok"] and c[f"{tag}_ok"]
+          and (not counts or (di <= 2 and dm <= 2 * n_max)))
+    line = (f"{tag} eigenvalues {d:.2e} apart, iterations "
+            f"{g[f'{tag}_iter']} / {c[f'{tag}_iter']}, matvecs "
+            f"{g[f'{tag}_matvec']} / {c[f'{tag}_matvec']}"
+            + ("" if counts else " (counts not held: another random "
+               "stream)"))
+    if not ok:
+        raise AssertionError(f"gloo and NCCL disagree: {line}")
+    return line
+
+
+def same_on_every_rank(outs, key):
+    """Whether the array ``key`` every rank gathered from all ranks holds
+    one bit pattern (each rank's copy of an all-reduced result)."""
+    import numpy as np
+
+    return all(np.array_equal(h, out[key][0]) for out in outs
+               for h in out[key])
+
+
+def compare_fleet(job, gloo, nccl):
+    """Hold one job's NCCL run on the cards against its gloo run on CPU
+    ranks (each ``(combined output, [rank outputs])``); returns the lines
+    to print, raises AssertionError on a disagreement."""
+    import numpy as np
+
+    (g_text, g_outs), (c_text, c_outs) = gloo, nccl
+    size = len(c_outs)
+    lines = []
+    for r, out in enumerate(c_outs):
+        if not (out["backend"] == "nccl" and out["rank_device"] == f"cuda:{r}"
+                and out["current_device"] == r):
+            raise AssertionError(f"{job}: NCCL rank {r} ran on "
+                                 f"{out['rank_device']} ({out['backend']})")
+    if job == "dryrun":
+        for text in (g_text, c_text):
+            if text.count("MH_DRYRUN_OK") != size:
+                raise AssertionError(f"dryrun incomplete:\n{text}")
+        keys = ("dense_err", "bsr_err", "mv_err", "sliced_err")
+        lines.append(f"MH_DRYRUN_OK from all {size} ranks on both; oracle "
+                     "errors gloo / NCCL: " + ", ".join(
+                         f"{k} {g_outs[0][k]:.2e} / {c_outs[0][k]:.2e}"
+                         for k in keys))
+    elif job == "dist_sliced":
+        n_groups = 0
+        for g, c in zip(g_outs, c_outs):
+            for tier in ("f64", "f32"):
+                if not c[f"k6_{tier}_equal"]:
+                    raise AssertionError(f"K6 != its plain version ({tier})")
+                for gg, cg in zip(g[f"k6_{tier}"], c[f"k6_{tier}"]):
+                    n_groups += 1
+                    if not all(np.array_equal(a, b) for a, b in zip(gg, cg)):
+                        raise AssertionError(
+                            f"K6's planes, scales or levels differ ({tier})")
+            y, yc = g["y_f64"], c["y_f64"]
+            e64 = float(np.max(np.abs(y - yc)) / np.max(np.abs(y)))
+            y32, yc32 = g["y_f32"], c["y_f32"]
+            e32 = float(np.max(np.abs(y32 - yc32)) / np.max(np.abs(y32)))
+            if not (e64 <= 1e-14 and e32 <= 2.0 ** -20):
+                raise AssertionError(f"dist_sliced matvec: {e64} / {e32}")
+        lines.append(f"K6 on the received planes == its plain version on "
+                     f"every rank; planes, row scales and levels bit-equal "
+                     f"to gloo's on all {n_groups} (rank, tier, group); "
+                     f"matvec f64 within {e64:.1e}, f32 {e32:.1e} of max|y|")
+        for tag in ("david", "ladder"):
+            lines.append(solve_pair(tag, g_outs[0], c_outs[0], 4, 8))
+            if not all(same_on_every_rank(o, f"{tag}_eig_ranks")
+                       for o in (g_outs, c_outs)):
+                raise AssertionError(f"{tag}: reduced results differ "
+                                     "across ranks")
+    elif job == "sharded_solvers":
+        g, c = g_outs[0], c_outs[0]
+        for tag in ("davidson", "gen_david", "lobpcg", "bsr_davidson",
+                    "caslr", "caslr_eff", "caslr_zero"):
+            lines.append(solve_pair(tag, g, c, 4, 8,
+                                    counts=tag != "caslr_zero"))
+        for tag in ("nonsym_host", "nonsym_device"):
+            lines.append(solve_pair(tag, g, c, 5, 5))
+        keys = [k for k in c if k.endswith("_ranks")]
+        if not all(same_on_every_rank(o, k) for o in (g_outs, c_outs)
+                   for k in keys):
+            raise AssertionError("a reduced result differs across ranks")
+        lines.append(f"every rank's reduced results bit-identical within "
+                     f"each run ({len(keys)} gathered: {', '.join(keys)})")
+        e = max(float(np.max(np.abs(go[k] - co[k])) / np.max(np.abs(go[k])))
+                for go, co in zip(g_outs, c_outs) for k in ("bsr_y", "qr"))
+        if not (e <= 1e-12 and c["bsr_steps"] == g["bsr_steps"]):
+            raise AssertionError(f"dist_bsr_matvec / ortho_qr: {e}")
+        lines.append(f"dist_bsr_matvec and the sharded QR within {e:.1e} of "
+                     f"max|y|; steps {list(c['bsr_steps'])}")
+    elif job == "checkpoint":
+        for g, c in zip(g_outs, c_outs):
+            d, close = eig_gap(c["resumed_eig"], g["resumed_eig"], 3)
+            if not (c["loaded_equal"] and c["resumed_ok"] and close
+                    and abs(c["resumed_iter"] - g["resumed_iter"]) <= 2
+                    and abs(c["scratch_iter"] - g["scratch_iter"]) <= 2
+                    and c["resumed_iter"] < c["scratch_iter"]):
+                raise AssertionError(f"checkpoint: {c} against {g}")
+        lines.append(f"every field loaded bit-equal on every card; resumed "
+                     f"{c_outs[0]['resumed_iter']} iterations against "
+                     f"{c_outs[0]['scratch_iter']} from scratch (gloo "
+                     f"{g_outs[0]['resumed_iter']} / "
+                     f"{g_outs[0]['scratch_iter']}), eigenvalues {d:.2e} "
+                     "apart")
+    elif job == "inventory":
+        inv = [o["inventory"] for o in g_outs + c_outs]
+        if any(i != inv[0] for i in inv):
+            raise AssertionError(f"inventory: {inv}")
+        lines.append(f"one sharded iteration's collectives equal on every "
+                     f"rank of both: {json.dumps(inv[0])}")
+    return lines
+
+
+def check_ladders(tag, outs, card, unsharded):
+    """The ladders job's outputs: on every rank ok, its pairs' residuals by
+    the distributed float64 BSR product within rms 1e-10 and max 1e-9, the
+    same eigenvalues and counts, its reduced results bit-identical across
+    the ranks, K6 on the received planes bit-equal to its plain version
+    at both tiers, the ring permutes posted in one order; with
+    ``unsharded``, rank 0's K5 ladder's pairs within the same residual
+    bounds and the sharded eigenvalues within 1e-10 of them; the two
+    ladders' counts are printed, not held (the float32 tier of the
+    distributed operator slices each received shard on its own grid, so
+    its float32 stage ends elsewhere: PERF.md §7.7).  Prints one
+    [multicard] line a check; returns the launch counts of the sharded
+    ladders, summed over the ranks, and of rank 0's K5 ladders."""
+    import numpy as np
+
+    from diaglib_tpu_torch.parallel import mh_dryrun
+
+    first = outs[0]
+    if len({o["build_digest"] for o in outs}) != 1:
+        raise AssertionError(f"{tag}: the ranks built different matrices "
+                             "from one seed")
+    mh_dryrun.check_permute_order(outs)
+    log(f"[multicard] {tag}: n={first['n']} over {len(outs)} ranks, steps "
+        f"{first['steps']}, entries a rank "
+        f"{[o['entries'] for o in outs]}, store "
+        f"{sum(o['store_bytes'] for o in outs) / 1e9:.3f} GB ("
+        f"{first['store_bytes'] / 1e9:.3f} GB on rank 0); build "
+        f"{max(o['build_s'] for o in outs):.1f} s, the same matrix on every "
+        f"rank (diagonal sha1 {str(first['build_digest'])[:12]}); ring "
+        f"permutes in one "
+        f"order on every rank ({len(first['permutes'])} a rank: "
+        f"{[c[0] for c in first['permutes']]})")
+    if not all(o[f"k6_{t}_equal"] for o in outs for t in ("f64", "f32")):
+        raise AssertionError(f"{tag}: K6 != its plain version on a rank")
+    log(f"[multicard] {tag}: K6 on every rank's received planes == "
+        f"group_spmm_plain, both tiers, all {len(outs) * len(first['steps'])}"
+        " (rank, group) a tier")
+    log(f"[multicard] {tag}: peak memory a card, GB: build "
+        f"{[round(o['peak_build_bytes'] / 1e9, 3) for o in outs]}, ladders "
+        f"{[round(o['peak_ladder_bytes'] / 1e9, 3) for o in outs]} ({card})")
+    launches, k5_launches = {}, {}
+    for name in ("davidson", "lobpcg"):
+        if f"{name}_eig" not in first:
+            continue
+        for o in outs:
+            rms, rmax = np.max(o[f"{name}_res_rms"]), np.max(
+                o[f"{name}_res_max"])
+            if not (o[f"{name}_ok"] and rms < 1e-10 and rmax < 1e-9
+                    and np.array_equal(o[f"{name}_eig"], first[f"{name}_eig"])
+                    and o[f"{name}_iter"] == first[f"{name}_iter"]
+                    and same_on_every_rank(outs, f"{name}_eig_ranks")
+                    and same_on_every_rank(outs, f"{name}_gram_ranks")):
+                raise AssertionError(f"{tag} {name}: a rank failed or "
+                                     "disagrees")
+        for o in outs:
+            for k, v in o[f"{name}_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        walls = [o[f"{name}_wall"] for o in outs]
+        log(f"[multicard] {tag} sharded {name}_ladder: ok, "
+            f"{first[f'{name}_iter']} iterations (f64 "
+            f"{first[f'{name}_f64_iter']}), {first[f'{name}_matvec']} "
+            f"matvecs, wall {max(walls):.3f} s (ranks {min(walls):.3f}-"
+            f"{max(walls):.3f}); residuals by dist_bsr_matvec f64: rms "
+            f"{np.max(first[f'{name}_res_rms']):.3e}, max "
+            f"{np.max(first[f'{name}_res_max']):.3e}; eigenvalues, "
+            f"counts and reduced matrices bit-identical on all ranks; "
+            f"launches rank 0 {json.dumps(first[f'{name}_launches'])} "
+            f"({card})")
+        if not unsharded:
+            continue
+        k5 = f"{name}_k5"
+        rms, rmax = np.max(first[f"{k5}_res_rms"]), np.max(
+            first[f"{k5}_res_max"])
+        d, close = eig_gap(first[f"{name}_eig"], first[f"{k5}_eig"], N_TARG)
+        log(f"[multicard] {tag} rank 0 unsharded {name}_ladder over K5: ok="
+            f"{first[f'{k5}_ok']}, {first[f'{k5}_iter']} iterations (f64 "
+            f"{first[f'{k5}_f64_iter']}), {first[f'{k5}_matvec']} matvecs, "
+            f"wall {first[f'{k5}_wall']:.3f} s; residuals rms {rms:.3e}, max "
+            f"{rmax:.3e}; sharded eigenvalues {d:.3e} apart, iterations "
+            f"{first[f'{name}_iter']} vs {first[f'{k5}_iter']}, matvecs "
+            f"{first[f'{name}_matvec']} vs {first[f'{k5}_matvec']} "
+            f"(counts printed, not held) ({card})")
+        if not (first[f"{k5}_ok"] and rms < 1e-10 and rmax < 1e-9 and close):
+            raise AssertionError(f"{tag} {name}: the sharded and the "
+                                 "unsharded ladders disagree")
+        for k, v in first[f"{k5}_launches"].items():
+            k5_launches[k] = k5_launches.get(k, 0) + v
+    return launches, k5_launches
+
+
+def print_profile(prof, card):
+    """The collectives of one warm float64 sharded Davidson iteration on
+    rank 0: by kind, with their NCCL kernels' device ms, and the device's
+    busy share of the window."""
+    inv, nccl = prof["inventory"], prof["nccl"]
+    parts = []
+    for kind in sorted(set(inv) | set(nccl)):
+        rec, dev_ = inv.get(kind, {}), nccl.get(kind, {})
+        parts.append(f"{kind} {rec.get('count', 0)} calls "
+                     f"{rec.get('bytes', 0)} B, {dev_.get('kernels', 0)} "
+                     f"NCCL kernels {dev_.get('device_ms', 0.0):.4f} ms")
+    log(f"[multicard] profile, one warm f64 sharded davidson iteration on "
+        f"rank 0: {'; '.join(parts)}; device busy {prof['busy_ms']:.3f} ms "
+        f"of the {prof['window_ms']:.3f} ms window "
+        f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
+        f"{prof['device_kernels']} device kernels ({card})")
+    if not inv.get("all-reduce", {}).get("count"):
+        raise AssertionError("the profiled iteration made no all-reduce")
+    if not nccl:
+        log("[multicard] torch.profiler saw no NCCL kernel")
+
+
+def four_way_kernels(ranks, card, max_err):
+    """K2, K3, K5 and K6 at the shapes the ``ranks``-rank path gives them,
+    on cuda:0 after the fleets: each against its plain version (bit for
+    bit) and timed with it, with the bound and, for K3, cuBLAS float64.
+    K6 at rank 0's largest group of the partition of the flagship's
+    general store, K2 on a (15, 65536 / ranks) shard, K3 at the rotation
+    (15, 165) @ (165, 65536 / ranks), K5 on the whole store (rank 0's
+    unsharded ladder)."""
+    import torch
+
+    from diaglib_tpu_torch.ops import bsr_sliced as bs
+    from diaglib_tpu_torch.ops import dist_sliced as dsl
+    from diaglib_tpu_torch.ops import slicing
+    from diaglib_tpu_torch.ops.bsr import random_bsr_spd
+
+    dev = torch.device("cuda:0")
+    general = bs.slice_bsr(random_bsr_spd(N, BLOCK, BPR, seed=0,
+                                          dtype=torch.float32, device=dev))
+    part = dsl.distribute_sliced_bsr(general, ranks, rank=0)
+    n_loc, k = part.n_local, N_MAX
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((k, n_loc), generator=g, dtype=torch.float64, device=dev)
+    stats = {}
+    nx, na, nlev = bs._tier_params(general.na, torch.float64, None, None)
+    xs, _ = bs._slice_x(x, nx)
+    want_xs, _ = slicing.slice_rows_plain(x, nx, acc_dtype=torch.float64,
+                                          work_dtype=torch.float64)
+    max_err["peel_rows"] = float((xs.int() - want_xs.reshape(xs.shape).int())
+                                 .abs().max())
+    if max_err["peel_rows"]:
+        raise AssertionError("K2 != its plain version on a shard")
+    stats["peel_rows"] = (
+        time_ms(lambda: bs._slice_x(x, nx), 50),
+        time_ms(lambda: slicing.slice_rows_plain(
+            x, nx, acc_dtype=torch.float64, work_dtype=torch.float64), 20),
+        *bound(x.numel() * 8 + xs.numel() + k * 8, 4 * nx * x.numel(),
+               F32_FLOPS), None)
+    i = max(range(len(part.steps)), key=lambda j: part.slices[j].shape[0])
+    args = (xs, part.slices[i], part.loc_rows[i], part.loc_cols[i])
+    kw = dict(nx=nx, na=na, nlev=nlev, nbr_loc=part.nbr_loc)
+    rs = dsl.group_row_start(part.loc_rows[i], part.nbr_loc)
+    got, want = dsl.group_spmm(*args, **kw, row_start=rs), \
+        dsl.group_spmm_plain(*args, **kw)
+    max_err["group_spmm"] = float((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("K6 != its plain version at rank 0's group")
+    p = part.slices[i].shape[0]
+    stats["group_spmm"] = (
+        time_ms(lambda: dsl.group_spmm(*args, **kw, row_start=rs), 20),
+        time_ms(lambda: dsl.group_spmm_plain(*args, **kw), 3),
+        *bound(p * BLOCK * na * BLOCK + xs.numel()
+               + nlev * k * (part.nbr_loc + 1) * BLOCK * 4,
+               2 * n_pairs(nx, na, nlev) * p * k * BLOCK * BLOCK, INT8_OPS),
+        None)
+    c = torch.randn((K3_M, K3_K), generator=g, dtype=torch.float64,
+                    device=dev)
+    b = torch.randn((K3_K, n_loc), generator=g, dtype=torch.float64,
+                    device=dev)
+    got = slicing.sliced_wide_mm(c, b)
+    max_err["sliced_wide_mm"] = float((got - slicing.sliced_wide_mm_plain(
+        c, b)).abs().max())
+    if max_err["sliced_wide_mm"]:
+        raise AssertionError("K3 != its plain version on a shard")
+    stats["sliced_wide_mm"] = (
+        time_ms(lambda: slicing.sliced_wide_mm(c, b), 50),
+        time_ms(lambda: slicing.sliced_wide_mm_plain(c, b), 5),
+        *bound(8 * (K3_M * K3_K + K3_K * n_loc + K3_M * n_loc),
+               2 * n_pairs(8, 8, 9) * K3_M * K3_K * n_loc, INT8_OPS),
+        time_ms(lambda: c @ b, 50))
+    xf = torch.randn((k, N), generator=g, dtype=torch.float64, device=dev)
+    xs5, _ = bs._slice_x(xf, nx)
+    a5 = (xs5, general.slices, general.rows, general.cols, general.row_start)
+    got = bs.sliced_spmm(*a5, nx=nx, na=na, nlev=nlev)
+    want = bs.sliced_spmm_plain(*a5, nx=nx, na=na, nlev=nlev)
+    max_err["sliced_spmm"] = float((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("K5 != its plain version on the whole store")
+    del got, want
+    stats["sliced_spmm"] = (
+        time_ms(lambda: bs.sliced_spmm(*a5, nx=nx, na=na, nlev=nlev), 10),
+        time_ms(lambda: bs.sliced_spmm_plain(*a5, nx=nx, na=na, nlev=nlev),
+                3),
+        *bound(general.nnzb * BLOCK * na * BLOCK + xs5.numel()
+               + nlev * k * N * 4,
+               2 * n_pairs(nx, na, nlev) * general.nnzb * k * BLOCK * BLOCK,
+               INT8_OPS), None)
+    shapes = {"peel_rows": f"x shard ({k}, {n_loc}) f64",
+              "group_spmm": f"rank 0's group s={part.steps[i]}, {p} entries",
+              "sliced_wide_mm": f"({K3_M}, {K3_K}) @ ({K3_K}, {n_loc})",
+              "sliced_spmm": f"whole store, {general.nnzb} entries, k={k}"}
+    for name, (ms, plain, b_ms, b_by, lib) in stats.items():
+        log(f"[kernels] {ranks}-rank shapes, {name} {shapes[name]} f64: "
+            f"kernel == plain, kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound"
+            + ("" if lib is None else f", cuBLAS f64 {lib:.4f} ms")
+            + f" (median, {card})")
+    return stats
+
+
+def multicard(ranks, card):
+    """Phase (j): the multi-card path over ``ranks`` cards, one NCCL rank a
+    card (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    from diaglib_tpu_torch.ops import _build
+    from diaglib_tpu_torch.parallel import mh_dryrun
+
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
+        f"{_build.build_all():.1f} s, once, before any rank starts")
+    count = torch.cuda.device_count()
+    if count < ranks:
+        raise SystemExit(f"chip_smoke.py --ranks {ranks}: this machine has "
+                         f"{count} card(s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    log(f"[multicard] cards: {'; '.join(smi.stdout.strip().splitlines())}")
+
+    for job in MC_JOBS:
+        runs = []
+        for backend, device in (("gloo", "cpu"), ("nccl", None)):
+            with tempfile.TemporaryDirectory(prefix="diaglib_mc_") as tmp:
+                inp = mh_dryrun.job_inputs(job, ranks, workdir=tmp)
+                t0 = time.perf_counter()
+                runs.append(mh_dryrun.run_fleet(
+                    job, inp, ranks, backend, device,
+                    timeout=300 if backend == "gloo" else None))
+                runs[-1] += (time.perf_counter() - t0,)
+        lines = compare_fleet(job, runs[0][:2], runs[1][:2])
+        log(f"[multicard] job {job}: gloo on {ranks} CPU ranks "
+            f"{runs[0][2]:.1f} s, NCCL on {ranks} cards {runs[1][2]:.1f} s "
+            f"(fleet wall, start-up included)")
+        for line in lines:
+            log(f"[multicard] job {job}: {line}")
+
+    t0 = time.perf_counter()
+    _, outs = mh_dryrun.run_fleet(
+        "ladders", ladder_inputs(N, ("davidson", "lobpcg"), True, True),
+        ranks)
+    log(f"[multicard] flagship fleet wall {time.perf_counter() - t0:.1f} s")
+    launches, k5_launches = check_ladders("flagship", outs, card, True)
+    print_profile(outs[0]["profile"], card)
+
+    t0 = time.perf_counter()
+    _, weak = mh_dryrun.run_fleet(
+        "ladders", ladder_inputs(ranks * N, ("davidson",), False, False),
+        ranks)
+    log(f"[multicard] weak-scaling fleet wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_ladders("weak", weak, card, False)
+    peak = max(o["peak_build_bytes"] for o in weak)
+    if peak > 60e9:
+        raise AssertionError(f"a card's peak memory {peak / 1e9:.1f} GB")
+
+    max_err = {}
+    stats = four_way_kernels(ranks, card, max_err)
+    sources = {
+        "peel_rows": ("diaglib_tpu_torch/csrc/peel.cu",
+                      "diaglib_tpu/ops/slicing.py:268"),
+        "sliced_wide_mm": ("diaglib_tpu_torch/csrc/wide_mm.cu",
+                           "diaglib_tpu/ops/slicing.py:456"),
+        "sliced_spmm": ("diaglib_tpu_torch/csrc/sliced_spmm.cu",
+                        "diaglib_tpu/ops/bsr_sliced.py:167"),
+        "group_spmm": ("diaglib_tpu_torch/csrc/group_spmm.cu",
+                       "diaglib_tpu/ops/dist_sliced.py:135"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        ms, plain, b_ms, b_by, lib = stats[name]
+        n = launches.get(name, 0) + k5_launches.get(name, 0)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": max_err[name], "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib})
+    log(json.dumps({"kernels": kernels}))
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing or k5_launches.get("sliced_spmm", 0) <= 0:
+        raise AssertionError(f"the four-rank path never launched {missing}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": ranks}}), flush=True)
+
+
 # ---- phase (i): the user's surface on the card ----
 
 DEMO_FILES = {"symm": ["davidson.txt", "lapack.txt", "lobpcg.txt"],
@@ -1546,8 +2031,17 @@ def ell_phase(dev, counted, card):
         raise AssertionError("ELL on the card is off")
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ranks", type=int, default=1, choices=(1, 4),
+                        help="1 (the default): phases 1-6 on one card; 4: "
+                        "phase (j), the multi-card path, one NCCL rank a "
+                        "card")
+    args = parser.parse_args(argv)
 
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1570,6 +2064,9 @@ def main():
         f"{torch.version.cuda}  matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
+    if args.ranks > 1:
+        multicard(args.ranks, card)
+        return
 
     from diaglib_tpu_torch import (
         SolverOptions,

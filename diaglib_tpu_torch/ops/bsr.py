@@ -323,11 +323,16 @@ def random_bsr_spd(n: int, block: int, blocks_per_row: int, seed: int,
     # diagonal dominance: per-row accumulated off-block row/col mass
     row_mass = off.abs().sum(dim=2).amax(dim=1)
     col_mass = off.abs().sum(dim=1).amax(dim=1)
-    boost = torch.zeros((nbr,), dtype=dtype, device=dev)
+    # summed on the host: on a card, index_add_ adds a row's terms in the
+    # order its atomics land, and the last bit of the largest sum moves
+    # every diagonal entry (base), so two builds from one seed could differ
+    boost = torch.zeros((nbr,), dtype=dtype)
     if n_pairs:
-        p_rows = torch.as_tensor([p[0] for p in pairs], device=dev)
-        p_cols = torch.as_tensor([p[1] for p in pairs], device=dev)
-        boost.index_add_(0, p_rows, row_mass).index_add_(0, p_cols, col_mass)
+        p_rows = torch.as_tensor([p[0] for p in pairs])
+        p_cols = torch.as_tensor([p[1] for p in pairs])
+        boost.index_add_(0, p_rows, row_mass.cpu()).index_add_(
+            0, p_cols, col_mass.cpu())
+    boost = boost.to(dev)
     sym_rowmax = sym.abs().sum(dim=2).amax(dim=1)
     base = (boost + sym_rowmax).max() + 1.0
 

@@ -20,8 +20,11 @@ reference's dry run does.  It prints ``MH_DRYRUN_OK`` on success.
 :func:`run_fleet` is the general form: it runs named jobs of :data:`JOBS`
 on every rank with inputs pickled from the caller (numpy arrays and plain
 values) and returns each rank's outputs: the sharded operators and
-solvers, a sharded checkpoint save, load and resume, and the collective
-inventory of a sharded Davidson iteration.  The workers import only this
+solvers, a sharded checkpoint save, load and resume, the collective
+inventory of a sharded Davidson iteration, and the flagship's sharded
+ladders (job ``ladders``).  :func:`job_inputs` makes one set of inputs a
+job, so that the same job runs under gloo on CPU ranks and under NCCL on
+the cards and the two can be held together.  The workers import only this
 package, never JAX.  One worker by hand::
 
     python -m diaglib_tpu_torch.parallel.mh_dryrun --rank 0 \\
@@ -43,6 +46,10 @@ from pathlib import Path
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parents[2]
+# seconds a fleet on the cards may take by default: four ranks reaching
+# their cards, NCCL's setup and the flagship's stores and ladders
+NCCL_TIMEOUT = 900.0
+_FAIL_GRACE = 10.0    # seconds the other ranks get once one has failed
 
 
 def _solve_opts(**kw):
@@ -52,7 +59,8 @@ def _solve_opts(**kw):
 
 def _job_dryrun(dev, inp):
     """The reference's dry run: dense, distributed BSR and distributed
-    sliced Davidson solves, each checked against a dense oracle."""
+    sliced Davidson solves, each checked against a dense oracle (the BSR
+    operator at B = 64, where the reference takes 8)."""
     import torch
     import torch.distributed as dist
 
@@ -89,7 +97,9 @@ def _job_dryrun(dev, inp):
     assert err_dense < 1e-6, f"multi-process dense eig err {err_dense}"
 
     # ---- distributed BSR: the ring permutes cross processes ----
-    B = 8
+    # B = 64, the narrowest block K6 takes on the card (the reference's 8
+    # runs its sliced matvec in interpret mode); 4 block rows a rank
+    B = 64
     nb = 4 * B * D
     m = random_bsr_spd(nb, B, 2, seed=7, dtype=torch.float64, n_low_modes=8,
                        device=dev)
@@ -152,7 +162,9 @@ def _job_dist_sliced(dev, inp):
     arrays (``inp["store"]``: the fields of a ``DistSlicedBSR``): both
     tiers of the matvec on ``x_f64``/``x_f32``, then ``davidson`` and
     ``davidson_ladder`` from ``guess`` under ``options`` (a dict of
-    SolverOptions fields; the ladder takes ``lo_tol``/``lo_iter``)."""
+    SolverOptions fields; the ladder takes ``lo_tol``/``lo_iter``).  First,
+    the integer stages of every group on the shard received from the ring
+    (:func:`_received_levels` of ``x_f64``, arrays kept)."""
     import torch
 
     from ..ops.dist_sliced import dist_sliced_from_arrays, dist_sliced_matvec
@@ -163,7 +175,8 @@ def _job_dist_sliced(dev, inp):
     store = inp["store"]
     sh = VectorSharding(int(store["n"]))
     dm = dist_sliced_from_arrays(store, sh.rank, dev)
-    out = {}
+    out = _received_levels(dm, sh, sh.local_cols(
+        torch.as_tensor(inp["x_f64"], device=dev)), keep=True)
     for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
         x = sh.local_cols(torch.as_tensor(inp[f"x_{tag}"], device=dev))
         out[f"y_{tag}"] = dist_sliced_matvec(dm, sh, dtype=dt)(x).cpu() \
@@ -180,6 +193,369 @@ def _job_dist_sliced(dev, inp):
         guess, opts, lo_tol=inp["lo_tol"], lo_iter=inp["lo_iter"],
         sharding=sh), sh))
     return out
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counters():
+    """Each kernel wrapper of the port, by name; each counts its launches
+    in ``.launches``."""
+    from ..ops import bsr, slicing
+    from ..ops import bsr_sliced as bs
+    from ..ops import bsr_sliced_sym as sym
+    from ..ops import dist_sliced as dsl
+
+    return {"peel_rows": slicing.peel_rows, "sym_spmm": sym.sym_spmm,
+            "sliced_wide_mm": slicing.sliced_wide_mm,
+            "bsr_spmm": bsr.bsr_spmm, "sliced_spmm": bs.sliced_spmm,
+            "group_spmm": dsl.group_spmm}
+
+
+def _counted(dev, fn):
+    """``(fn(), seconds, launches)``: every launch count set to 0 just
+    before the call and read just after it (a device barrier on both
+    sides)."""
+    counters = _counters()
+    _sync(dev)
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return (out, time.perf_counter() - t0,
+            {k: f.launches for k, f in counters.items()})
+
+
+def _received_levels(dm, sh, x, keep=False):
+    """Kernel K6 on every group of this rank, at both tiers, on the x shard
+    each group receives through the ring (``sh.permute`` of this rank's
+    shard ``x``, as the matvec fetches it) and slices with K2: the launch
+    against ``group_spmm_plain`` on the same planes, bit for bit.  Returns
+    whether they were equal, the largest difference and a digest of the
+    planes, row scales and levels a tier; with ``keep`` the arrays too (one
+    list a tier, one entry a group)."""
+    import hashlib
+
+    import torch
+
+    from ..ops import bsr_sliced as bs
+    from ..ops.dist_bsr import _check_group
+    from ..ops.dist_sliced import group_spmm, group_spmm_plain
+
+    sd = _check_group(dm, sh)
+    out = {}
+    for tier, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        nx, na, nlev = bs._tier_params(sd.na, dt, None, None)
+        acc = None if dt == torch.float64 else torch.float32
+        digest = hashlib.sha1()
+        equal, err, kept = True, 0, []
+        for i, s in enumerate(sd.steps):
+            xs, sx = bs._slice_x(sh.permute(x.to(dt), s), nx, acc_dtype=acc)
+            args = (xs, sd.slices[i], sd.loc_rows[i], sd.loc_cols[i])
+            kw = dict(nx=nx, na=na, nlev=nlev, nbr_loc=sd.nbr_loc)
+            got = group_spmm(*args, **kw)
+            want = group_spmm_plain(*args, **kw)
+            equal = equal and torch.equal(got, want)
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            host = [t.cpu().numpy() for t in (xs, sx, got)]
+            for a in host:
+                digest.update(a.tobytes())
+            kept.append(host)
+        out.update({f"k6_{tier}_equal": equal, f"k6_{tier}_max_err": err,
+                    f"k6_{tier}_digest": digest.hexdigest()})
+        if keep:
+            out[f"k6_{tier}"] = kept
+    return out
+
+
+def _record_permutes(sh, calls):
+    """Record every ring permute ``sh`` posts into ``calls``: (offset,
+    the rank sent to, the rank received from, shape, dtype).  ``del
+    sh.permute`` ends the recording."""
+    real = sh.permute
+
+    def permute(x, s, wait=True):
+        s_ = s % sh.size
+        if s_:
+            calls.append((s_, sh._global((sh.rank - s_) % sh.size),
+                          sh._global((sh.rank + s_) % sh.size),
+                          tuple(x.shape), str(x.dtype)))
+        return real(x, s, wait)
+
+    sh.permute = permute
+
+
+def _residuals(bsr_mv, sh, evec, eig):
+    """Per root, the rms and the largest entry of ``A x - lambda x`` over
+    the whole vector, A applied by the distributed float64 BSR product
+    ``bsr_mv`` to this rank's shard ``evec`` (n_targ, n_local)."""
+    import torch
+
+    r = bsr_mv(evec) - eig[:, None] * evec
+    rms = torch.sqrt(sh.sum((r * r).sum(dim=1)) / sh.n)
+    return rms.cpu().numpy(), sh.max(r.abs().amax(dim=1)).cpu().numpy()
+
+
+def _build_operator(dev, inp, rank, size, keep_whole):
+    """This rank's distributed float64-product BSR operator and sliced
+    store for :func:`_job_ladders`, the whole general store when
+    ``keep_whole`` (else None), and a digest of the matrix's diagonal when
+    this rank built the matrix (else None)."""
+    import hashlib
+
+    import torch
+
+    from ..ops.bsr import bsr_diagonal, bsr_from_arrays, random_bsr_spd
+    from ..ops.bsr_sliced import slice_bsr, sliced_store_from_arrays
+    from ..ops.dist_bsr import distribute_bsr
+    from ..ops.dist_sliced import (
+        dist_sliced_from_arrays,
+        distribute_sliced_bsr,
+    )
+
+    if "build" in inp:
+        b = inp["build"]
+        m = random_bsr_spd(b["n"], b["block"], b["bpr"], seed=b["seed"],
+                           dtype=torch.float32, device=dev)
+        digest = hashlib.sha1(
+            bsr_diagonal(m).cpu().numpy().tobytes()).hexdigest()
+        dmb = distribute_bsr(m, size, rank=rank)
+        whole = slice_bsr(m)
+        del m
+        dm = distribute_sliced_bsr(whole, size, rank=rank)
+    else:
+        digest = None
+        c = inp["carried"]
+        dmb = distribute_bsr(bsr_from_arrays(c["bsr"], device=dev), size,
+                             rank=rank)
+        whole = (sliced_store_from_arrays(c["general"], device=dev)
+                 if keep_whole else None)
+        dm = dist_sliced_from_arrays(c["store"], rank, dev)
+    return dmb, dm, (whole if keep_whole else None), digest
+
+
+def _profile_iteration(dev, run):
+    """``run()`` (one warm sharded iteration) under torch.profiler and the
+    collective inventory: the collectives by kind with their count, bytes
+    and the device ms of their NCCL kernels, the device-busy ms (the union
+    of every kernel, copy and fill) and the window's host ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..profiling import collective_inventory
+
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inv = collective_inventory(run)
+        _sync(dev)
+        window = (time.perf_counter() - t0) * 1e3
+    kinds = {"AllReduce": "all-reduce", "AllGather": "all-gather",
+             "SendRecv": "collective-permute", "Send": "collective-permute",
+             "Recv": "collective-permute"}
+    spans, nccl, n_kernels = [], {}, 0
+    for e in prof.events():
+        # the device timeline also holds each record_function scope and
+        # each collective's "nccl:..." annotation as a range: not work
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        n_kernels += 1
+        lo, hi = e.time_range.start, e.time_range.end
+        spans.append((lo, hi))
+        if "nccl" in e.name.lower():
+            kind = next((v for k, v in kinds.items() if k in e.name),
+                        "other")
+            rec = nccl.setdefault(kind, {"kernels": 0, "device_ms": 0.0})
+            rec["kernels"] += 1
+            rec["device_ms"] += (hi - lo) / 1e3
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return {"inventory": inv, "nccl": nccl, "device_kernels": n_kernels,
+            "busy_ms": busy / 1e3, "window_ms": window}
+
+
+def _job_ladders(dev, inp):
+    """The flagship's sharded ladders over the distributed sliced operator
+    (K2 and K6 under every matvec, K3 in the rotations).
+
+    The operator is built on every rank from ``build`` (``n``, ``block``,
+    ``bpr``, ``seed`` of ``random_bsr_spd``, float32 blocks, sliced by
+    ``slice_bsr``; each rank keeps its rows) or carried from ``carried``
+    (``bsr`` the blocks, ``store`` the distributed store's fields,
+    ``general`` the whole store).  On it: the ring permutes of one matvec a
+    tier and of one float64 BSR product, recorded; K6 against its plain
+    version on the received planes (:func:`_received_levels`); then each
+    ladder of ``ladders`` ("davidson", "lobpcg") under ``options`` with
+    ``lo_tol`` and ``lo_iter[name]``, from ``guess`` (numpy (n_max, n)) or
+    a zero guess filled from a generator seeded with 1, run once to warm
+    up (unless ``warm`` is false) and once with the launch counts at 0.
+    The returned pairs' residuals come from the float64 product of the
+    original blocks, distributed (``dist_bsr_matvec``).  With
+    ``unsharded``, rank 0 also runs each ladder over ``sliced_bsr_matvec``
+    (K5) on the whole store, and its pairs' residuals are taken the same
+    way.  With ``profile``, one warm float64 sharded Davidson iteration is
+    profiled on rank 0 (:func:`_profile_iteration`).  Each card's peak
+    memory is read after the build and after the ladders."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ..ops.bsr_sliced import sliced_bsr_matvec
+    from ..ops.dist_bsr import dist_bsr_matvec
+    from ..ops.dist_sliced import dist_sliced_matvec
+    from ..problems import diag_precnd
+    from ..solvers import davidson, davidson_ladder, lobpcg_ladder
+    from ..utils.mm import mm_sharding, mmT
+    from .sharding import VectorSharding
+
+    cuda = dev.type == "cuda"
+    D, r = dist.get_world_size(), dist.get_rank()
+    unsharded = bool(inp.get("unsharded"))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dmb, dm, whole, digest = _build_operator(dev, inp, r, D,
+                                             unsharded and r == 0)
+    _sync(dev)
+    out = {"build_s": time.perf_counter() - t0, "n": dm.n,
+           "build_digest": digest,
+           "steps": list(dm.steps),
+           "entries": [int(lr.shape[-1]) for lr in dm.loc_rows],
+           "store_bytes": sum(t.numel() for t in dm.slices)}
+    if cuda:
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["peak_build_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    sh = VectorSharding(dm.n)
+    f32, f64 = torch.float32, torch.float64
+    mv_lo = dist_sliced_matvec(dm, sh, dtype=f32)
+    mv_hi = dist_sliced_matvec(dm, sh)
+    pc_lo = diag_precnd(dm.diagonal.to(f32))
+    pc_hi = diag_precnd(dm.diagonal)
+    bsr_mv = dist_bsr_matvec(dmb, sh)
+
+    x = sh.local_cols(torch.randn(
+        (15, dm.n), generator=torch.Generator(device=dev).manual_seed(8),
+        dtype=f64, device=dev))
+    calls = []
+    _record_permutes(sh, calls)
+    mv_hi(x)
+    mv_lo(x.to(f32))
+    bsr_mv(x)
+    del sh.permute
+    out["permutes"] = calls
+    out.update(_received_levels(dm, sh, x))
+    del x
+
+    opts = _solve_opts(**inp["options"])
+    n_targ = opts.n_targ
+    full = (torch.as_tensor(inp["guess"], device=dev) if "guess" in inp
+            else torch.zeros((opts.n_max, dm.n), dtype=f64, device=dev))
+    guess = sh.local_cols(full).contiguous()
+    ladders = {"davidson": davidson_ladder, "lobpcg": lobpcg_ladder}
+
+    def pairs(tag, res, wall, launches, evec, eig):
+        rms, rmax = _residuals(bsr_mv, sh, evec, eig)
+        out.update({f"{tag}_eig": res.eig.cpu().numpy(),
+                    f"{tag}_ok": bool(res.ok),
+                    f"{tag}_ortho_ok": bool(res.ortho_ok),
+                    f"{tag}_iter": int(res.n_iter),
+                    f"{tag}_matvec": int(res.n_matvec),
+                    f"{tag}_f64_iter": int(torch.isfinite(
+                        res.rms_history[:, 0]).sum()),
+                    f"{tag}_wall": wall, f"{tag}_launches": launches,
+                    f"{tag}_res_rms": rms, f"{tag}_res_max": rmax})
+
+    for name in inp["ladders"]:
+        lad, lo_iter = ladders[name], inp["lo_iter"][name]
+
+        def run(lo, plo, hi, phi, g, sharding):
+            return lad(lo, plo, hi, phi, g, opts, lo_tol=inp["lo_tol"],
+                       lo_iter=lo_iter, sharding=sharding,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+
+        args = (mv_lo, pc_lo, mv_hi, pc_hi, guess, sh)
+        if inp.get("warm", True):
+            _counted(dev, lambda: run(*args))
+        res, wall, launches = _counted(dev, lambda: run(*args))
+        pairs(name, res, wall, launches, res.evec[:n_targ].contiguous(),
+              res.eig[:n_targ])
+        out[f"{name}_eig_ranks"] = _gathered(sh, res.eig_history)
+        with mm_sharding(sh):
+            out[f"{name}_gram_ranks"] = _gathered(
+                sh, mmT(res.evec, res.evec))
+        if not unsharded:
+            continue
+        # rank 0's unsharded ladder over K5; the others wait in the
+        # broadcast of its pairs, whose residuals every rank then takes
+        vec = torch.empty((n_targ, dm.n), dtype=f64, device=dev)
+        lam = torch.empty((n_targ,), dtype=f64, device=dev)
+        if r == 0:
+            uargs = (sliced_bsr_matvec(whole, dtype=f32),
+                     diag_precnd(whole.diagonal.to(f32)),
+                     sliced_bsr_matvec(whole),
+                     diag_precnd(whole.diagonal), full, None)
+            if inp.get("warm", True):
+                _counted(dev, lambda: run(*uargs))
+            res_u, wall_u, launches_u = _counted(dev, lambda: run(*uargs))
+            vec.copy_(res_u.evec[:n_targ])
+            lam.copy_(res_u.eig[:n_targ])
+        dist.broadcast(vec, 0)
+        dist.broadcast(lam, 0)
+        vec = sh.local_cols(vec).contiguous()
+        if r == 0:
+            pairs(f"{name}_k5", res_u, wall_u, launches_u, vec, lam)
+        else:
+            _residuals(bsr_mv, sh, vec, lam)
+    if cuda:
+        out["peak_ladder_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if inp.get("profile"):
+        o1 = dataclasses.replace(opts, max_iter=1)
+
+        def one():
+            return davidson(mv_hi, pc_hi, guess, o1, sharding=sh,
+                            generator=torch.Generator(
+                                device=dev).manual_seed(1))
+
+        one()
+        prof = _profile_iteration(dev, one) if r == 0 else None
+        if r != 0:
+            one()
+        out["profile"] = prof
+    return out
+
+
+def check_permute_order(outputs) -> None:
+    """Raise ``AssertionError`` unless the ring permutes the ranks of a
+    fleet recorded (``"permutes"`` of :func:`_job_ladders`' outputs, rank
+    by rank) would match under NCCL, which ignores tags: every rank posts
+    the same offsets in the same order, and for every ordered pair of ranks
+    the sends of the one match the receives of the other, one for one, in
+    order, with the same shapes and types."""
+    calls = [out["permutes"] for out in outputs]
+    if not calls[0]:
+        raise AssertionError("no ring permute was posted")
+    offsets = [[c[0] for c in rank] for rank in calls]
+    if any(o != offsets[0] for o in offsets):
+        raise AssertionError(f"the ranks post their offsets in other "
+                             f"orders: {offsets}")
+    for a in range(len(calls)):
+        for b in range(len(calls)):
+            sent = [c[3:] for c in calls[a] if c[1] == b]
+            got = [c[3:] for c in calls[b] if c[2] == a]
+            if sent != got:
+                raise AssertionError(f"rank {a} sends {sent} to rank {b}, "
+                                     f"which receives {got} from it")
 
 
 def _paired_local(sh, full):
@@ -400,7 +776,99 @@ def _job_inventory(dev, inp):
 
 JOBS = {"dryrun": _job_dryrun, "dist_sliced": _job_dist_sliced,
         "sharded_solvers": _job_sharded_solvers,
-        "checkpoint": _job_checkpoint, "inventory": _job_inventory}
+        "checkpoint": _job_checkpoint, "inventory": _job_inventory,
+        "ladders": _job_ladders}
+
+
+def _store_arrays(dm) -> dict:
+    """A stacked ``DistSlicedBSR``'s fields as numpy arrays and numbers,
+    as :func:`~..ops.dist_sliced.dist_sliced_from_arrays` reads them."""
+    out = {k: [a.cpu().numpy() for a in getattr(dm, k)]
+           for k in ("slices", "loc_rows", "loc_cols")}
+    out.update(col_scale=dm.col_scale.cpu().numpy(),
+               diagonal=dm.diagonal.cpu().numpy(), steps=list(dm.steps),
+               n=dm.n, block=dm.block, na=dm.na, ndev=dm.ndev)
+    return out
+
+
+def job_inputs(job: str, size: int = 4, workdir: str | None = None) -> dict:
+    """The inputs of the ``JOBS`` entry ``job`` for a fleet of ``size``
+    ranks, at the sizes of its CPU test (``tests/test_torch_
+    {sharding,dist_sliced,checkpoint,profiling}.py``), made on the CPU from
+    seeds: numpy's generator, and this package's problem generators (CPU
+    ``torch.Generator`` streams where one draws), so that one dict
+    runs the same job under gloo on CPU ranks and under NCCL on the cards.
+    ``workdir`` is where the checkpoint job writes (required for it)."""
+    import torch
+
+    from ..ops.bsr import as_arrays, random_bsr_spd
+    from ..ops.bsr_sliced import slice_bsr
+    from ..ops.dist_sliced import distribute_sliced_bsr
+    from ..problems import casida_blocks, nonsym_matrix, symm_matrix
+    from ..utils.guess import guess_evec
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    if job == "dryrun":
+        return {}
+    if job == "dist_sliced":
+        # B = 64, the narrowest block K6 takes on the card (the CPU test's
+        # store has B = 32)
+        n = 512
+        ms = slice_bsr(random_bsr_spd(n, 64, 4, seed=11, dtype=torch.float64,
+                                      device="cpu"))
+        rng = np.random.default_rng(2)
+        return dict(store=_store_arrays(distribute_sliced_bsr(ms, size)),
+                    x_f64=rng.standard_normal((5, n)),
+                    x_f32=rng.standard_normal((4, n)).astype(np.float32),
+                    guess=rng.uniform(-0.5, 0.5, (8, n)),
+                    options=dict(n_targ=4, n_max=8, max_iter=100, tol=1e-9,
+                                 max_dav=10, wide_mm="never",
+                                 sliced_mm="never"),
+                    lo_tol=1e-4, lo_iter=35)
+    if job == "sharded_solvers":
+        n = 256
+        rng = np.random.default_rng(3)
+        mm = rng.uniform(size=(n, n))
+        blk = casida_blocks(n, gen(17), device="cpu")
+        casida = {k: blk[k].numpy() for k in ("apb", "amb", "spd", "smd")}
+        casida.update(aa=np.diagonal(blk["aa"].numpy()).copy(),
+                      sigma=np.diagonal(blk["sigma"].numpy()).copy())
+        casida_guess = rng.uniform(-0.5, 0.5, (8, 2 * n))
+        zero = casida_guess.copy()
+        zero[4:] = 0.0
+        ns = nonsym_matrix(n, gen(1), variant=4, device="cpu")
+        nonsym_opts = dict(n_targ=5, n_max=5, max_iter=200, tol=1e-8,
+                           max_dav=10)
+        ns_guess = guess_evec(6, gen(7), n, nonsym_opts["n_max"],
+                              diagonal=torch.diagonal(ns), device="cpu")
+        m = random_bsr_spd(2 * n, 32, 4, seed=11, dtype=torch.float64,
+                           device="cpu")
+        return dict(a=symm_matrix(n, device="cpu").numpy(), s=mm.T @ mm,
+                    guess=rng.uniform(-0.5, 0.5, (8, n)),
+                    options=dict(n_targ=4, n_max=8, max_iter=200, tol=1e-8,
+                                 max_dav=10),
+                    bsr=as_arrays(m), x=rng.standard_normal((5, 2 * n)),
+                    bsr_guess=rng.uniform(-0.5, 0.5, (8, 2 * n)),
+                    casida=casida, casida_guess=casida_guess,
+                    casida_zero_guess=zero, nonsym=ns.numpy(),
+                    nonsym_guess=ns_guess.numpy(),
+                    nonsym_options=nonsym_opts)
+    if job == "checkpoint":
+        if workdir is None:
+            raise ValueError("job_inputs('checkpoint') needs a workdir")
+        return {"a": symm_matrix(64, device="cpu").numpy(),
+                "guess": np.random.default_rng(3).uniform(-0.5, 0.5,
+                                                          (6, 64)),
+                "partial_iter": 4, "dir": str(Path(workdir) / "sharded"),
+                "options": dict(n_targ=3, n_max=6, max_iter=100, tol=1e-10)}
+    if job == "inventory":
+        return {"a": symm_matrix(64, device="cpu").numpy(),
+                "guess": np.random.default_rng(4).uniform(-0.5, 0.5,
+                                                          (6, 64)),
+                "options": dict(n_targ=3, n_max=6, max_iter=10, tol=1e-8)}
+    raise ValueError(f"job_inputs: no inputs for job {job!r}")
 
 
 def _worker(args) -> None:
@@ -419,7 +887,10 @@ def _worker(args) -> None:
         if args.inputs:
             with open(args.inputs, "rb") as f:
                 inp = pickle.load(f)
-        out = {}
+        out = {"rank_device": str(dev), "world": dist.get_world_size(),
+               "backend": dist.get_backend()}
+        if dev.type == "cuda":
+            out["current_device"] = torch.cuda.current_device()
         for job in args.jobs.split(","):
             out.update(JOBS[job](dev, inp))
         if args.out:
@@ -429,19 +900,47 @@ def _worker(args) -> None:
         dist.destroy_process_group()
 
 
+def _build_kernels() -> None:
+    from ..ops import _build
+
+    _build.build_all()
+
+
 def run_fleet(jobs, inputs=None, num_processes: int = 2,
               backend: str = "nccl", device: str | None = None,
-              timeout: float = 120.0):
+              timeout: float | None = None):
     """Run the named ``jobs`` on ``num_processes`` ranks; returns
     ``(combined output, [outputs of rank 0, 1, ...])``.  ``backend`` and
     ``device`` are :func:`~.multihost.initialize`'s (NCCL on the ranks'
     cards by default).  Raises with the workers' output when one fails or
-    the fleet outlasts ``timeout`` seconds (then every worker is
-    killed)."""
+    the fleet outlasts ``timeout`` seconds (then every worker is killed;
+    by default 120 s for CPU ranks and :data:`NCCL_TIMEOUT` for a fleet on
+    the cards, whose first NCCL setup takes longer).
+
+    A fleet on the cards takes one card a rank, rank r on ``cuda:r``
+    (``LOCAL_RANK``): it raises ``RuntimeError`` before it starts a worker
+    when the machine has no card or fewer cards than ranks, and it never
+    runs on gloo instead.  It builds the kernels of ``csrc/`` once, here,
+    before it starts the ranks, so that they do not all build them at
+    once."""
     jobs = [jobs] if isinstance(jobs, str) else list(jobs)
     for job in jobs:
         if job not in JOBS:
             raise ValueError(f"unknown job {job!r}")
+    on_cards = backend == "nccl"
+    if timeout is None:
+        timeout = NCCL_TIMEOUT if on_cards else 120.0
+    if on_cards:
+        import torch
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < num_processes:
+            what = ("no CUDA device for the nccl backend" if not count else
+                    f"{num_processes} NCCL ranks need as many cards, this "
+                    f"machine has {count}")
+            raise RuntimeError(f"run_fleet: {what}; pass backend='gloo', "
+                               "device='cpu' to run the ranks on the CPU")
+        _build_kernels()
     with tempfile.TemporaryDirectory(prefix="diaglib_fleet_") as tmp:
         tmp = Path(tmp)
         in_path = tmp / "inputs.pkl"
@@ -456,33 +955,42 @@ def run_fleet(jobs, inputs=None, num_processes: int = 2,
                "--inputs", str(in_path), "--timeout", str(timeout)]
         if device is not None:
             cmd += ["--device", str(device)]
-        procs = []
+        procs, logs = [], []
         for r in range(num_processes):
+            if on_cards:
+                env["LOCAL_RANK"] = str(r)
+            logs.append(open(tmp / f"log{r}.txt", "w"))
             procs.append(subprocess.Popen(
                 cmd + ["--rank", str(r), "--out", str(tmp / f"out{r}.pkl")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                env=env, cwd=_ROOT))
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=dict(env),
+                cwd=_ROOT))
+        # a rank that fails leaves the others waiting in a collective: they
+        # get a few seconds to print their side, then are killed with it
         deadline = time.monotonic() + timeout
-        outputs, failed = [], []
         try:
-            for r, p in enumerate(procs):
-                left = max(deadline - time.monotonic(), 0.1)
-                try:
-                    out, _ = p.communicate(timeout=left)
-                except subprocess.TimeoutExpired:
-                    raise RuntimeError(
-                        f"fleet rank {r} outlasted {timeout} s") from None
-                outputs.append(out)
-                if p.returncode != 0:
-                    failed.append(r)
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if None not in codes:
+                    break
+                if failed:
+                    deadline = min(deadline, time.monotonic() + _FAIL_GRACE)
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.communicate()
-        combined = "\n".join(outputs)
-        if failed:
-            raise RuntimeError(f"fleet ranks {failed} failed:\n{combined}")
+                    p.wait()
+            for f in logs:
+                f.close()
+        combined = "".join((tmp / f"log{r}.txt").read_text(errors="replace")
+                             for r in range(num_processes))
+        hung = [r for r, c in enumerate(codes) if c is None]
+        if failed or hung:
+            raise RuntimeError(f"fleet ranks {failed} failed, ranks {hung} "
+                               f"killed (timeout {timeout} s):\n{combined}")
         results = []
         for r in range(num_processes):
             with open(tmp / f"out{r}.pkl", "rb") as f:
@@ -491,7 +999,7 @@ def run_fleet(jobs, inputs=None, num_processes: int = 2,
 
 
 def launch(num_processes: int = 2, backend: str = "nccl",
-           device: str | None = None, timeout: float = 300.0) -> str:
+           device: str | None = None, timeout: float | None = None) -> str:
     """Spawn the dry-run fleet; returns the combined output, raises on
     failure (a rank that fails, hangs past ``timeout`` or prints no
     ``MH_DRYRUN_OK``)."""

@@ -53,8 +53,12 @@ def initialize(init_method: str | None = None,
 
     ``backend`` defaults to "nccl" on ``cuda:<local rank>`` (the local rank
     is ``LOCAL_RANK`` or ``rank`` modulo the card count) and raises
-    ``RuntimeError`` without a card.  ``backend="gloo"`` or
-    ``device="cpu"`` runs the ranks on the CPU.  ``world_size`` and
+    ``RuntimeError`` without a card, or when the local rank names a card
+    the machine does not have.  NCCL's communicator is created here, on
+    that card, for every rank at once (``device_id=``), so the first
+    collective or ring permute of a solve needs no lazy setup.
+    ``backend="gloo"`` or ``device="cpu"`` runs the ranks on the CPU.
+    ``world_size`` and
     ``rank`` default to ``WORLD_SIZE`` / ``RANK`` from the environment,
     else 1 and 0; a one-rank group with no ``init_method`` rendezvouses on
     a free loopback port, and a larger one must name its ``init_method``.
@@ -78,7 +82,16 @@ def initialize(init_method: str | None = None,
                                        rank % torch.cuda.device_count()))
             device = torch.device("cuda", local)
         device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if not 0 <= device.index < torch.cuda.device_count():
+            raise RuntimeError(
+                f"initialize: rank {rank} wants {device}, but this machine "
+                f"has {torch.cuda.device_count()} card(s)")
         torch.cuda.set_device(device)
+        if torch.cuda.current_device() != device.index:
+            raise RuntimeError(f"initialize: set_device({device}) left "
+                               f"cuda:{torch.cuda.current_device()} current")
     elif backend == "gloo":
         device = torch.device("cpu" if device is None else device)
     else:

@@ -125,7 +125,16 @@ class VectorSharding:
         to rank (d - s) mod D and receives the shard of rank (d + s) mod D
         (the reference's ``lax.ppermute`` with pairs (j, (j - s) mod D)).
         With ``wait=False`` it returns a pending permute whose ``wait()``
-        gives the received shard, so that local work can overlap it."""
+        gives the received shard, so that local work can overlap it.
+
+        gloo matches a send to its receive by the tag ``s``; NCCL ignores
+        tags and matches the sends from one rank to another in the order
+        the two ranks post them.  So every rank of the group posts its
+        permutes in the same order: the distributed operators post one
+        for each offset of their global ``steps``, ascending, on every
+        rank, and wait for them in that order.  Under NCCL the exchange
+        runs on the communicator's own stream; ``wait()`` makes the
+        current stream wait for it before the received shard is read."""
         s %= self.size
         if s == 0:
             return x if wait else _Pending(x, [])

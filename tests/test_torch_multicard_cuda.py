@@ -1,0 +1,90 @@
+"""The multi-card path on four NVIDIA GPUs: every job of
+``parallel.mh_dryrun`` under NCCL, one rank a card, held against the same
+job under gloo on four CPU ranks (``chip_smoke.compare_fleet``), the
+flagship's ladders job at a reduced n (``chip_smoke.check_ladders``), and
+the refusals of NCCL requests the machine cannot serve.
+
+These tests need four cards and nvcc and skip elsewhere.  They import no
+JAX:
+
+    python -m pytest --noconftest tests/test_torch_multicard_cuda.py -q
+"""
+
+import os
+
+import pytest
+import torch
+
+import chip_smoke
+from diaglib_tpu_torch.parallel import mh_dryrun
+from diaglib_tpu_torch.parallel.multihost import initialize
+
+pytestmark = pytest.mark.cuda
+RANKS = 4
+
+
+@pytest.fixture(scope="module")
+def cards():
+    if not torch.cuda.is_available():
+        pytest.skip("needs NVIDIA GPUs (NCCL ranks run one a card)")
+    if torch.cuda.device_count() < RANKS:
+        pytest.skip(f"needs {RANKS} NVIDIA GPUs, this machine has "
+                    f"{torch.cuda.device_count()}")
+    return RANKS
+
+
+@pytest.mark.parametrize("job", chip_smoke.MC_JOBS)
+def test_job_under_nccl_matches_gloo(cards, job, tmp_path):
+    runs = []
+    for backend, device in (("gloo", "cpu"), ("nccl", None)):
+        inp = mh_dryrun.job_inputs(job, cards,
+                                   workdir=str(tmp_path / backend))
+        runs.append(mh_dryrun.run_fleet(job, inp, cards, backend, device,
+                                        timeout=300 if device else None))
+    assert chip_smoke.compare_fleet(job, *runs)
+
+
+def test_ladders_on_the_cards(cards):
+    """The flagship's job at n = 32768 (16 block rows a rank, the
+    narrowest shard K3's rotations take): the sharded ladders' checks of
+    phase (j2), K2, K3 and K6 launched on every rank and K5 in rank 0's
+    unsharded ladders."""
+    _, outs = mh_dryrun.run_fleet(
+        "ladders", chip_smoke.ladder_inputs(32768, ("davidson", "lobpcg"),
+                                            True, False), cards)
+    launches, k5 = chip_smoke.check_ladders("n=32768", outs, "test", True)
+    for name in ("peel_rows", "sliced_wide_mm", "group_spmm"):
+        assert launches[name] > 0, (name, launches)
+    assert k5["sliced_spmm"] > 0 and launches["sliced_spmm"] == 0
+    assert launches["sym_spmm"] == launches["bsr_spmm"] == 0
+
+
+def test_one_seed_builds_one_matrix_on_every_card(cards):
+    """random_bsr_spd at the n = 32768 shape of the ladders test, built
+    twice on each card: every build bit-equal (each rank of a fleet builds
+    its own copy)."""
+    from diaglib_tpu_torch.ops.bsr import random_bsr_spd
+
+    want = None
+    for card in range(cards):
+        for _ in range(2):
+            m = random_bsr_spd(32768, 512, 8, seed=0, dtype=torch.float32,
+                               device=f"cuda:{card}")
+            got = m.blocks_t.cpu()
+            if want is None:
+                want = got
+            assert torch.equal(got, want), card
+            del m, got
+
+
+def test_more_ranks_than_cards_raises(cards):
+    with pytest.raises(RuntimeError, match="need as many cards"):
+        mh_dryrun.run_fleet("dryrun", {}, torch.cuda.device_count() + 1)
+
+
+def test_local_rank_without_its_card_raises(cards, monkeypatch):
+    monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
+    with pytest.raises(RuntimeError, match="card"):
+        initialize(world_size=1, rank=0)
+    assert not torch.distributed.is_initialized()
+    assert os.environ["LOCAL_RANK"] == str(torch.cuda.device_count())
