@@ -59,10 +59,18 @@ Phases (any failure raises and the script exits non-zero):
    (b) gen_david_ladder on the generalized pair through sliced_matvec_any,
        float32 and float64 tiers of both A and B (n_max 15, lo_iter 60);
    (c) davidson_ladder over bsr_matvec of the float32 and float64 blocks
-       (n_max 15, lo_iter 35);
+       (n_max 15, lo_iter 35); two calls of the float64 bsr_matvec at
+       (15, 65536) bit-equal;
    (d) davidson_ladder on the symmetric store (n_max 15, lo_iter 35)
        under wide_mm="auto" and once more under "never": eigenvalues within
        1e-10, iterations within 2;
+   (b) and (d) "auto" again on the captured route (the default: each
+       iteration's steps replayed as CUDA graphs) and on the uncaptured
+       one (the same steps called directly, through the solver's private
+       entry): every returned tensor bit for bit, the same counts and K2
+       / K1 launches, the median of 5 warm walls of each in turns, the host's
+       reads of the device an iteration (torch.cuda's sync debug mode),
+       the rare-branch reruns, graph capture time and pool memory;
    (e) nonsym_ladder, side "c", on R = E_- S E_+ (n_max 10, max_iter 150,
        lo_tol 2e-6, lo_iter 60);
    (f) under a one-rank NCCL process group (parallel.multihost.initialize,
@@ -70,7 +78,9 @@ Phases (any failure raises and the script exits non-zero):
        sharding= over dist_sliced_matvec of the general store, both tiers
        (K6 under every matvec; n_max 15, lo_iter 35), then the unsharded
        davidson_ladder over sliced_bsr_matvec of the same store (K5): the
-       same iteration and matvec counts, eigenvalues within 1e-12;
+       same iteration and matvec counts, eigenvalues within 1e-12; under
+       the group, two calls of dist_bsr_matvec (float64 x) bit-equal and
+       within 1e-14 max|y| of the plain product;
    (g) caslr_eff_ladder over casida_tdscf_ops of the Casida pair (prec
        "eff") and caslr_ladder with algorithm 0 (prec "std"), n_max 15,
        lo_iter 60, a zero (15, 131072) paired guess: each pair's residuals
@@ -117,8 +127,9 @@ Phases (any failure raises and the script exits non-zero):
        fewer iterations than the same solve from the zero guess,
        eigenvalues within 1e-10 of (d)'s; (i3) profiling.trace around one
        warm (d) ladder: the Chrome trace names the scopes matvec,
-       rayleigh-ritz and expand-ortho and the kernels K1, K2 and K3; the
-       device-busy share of the window, device kernels an iteration, the
+       rayleigh-ritz and expand-ortho and the kernels K1, K2 and K3 (the
+       ladder on its captured route, each step replayed under its scope);
+       the device-busy share of the window, device kernels an iteration, the
        host time under each scope and the device time of the kernels
        launched under it, and the kernels with the most device time; (i4)
        profiling.phase_timings of the float64 symmetric sliced matvec at
@@ -232,21 +243,59 @@ def n_pairs(nx, na, nlev, plane_off=0):
                if plane_off + i + ix < nlev)
 
 
-def plain_bsr_matvec(m, x, chunk=64):
+def plain_bsr_matvec(m, x):
     """y = x @ A^T from the BSR blocks in float64 (an oracle independent of
     the slice store and of the kernels)."""
     import torch
 
-    B = m.block
-    nbr = m.n // B
-    xb = x.reshape(x.shape[0], nbr, B)
-    y = torch.zeros((nbr, x.shape[0], B), dtype=torch.float64,
-                    device=x.device)
-    for s in range(0, m.nnzb, chunk):
-        blk = m.blocks_t[s:s + chunk].to(torch.float64)
-        xc = xb[:, m.cols[s:s + chunk].long(), :].permute(1, 0, 2)
-        y.index_add_(0, m.rows[s:s + chunk].long(), xc @ blk)
-    return y.permute(1, 0, 2).reshape(x.shape[0], m.n)
+    from diaglib_tpu_torch.ops.bsr import bsr_spmm_plain
+
+    # each block row's products summed in entry order: the same bits on
+    # every call
+    return bsr_spmm_plain(m, x.to(torch.float64))
+
+
+def plain_bsr_twice(m64, dev, card):
+    """(c): two calls of the float64 plain-BSR matvec (bsr_matvec of the
+    float64 blocks) at (15, n) give the same bits."""
+    import torch
+
+    from diaglib_tpu_torch import bsr_matvec
+
+    x = torch.randn((N_MAX, N), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(11))
+    mv = bsr_matvec(m64)
+    y1, y2 = mv(x), mv(x)
+    same = torch.equal(y1, y2)
+    log(f"[bsr float64] bsr_matvec (15, {N}) twice: bit-equal {same} "
+        f"({card})")
+    if not same:
+        raise AssertionError("the float64 plain-BSR matvec is not "
+                             "deterministic")
+
+
+def dist_bsr_twice(m, sh, card):
+    """(f): two calls of the distributed-BSR matvec (dist_bsr_matvec of the
+    float32 blocks on float64 x, one rank) give the same bits, within
+    1e-14 max|y| of the plain product."""
+    import torch
+
+    from diaglib_tpu_torch.ops.dist_bsr import distribute_bsr, dist_bsr_matvec
+
+    dm = distribute_bsr(m, 1, rank=sh.rank)
+    x = torch.randn((N_MAX, N), dtype=torch.float64, device=m.rows.device,
+                    generator=torch.Generator(device=m.rows.device)
+                    .manual_seed(12))
+    mv = dist_bsr_matvec(dm, sh)
+    y1, y2 = mv(x), mv(x)
+    same = torch.equal(y1, y2)
+    ref = plain_bsr_matvec(m, x)
+    err = float((y1 - ref).abs().max() / ref.abs().max())
+    log(f"[dist_bsr float64] dist_bsr_matvec (15, {N}) twice: bit-equal "
+        f"{same}, {err:.2e} of max|y| from the plain product ({card})")
+    if not (same and err <= 1e-14):
+        raise AssertionError("the float64 distributed-BSR matvec is off")
+    del dm
 
 
 def check_kernels_k1_k2(store, dev, card, stats, max_err):
@@ -1049,6 +1098,7 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
             dsl.dist_sliced_matvec(one, sh), d_hi, guess, opts, lo_tol=2e-6,
             lo_iter=35, generator=gen, sharding=sh))
         check_pairs("sharded davidson_ladder", rs, m)
+        dist_bsr_twice(m, sh, card)
         if inside is not None:
             inside(one, sh, d_hi)
     finally:
@@ -1137,6 +1187,166 @@ def rayleigh_quotient(mv, rows, L, dev, seed):
     q = torch.linalg.qr(x.T)[0].T.contiguous()
     aq = torch.cat([mv(q[i:i + k]) for i in range(0, L, k)])
     return q @ aq.T
+
+
+class host_reads:
+    """Counts the host's reads of the device: torch.cuda's sync debug mode
+    warns at every synchronizing call (a copy to the host, ``.item()``, a
+    library's error check), and each warning is kept.  ``marks`` holds the
+    count at each of the Davidson steps' flag reads, one an iteration, so
+    ``per_iteration()`` gives the reads between two of them."""
+
+    def __enter__(self):
+        import importlib
+        import warnings
+
+        import torch
+
+        self.dmod = importlib.import_module(
+            "diaglib_tpu_torch.solvers.davidson")
+        self._catch = warnings.catch_warnings(record=True)
+        self.log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.marks = []
+        outer = self
+
+        class Marked:
+            def __init__(self, real):
+                self.real = real
+
+            def __call__(self, flags):
+                out = self.real(flags)
+                outer.marks.append(outer.reads())
+                return out
+
+            @property
+            def count(self):
+                return self.real.count
+
+            @count.setter
+            def count(self, value):
+                self.real.count = value
+
+        self.real = self.dmod._read_flags
+        self.dmod._read_flags = Marked(self.real)
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self.dmod._read_flags = self.real
+        self._catch.__exit__(*exc)
+        return False
+
+    def reads(self):
+        return sum("synchroniz" in str(w.message) for w in self.log)
+
+    def per_iteration(self, solves):
+        """Reads between consecutive flag reads of one solve (an
+        iteration's, from a solve's second on), given the solves' records
+        (their ``flag_reads``, in order)."""
+        out, at = [], 0
+        for s in solves:
+            marks = self.marks[at:at + s["flag_reads"]]
+            out += [b - a for a, b in zip(marks, marks[1:])]
+            at += s["flag_reads"]
+        return out
+
+
+SOLVE_FIELDS = ("eig", "evec", "done", "rms_history", "max_history",
+                "eig_history")
+
+
+def captured_vs_uncaptured(tag, run, dev, card, reps=5):
+    """(d) and (b): the ladder on its default route, its steps captured and
+    replayed as CUDA graphs, and on the uncaptured route (the same steps
+    called directly, through the private entry): every returned tensor bit
+    for bit, the same counts, the same K2 and K1 launches (K3's differ: a
+    replay runs every unrolled ortho pass); the median of ``reps`` warm
+    walls of each, run in turns; the host's reads an iteration
+    (host_reads) on each; the rare-branch reruns, graph capture seconds and
+    pool memory of each stage.  Returns the two medians."""
+    import importlib
+
+    import torch
+
+    dmod = importlib.import_module("diaglib_tpu_torch.solvers.davidson")
+    from diaglib_tpu_torch.utils.graphs import kernel_counters
+
+    counters = kernel_counters()
+
+    def once(route, reads=False):
+        for f in counters.values():
+            f.launches = 0
+        reader = host_reads() if reads else None
+        with dmod._recording(route) as rec:
+            if reader:
+                with reader:
+                    res = run(torch.Generator(device=dev).manual_seed(1))
+                    torch.cuda.synchronize()
+            else:
+                t0 = time.perf_counter()
+                res = run(torch.Generator(device=dev).manual_seed(1))
+                torch.cuda.synchronize()
+                rec.wall = time.perf_counter() - t0
+        rec.launches = {k: f.launches for k, f in counters.items()}
+        rec.reader = reader
+        return res, rec
+
+    cap, rc = once(None)
+    unc, ru = once("eager")
+    same = all(torch.equal(getattr(cap, f), getattr(unc, f))
+               for f in SOLVE_FIELDS)
+    counts = [(r.n_iter, r.n_matvec, r.ok, r.ortho_ok) for r in (cap, unc)]
+    walls = {"graphs": [], "eager": []}
+    for i in range(reps):
+        for route in ((None, "eager") if i % 2 else ("eager", None)):
+            _, rec = once(route)
+            walls["graphs" if route is None else "eager"].append(rec.wall)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    _, rr_c = once(None, reads=True)
+    _, rr_u = once("eager", reads=True)
+
+    def reads_line(rec):
+        per = rec.reader.per_iteration(rec.solves)
+        its = sum(s["iterations"] for s in rec.solves)
+        return (f"{rec.reader.reads()} reads in {its} iterations "
+                f"({rec.reader.reads() / its:.2f} an iteration; between flag "
+                f"reads median {statistics.median(per)}, max {max(per)})")
+
+    stages = "; ".join(
+        f"{s['dtype']} {s['iterations']} iterations, reruns {s['reruns']}, "
+        f"capture {s['capture_s'] * 1e3:.1f} ms, pool "
+        f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}"
+        for s in rc.solves)
+    log(f"[{tag} captured] {stages} ({card})")
+    log(f"[{tag} captured vs uncaptured] bit-identical eig, evec, done, "
+        f"histories: {same}; counts {counts[0]} vs {counts[1]}; launches "
+        f"{json.dumps(rc.launches)} vs {json.dumps(ru.launches)}; median of "
+        f"{reps} warm walls {med['graphs']:.4f} s captured vs "
+        f"{med['eager']:.4f} s uncaptured (walls {walls}) ({card})")
+    log(f"[{tag} host reads] captured: {reads_line(rr_c)}; uncaptured (the "
+        f"eager loop's shape): {reads_line(rr_u)} ({card})")
+    # the matvec steps launch K2 and K1 as often on both routes (but for a
+    # rare-branch rerun, which runs steps 1-2 again); the unrolled ortho
+    # passes of a replay launch K3 whether or not their loop has stopped
+    reruns = sum(sum(s["reruns"].values()) for s in rc.solves)
+    matvec_kernels = ("peel_rows", "sym_spmm")
+    if not (same and counts[0] == counts[1]
+            and (reruns or all(rc.launches[k] == ru.launches[k]
+                               for k in matvec_kernels))):
+        raise AssertionError(f"{tag}: the captured and uncaptured ladders "
+                             "differ")
+    # an iteration after a rare-branch rerun reads more (the rerun's eager
+    # loops): the limit holds where no step was run again
+    per = rr_c.reader.per_iteration(rr_c.solves)
+    if not any(sum(s["reruns"].values()) for s in rr_c.solves) and \
+            max(per) > 3:
+        raise AssertionError(f"{tag}: more than 3 host reads an iteration "
+                             "on the captured route")
+    return med
 
 
 def davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi):
@@ -1928,8 +2138,9 @@ def traced_ladder(run_d, dev, counted, card):
         f"{res.n_iter} iterations, wall {wall_s:.3f} s (profiled); trace "
         f"{size / 1e6:.1f} MB names {list(TRACE_NAMES)}; device busy "
         f"{busy:.1f} ms of the {wall_s * 1e3:.1f} ms wall "
-        f"({100 * busy / (wall_s * 1e3):.1f} %); {n_kernels} device "
-        f"kernels, {n_kernels / res.n_iter:.1f} an iteration ({card})")
+        f"({100 * busy / (wall_s * 1e3):.1f} %, beside the eager loop's "
+        f"37.3 % in PERF.md §5); {n_kernels} device kernels, "
+        f"{n_kernels / res.n_iter:.1f} an iteration ({card})")
     log(f"[trace] scopes (kernels by where they were launched): {parts}; "
         f"launched outside them {outside:.1f} ms")
     log(f"[trace] device time by kernel: {tops}")
@@ -2076,11 +2287,11 @@ def main(argv=None):
         lobpcg_ladder,
         nonsym_ladder,
     )
-    from diaglib_tpu_torch.ops import _build, bsr, slicing
+    from diaglib_tpu_torch.ops import _build, bsr
     from diaglib_tpu_torch.ops import bsr_sliced as bs
-    from diaglib_tpu_torch.ops import dist_sliced as dsl
     from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
     from diaglib_tpu_torch.ops.bsr import random_bsr_spd
+    from diaglib_tpu_torch.utils.graphs import kernel_counters
     from diaglib_tpu_torch.problems import (
         _band_bsr,
         _bsr_transpose_band,
@@ -2185,12 +2396,7 @@ def main(argv=None):
     check_small_matvecs(dev)
 
     # ---- 5. the ladders ----
-    counters = {"peel_rows": slicing.peel_rows,
-                "sym_spmm": sym.sym_spmm,
-                "sliced_wide_mm": slicing.sliced_wide_mm,
-                "bsr_spmm": bsr.bsr_spmm,
-                "sliced_spmm": bs.sliced_spmm,
-                "group_spmm": dsl.group_spmm}
+    counters = kernel_counters()
     launches = dict.fromkeys(counters, 0)
     opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
                          tol=1e-10, max_dav=10)
@@ -2255,15 +2461,20 @@ def main(argv=None):
         generator=gen))
     check_pairs("lobpcg_ladder", res, m)
 
-    # (b) generalized Davidson ladder on the (A, B) pair
-    res, _ = timed("gen_david_ladder", lambda gen: gen_david_ladder(
-        sym.sliced_matvec_any(gen_a, dtype=f32),
-        diag_precnd(gen_a.diagonal.to(f32)),
-        sym.sliced_matvec_any(gen_b, dtype=f32),
-        sym.sliced_matvec_any(gen_a), diag_precnd(gen_a.diagonal),
-        sym.sliced_matvec_any(gen_b), guess, opts, lo_tol=2e-6, lo_iter=60,
-        generator=gen))
+    # (b) generalized Davidson ladder on the (A, B) pair, captured and
+    # uncaptured
+    def run_b(gen):
+        return gen_david_ladder(
+            sym.sliced_matvec_any(gen_a, dtype=f32),
+            diag_precnd(gen_a.diagonal.to(f32)),
+            sym.sliced_matvec_any(gen_b, dtype=f32),
+            sym.sliced_matvec_any(gen_a), diag_precnd(gen_a.diagonal),
+            sym.sliced_matvec_any(gen_b), guess, opts, lo_tol=2e-6,
+            lo_iter=60, generator=gen)
+
+    res, _ = timed("gen_david_ladder", run_b)
     check_pairs("gen_david_ladder", res, m, b_bsr)
+    captured_vs_uncaptured("gen_david_ladder", run_b, dev, card)
     del gen_a, gen_b, b_bsr
 
     # (c) the plain-BSR Davidson ladder (K4 in the float32 stage)
@@ -2273,13 +2484,15 @@ def main(argv=None):
         diag_precnd(d), guess, opts, lo_tol=2e-6, lo_iter=35,
         generator=gen))
     check_pairs("bsr_davidson_ladder", res, m)
+    plain_bsr_twice(m64, dev, card)
     del m64
 
     # (d) the sliced Davidson ladder, wide rotations on ("auto") and off
-    runs = {}
+    runs, runs_opts = {}, {}
     for mode in ("auto", "never"):
-        o = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
-                          tol=1e-10, max_dav=10, wide_mm=mode)
+        o = runs_opts[mode] = SolverOptions(n_targ=N_TARG, n_max=N_MAX,
+                                            max_iter=150, tol=1e-10,
+                                            max_dav=10, wide_mm=mode)
         runs[mode] = timed(f"davidson_ladder wide_mm={mode}",
                            lambda gen, o=o: davidson_ladder(
                                mv_lo, pc_lo, mv_hi, pc_hi, guess, o,
@@ -2292,6 +2505,11 @@ def main(argv=None):
         f"{wn:.3f} s ({card})")
     if not (d_eig <= 1e-10 and abs(ra.n_iter - rn.n_iter) <= 2):
         raise AssertionError("wide_mm='auto' and 'never' disagree")
+    captured_vs_uncaptured("davidson_ladder wide_mm=auto", lambda gen:
+                           davidson_ladder(mv_lo, pc_lo, mv_hi, pc_hi, guess,
+                                           runs_opts["auto"], lo_tol=2e-6,
+                                           lo_iter=35, generator=gen),
+                           dev, card)
 
     # (h2) the sliced Gram product on the card; (h1) (d) under the host and
     # Jacobi reduced routes and the sliced Gram route

@@ -25,7 +25,7 @@ from . import _build
 
 __all__ = ["BSRMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_diagonal",
            "bsr_matvec", "bsr_spmm", "bsr_spmm_plain", "random_bsr_spd",
-           "bsr_from_arrays"]
+           "bsr_from_arrays", "row_slots", "segment_sum", "entry_products"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,25 +157,65 @@ def bsr_diagonal(m: BSRMatrix) -> torch.Tensor:
 _PLAIN_CHUNK = 64     # entries per batched product in bsr_spmm_plain
 
 
-def bsr_spmm_plain(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+def row_slots(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``(n_rows, P)`` int64 indices of each row's entries in entry order
+    (P the most entries a row), padded with ``len(rows)``: the fixed order
+    of :func:`segment_sum`.  Built on the host from ``rows``, on its
+    device."""
+    r = rows.cpu().numpy().astype(np.int64)
+    counts = np.bincount(r, minlength=n_rows) if len(r) else \
+        np.zeros(n_rows, np.int64)
+    width = max(int(counts.max()) if n_rows else 0, 1)
+    slots = np.full((n_rows, width), len(r), np.int64)
+    order = np.argsort(r, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(r)) - np.repeat(starts, counts)
+    slots[r[order], pos] = order
+    return torch.as_tensor(slots, device=rows.device)
+
+
+def segment_sum(prods: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Row sums of the per-entry products ``prods`` (E, ...) over
+    :func:`row_slots`: each row's terms added in one fixed order, so the
+    result is the same on every call (``index_add_`` on a CUDA tensor adds
+    them in the order its atomics land)."""
+    pad = prods.new_zeros((1,) + tuple(prods.shape[1:]))
+    return torch.cat([prods, pad])[slots].sum(dim=1)
+
+
+def entry_products(cols: torch.Tensor, blocks_t: torch.Tensor,
+                   xb: torch.Tensor) -> torch.Tensor:
+    """``xb[cols[e]] @ blocks_t[e]`` for every entry e, a chunk of entries
+    at a time; xb (block columns, k, B) in the accumulation type."""
+    prods = torch.empty((blocks_t.shape[0],) + tuple(xb.shape[1:]),
+                        dtype=xb.dtype, device=xb.device)
+    for s in range(0, blocks_t.shape[0], _PLAIN_CHUNK):
+        e = slice(s, s + _PLAIN_CHUNK)
+        prods[e] = xb[cols[e].long()] @ blocks_t[e].to(xb.dtype)
+    return prods
+
+
+def bsr_spmm_plain(m: BSRMatrix, x: torch.Tensor,
+                   slots: torch.Tensor | None = None) -> torch.Tensor:
     """The plain torch version of kernel K4: ``y = x @ A^T``.
 
     Gathers x's block columns, multiplies them by the blocks a chunk of
-    entries at a time and adds the products into their block rows.  It
-    computes in float64 when x or the blocks are float64 and in float32
-    otherwise (bfloat16 widened), and returns x's dtype.
+    entries at a time and sums each block row's products in entry order
+    (:func:`segment_sum`, the same bits on every call; ``slots`` is
+    :func:`row_slots` of the rows, derived here, with a read of the
+    device, when not given).  It computes in float64 when x or the blocks
+    are float64 and in float32 otherwise (bfloat16 widened), and returns
+    x's dtype.
     """
     B = m.block
     k = x.shape[0]
     nbr = m.n // B
+    if slots is None:
+        slots = row_slots(m.rows, nbr)
     acc = (torch.float64 if torch.float64 in (x.dtype, m.blocks_t.dtype)
            else torch.float32)
     xb = x.to(acc).reshape(k, nbr, B).transpose(0, 1)        # (nbr, k, B)
-    out = torch.zeros((nbr, k, B), dtype=acc, device=x.device)
-    for s in range(0, m.nnzb, _PLAIN_CHUNK):
-        e = slice(s, s + _PLAIN_CHUNK)
-        prods = xb[m.cols[e].long()] @ m.blocks_t[e].to(acc)  # (E, k, B)
-        out.index_add_(0, m.rows[e].long(), prods)
+    out = segment_sum(entry_products(m.cols, m.blocks_t, xb), slots)
     return out.transpose(0, 1).reshape(k, m.n).to(x.dtype)
 
 
@@ -251,11 +291,16 @@ def bsr_matvec(m: BSRMatrix, *, force_reference: bool = False):
     product :func:`bsr_spmm_plain` on the blocks' device, as the reference
     computes float64 outside its kernel.  ``force_reference=True`` asks for
     :func:`bsr_spmm_plain` at every dtype, on the blocks' device, as the
-    reference's keyword forces its segment-sum path.
+    reference's keyword forces its segment-sum path.  The plain product's
+    row order (:func:`row_slots`) is derived once, here, so that a call
+    reads nothing back from the device.
     """
+    plain = force_reference or m.blocks_t.dtype == torch.float64
+    slots = row_slots(m.rows, m.n // m.block) if plain else None
+
     def mv(x):
-        if force_reference or m.blocks_t.dtype == torch.float64:
-            return bsr_spmm_plain(m, x)
+        if plain:
+            return bsr_spmm_plain(m, x, slots)
         return bsr_spmm(m, x)
 
     return mv

@@ -25,11 +25,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .bsr import BSRMatrix
+from .bsr import BSRMatrix, entry_products, row_slots, segment_sum
 
 __all__ = ["DistBSRMatrix", "distribute_bsr", "dist_bsr_matvec"]
 
-_CHUNK = 64           # entries per batched product of the segment product
+_CHUNK = 64           # entries gathered at a time
 
 
 def _ring_offset_groups(rows, cols, nbr_loc: int, D: int, pad_row: int):
@@ -179,14 +179,12 @@ def _check_group(dm, sharding):
     return dm.shard(sharding.rank)
 
 
-def _segment_spmm(xb, lr, lc, blocks, init):
-    """``init[lr[e]] += xb[lc[e]] @ blocks[e]`` for every entry e, a chunk
-    at a time; xb (nbr_loc, k, B), init (nbr_loc, k, B), updated in place.
-    """
-    for s in range(0, blocks.shape[0], _CHUNK):
-        e = slice(s, s + _CHUNK)
-        prods = xb[lc[e].long()] @ blocks[e].to(xb.dtype)
-        init.index_add_(0, lr[e].long(), prods)
+def _segment_spmm(xb, lc, blocks, init, slots):
+    """``init[r] += sum of xb[lc[e]] @ blocks[e]`` over the entries e of
+    row r, each row's sum in entry order (``slots``, :func:`~.bsr.row_slots`
+    of the entries' rows: the same bits on every call); xb (nbr_loc, k,
+    B), init (nbr_loc, k, B), updated in place."""
+    init += segment_sum(entry_products(lc, blocks, xb), slots)
     return init
 
 
@@ -200,6 +198,7 @@ def dist_bsr_matvec(dm: DistBSRMatrix, sharding):
     sh = _check_group(dm, sharding)
     B = dm.block
     nbr_loc = dm.n_local // B
+    slots = [row_slots(lr, nbr_loc) for lr in sh.loc_rows]
 
     def mv(x):
         k = x.shape[0]
@@ -208,8 +207,7 @@ def dist_bsr_matvec(dm: DistBSRMatrix, sharding):
         for i, p in enumerate(pending):
             x_s = p.wait()
             xb = x_s.reshape(k, nbr_loc, B).transpose(0, 1)
-            _segment_spmm(xb, sh.loc_rows[i], sh.loc_cols[i], sh.blocks_t[i],
-                          y)
+            _segment_spmm(xb, sh.loc_cols[i], sh.blocks_t[i], y, slots[i])
         return y.transpose(0, 1).reshape(k, nbr_loc * B)
 
     return mv

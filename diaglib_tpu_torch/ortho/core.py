@@ -3,8 +3,22 @@
 
 Every routine works on row-major vector blocks ``U: (k, n)`` with an
 optional boolean row-validity ``mask``; masked rows are zero and stay zero.
-The retry and refinement loops are plain Python loops with the reference's
-ladders and tolerances.
+The retry and refinement loops keep the reference's ladders, tolerances
+and state (``_CDState`` / ``_VsXState``): their predicates (converged,
+failed, stalled, the growth / overlap test, b_ortho's Cholesky / SVD
+choice) are 0-d device tensors, and each pass leaves the state unchanged
+through a mask once the loop's own predicate says stop.  Such a loop runs
+in one of two ways (:func:`_passes`):
+
+* eagerly, reading its predicate once a pass, as the reference's
+  ``lax.while_loop`` tests its ``cond``; the public routines always run
+  so, and return Python bools and floats as they did;
+* unrolled to a fixed number of passes, under :class:`unrolled`: nothing
+  is read, so a solver step can be captured as a CUDA graph, and the
+  context records on the device whether every loop stopped within its
+  passes (and no QR fallback or SVD rescue was needed), i.e. whether the
+  unrolled result is the loop's own.  A caller whose step did not finish
+  runs it again eagerly (``solvers/davidson.py``).
 
 * ``norm_est``   — triangular norm bound.
 * ``ortho_cd``   — shifted Cholesky + iterative refinement + growth model.
@@ -55,6 +69,86 @@ def _rowmask(mask, k, device):
     return mask
 
 
+class unrolled:
+    """Run the refinement loops entered under this context unrolled to the
+    fixed pass counts of ``budgets`` (keys "vs", the ortho_vs_x passes;
+    "cd", ortho_cd's refinement passes; "shift", the Cholesky level-shift
+    retries), reading nothing back.
+
+    ``finished`` (a 0-d bool tensor, or None when no loop could fall
+    short) is true when every loop stopped within its passes and no
+    branch that only an eager loop takes (ortho_cd's QR fallback,
+    b_ortho's SVD rescue) was needed: the result is then the eager loops'
+    own, bit for bit.  ``live`` is the mask of the pass being computed
+    (None outside any masked pass)."""
+
+    def __init__(self, budgets: dict):
+        if budgets["vs"] < 1 or budgets["cd"] < 1 or budgets["shift"] < 0:
+            raise ValueError(f"unrolled: budgets {budgets} below 1 pass")
+        self.budgets = budgets
+        self.live = None
+        self.finished = None
+
+    def need(self, flag: torch.Tensor):
+        """The result is the loops' own only if ``flag`` holds (in a live
+        pass)."""
+        if self.live is not None:
+            flag = flag | ~self.live
+        self.finished = flag if self.finished is None else (
+            self.finished & flag)
+
+    def __enter__(self):
+        self.prev = _UNROLLED[0]
+        _UNROLLED[0] = self
+        return self
+
+    def __exit__(self, *exc):
+        _UNROLLED[0] = self.prev
+
+
+# the unrolled context in force (None: loops run eagerly)
+_UNROLLED = [None]
+
+
+def _passes(key: str, max_iter: int, done_of):
+    """The passes of a refinement loop that stops once ``done_of()`` (a
+    0-d bool tensor, or Python False before the first pass) holds, or
+    after ``max_iter`` passes: the reference's ``lax.while_loop``.
+
+    Eagerly, it reads the predicate once a pass.  Under :class:`unrolled`
+    it yields ``budgets[key]`` passes (at most max_iter) without a read,
+    each with ``live`` set to the loop's own mask, and when the budget is
+    short of max_iter records that the loop must have stopped by then."""
+    rec = _UNROLLED[0]
+    if rec is None:
+        for it in range(max_iter):
+            done = done_of()
+            if done is not False and bool(done):
+                return
+            yield it
+        return
+    outer = rec.live
+    count = min(max_iter, rec.budgets[key])
+    try:
+        for it in range(count):
+            done = done_of()
+            if done is not False:
+                rec.live = ~done if outer is None else outer & ~done
+            yield it
+    finally:
+        rec.live = outer
+    if count < max_iter:
+        rec.need(done_of())
+
+
+def _keep(new, old):
+    """``new`` in a live pass, ``old`` in a masked one."""
+    rec = _UNROLLED[0]
+    if rec is None or rec.live is None:
+        return new
+    return torch.where(rec.live, new, old)
+
+
 def norm_est(L: torch.Tensor, mask=None) -> torch.Tensor:
     """||L|| <= max_i |L_ii| + ||strict lower||_F, masked rows/cols out."""
     mask = _rowmask(mask, L.shape[0], L.device)
@@ -64,21 +158,57 @@ def norm_est(L: torch.Tensor, mask=None) -> torch.Tensor:
     return diag_norm + torch.sqrt((lower * lower).sum())
 
 
-def _shifted_cholesky(metric, mask, unorm: float, dtype):
+def _shifted_cholesky(metric, mask, unorm, dtype):
     """Cholesky with the level-shift retry ladder: on failure add
     ``max(eps*alpha*||U||, tol_ortho)`` to the valid diagonal, alpha = 100
-    growing 10x per retry, at most _MAXIT retries.  Returns (L, failed)."""
+    growing 10x per retry, at most _MAXIT retries.  Returns (L, failed),
+    ``failed`` a 0-d bool tensor."""
     L, failed = masked_cholesky(metric, mask)
     alpha = 100.0
-    it = 0
-    while failed and it < _MAXIT:
-        shift = max(_eps(dtype) * alpha * unorm, _tol_ortho(dtype))
+    for _ in _passes("shift", _MAXIT, lambda: ~failed):
+        shift = torch.clamp(_eps(dtype) * alpha * unorm, min=_tol_ortho(dtype))
         shifted = metric + torch.diag(
             torch.where(mask, shift, 0.0).to(metric.dtype))
-        L, failed = masked_cholesky(shifted, mask)
+        L_new, failed_new = masked_cholesky(shifted, mask)
+        L, failed = _keep(L_new, L), _keep(failed_new, failed)
         alpha *= 10.0
-        it += 1
     return L, failed
+
+
+def _ortho_cd(u: torch.Tensor, mask=None, max_iter: int = _MAXIT):
+    """:func:`ortho_cd` with ``growth`` and ``ok`` as 0-d tensors."""
+    k, n = u.shape
+    dtype = u.dtype
+    mask = _rowmask(mask, k, u.device)
+    eye = torch.eye(k, dtype=dtype, device=u.device)
+    growth = torch.ones((), dtype=dtype, device=u.device)
+    prev_rcond = torch.full((), math.inf, dtype=dtype, device=u.device)
+    ok = torch.zeros((), dtype=torch.bool, device=u.device)
+    done = False
+    for it in _passes("cd", max_iter, lambda: done):
+        metric = mmT(u, u)
+        unorm = torch.sqrt(sum_n(u * u))
+        L, failed = _shifted_cholesky(metric, mask, unorm, dtype)
+        linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        l_norm = norm_est(L, mask)
+        linv_norm = norm_est(linv, mask)
+        rcond = l_norm * linv_norm
+        error = _eps(dtype) * rcond * rcond
+        converged = error < _tol_ortho(dtype)
+        # each refinement pass squares the orthogonality error, so rcond
+        # must drop sharply pass over pass; a stalled rcond means the
+        # block is numerically rank deficient and can never converge here
+        stop = converged | failed
+        if it > 0:
+            stop = stop | ((rcond >= 0.5 * prev_rcond) & ~converged)
+        # a failed ladder leaves u and growth as they were
+        u = _keep(torch.where(failed, u, mm(linv, u)), u)
+        growth = _keep(torch.where(failed, growth, growth * linv_norm),
+                       growth)
+        ok = _keep(converged, ok)
+        prev_rcond = _keep(rcond, prev_rcond)
+        done = _keep(stop, done)
+    return u, growth, ok & done if done is not False else ok
 
 
 def ortho_cd(u: torch.Tensor, mask=None, max_iter: int = _MAXIT):
@@ -90,37 +220,8 @@ def ortho_cd(u: torch.Tensor, mask=None, max_iter: int = _MAXIT):
     converge (the shift ladder failed, rcond stalled, or max_iter passes
     ran out) — callers then fall back to QR.
     """
-    k, n = u.shape
-    dtype = u.dtype
-    mask = _rowmask(mask, k, u.device)
-    eye = torch.eye(k, dtype=dtype, device=u.device)
-    growth = 1.0
-    prev_rcond = math.inf
-    ok = False
-    done = False
-    it = 0
-    while not done and it < max_iter:
-        metric = mmT(u, u)
-        unorm = float(torch.sqrt(sum_n(u * u)))
-        L, failed = _shifted_cholesky(metric, mask, unorm, dtype)
-        linv = torch.linalg.solve_triangular(L, eye, upper=False)
-        l_norm = float(norm_est(L, mask))
-        linv_norm = float(norm_est(linv, mask))
-        rcond = l_norm * linv_norm
-        error = _eps(dtype) * rcond * rcond
-        converged = error < _tol_ortho(dtype)
-        # each refinement pass squares the orthogonality error, so rcond
-        # must drop sharply pass over pass; a stalled rcond means the
-        # block is numerically rank deficient and can never converge here
-        stalled = it > 0 and rcond >= 0.5 * prev_rcond and not converged
-        done = converged or failed or stalled
-        ok = converged
-        if not failed:
-            u = mm(linv, u)
-            growth = growth * linv_norm
-        prev_rcond = rcond
-        it += 1
-    return u, growth, ok and done
+    u, growth, ok = _ortho_cd(u, mask, max_iter)
+    return u, float(growth), bool(ok)
 
 
 def ortho_qr(u: torch.Tensor, mask=None, extra=None):
@@ -160,31 +261,49 @@ def ortho_qr(u: torch.Tensor, mask=None, extra=None):
 
 
 def _ortho_or_qr(u, mask):
-    """ortho_cd with the QR fallback; returns (u, growth, cd_ok).  When
-    ortho_cd fails, u comes from QR and callers must compute the explicit
-    overlap to test convergence."""
-    u_cd, growth, ok = ortho_cd(u, mask)
-    return (u_cd if ok else ortho_qr(u, mask)), growth, ok
+    """ortho_cd with the QR fallback; returns (u, growth, cd_ok), the last
+    two 0-d tensors.  When ortho_cd fails, u comes from QR and callers
+    must compute the explicit overlap to test convergence.  Under
+    :class:`unrolled` the fallback is not taken: the context records
+    that it was needed."""
+    u_cd, growth, ok = _ortho_cd(u, mask)
+    rec = _UNROLLED[0]
+    if rec is not None:
+        rec.need(ok)
+        return u_cd, growth, ok
+    return (u_cd if bool(ok) else ortho_qr(u, mask)), growth, ok
 
 
 def _iterate_vs_x(project, x_for_overlap, u, umask, max_iter):
     """Project out X, re-orthonormalize, repeat until the (estimated)
-    overlap with X is below 2*eps.  Returns (u, done)."""
+    overlap with X is below 2*eps.  Returns (u, done), ``done`` a 0-d
+    bool tensor."""
     dtype = u.dtype
     u, _, _ = _ortho_or_qr(u, umask)
     done = False
-    it = 0
-    while not done and it < max_iter:
-        uu = project(u)
-        u, growth, cd_ok = _ortho_or_qr(uu, umask)
-        if cd_ok:
-            xu_norm = growth * _eps(dtype)
-        else:
-            overlap = mmT(u, x_for_overlap)
-            xu_norm = float(torch.sqrt((overlap * overlap).sum()))
-        done = xu_norm < _tol_ortho(dtype)
-        it += 1
+    for _ in _passes("vs", max_iter, lambda: done):
+        uu, growth, cd_ok = _ortho_or_qr(project(u), umask)
+        xu_norm = growth * _eps(dtype)
+        if _UNROLLED[0] is None and not bool(cd_ok):
+            overlap = mmT(uu, x_for_overlap)
+            xu_norm = torch.sqrt((overlap * overlap).sum())
+        u = _keep(uu, u)
+        done = _keep(xu_norm < _tol_ortho(dtype), done)
+    if done is False:
+        done = torch.zeros((), dtype=torch.bool, device=u.device)
     return u, done
+
+
+def _ortho_vs_x(x, u, xmask=None, umask=None, max_iter: int = _MAXIT):
+    """:func:`ortho_vs_x` with ``done`` a 0-d tensor."""
+    xmask = _rowmask(xmask, x.shape[0], x.device)
+    umask = _rowmask(umask, u.shape[0], u.device)
+    xm = torch.where(xmask[:, None], x, 0.0)
+
+    def project(uu):
+        return uu - mm(mmT(uu, xm), xm)
+
+    return _iterate_vs_x(project, xm, u, umask, max_iter)
 
 
 def ortho_vs_x(x: torch.Tensor, u: torch.Tensor, xmask=None, umask=None,
@@ -196,14 +315,34 @@ def ortho_vs_x(x: torch.Tensor, u: torch.Tensor, xmask=None, umask=None,
     when available.  Masked rows of x and u are zero and stay zero.
     Returns ``(u, done)``.
     """
-    xmask = _rowmask(xmask, x.shape[0], x.device)
-    umask = _rowmask(umask, u.shape[0], u.device)
-    xm = torch.where(xmask[:, None], x, 0.0)
+    u, done = _ortho_vs_x(x, u, xmask, umask, max_iter)
+    return u, bool(done)
 
-    def project(uu):
-        return uu - mm(mmT(uu, xm), xm)
 
-    return _iterate_vs_x(project, xm, u, umask, max_iter)
+def _b_ortho(u, bu, mask=None):
+    """:func:`b_ortho` with ``ok`` a 0-d tensor; under :class:`unrolled`
+    the SVD rescue is not taken, and the context records when it was
+    needed."""
+    k = u.shape[0]
+    mask = _rowmask(mask, k, u.device)
+    norms = norm_n(u)
+    inv = torch.where(norms > 0.0,
+                      1.0 / torch.where(norms > 0.0, norms, 1.0), 1.0)
+    u = u * inv[:, None]
+    bu = bu * inv[:, None]
+    metric = mmT(u, bu)
+    L, failed = masked_cholesky(metric, mask)
+    rec = _UNROLLED[0]
+    if rec is None and bool(failed):
+        u_new, bu_new = b_ortho_svd(u, bu, mask)
+    else:
+        if rec is not None:
+            rec.need(~failed)
+        u_new = torch.linalg.solve_triangular(L, u, upper=False)
+        bu_new = torch.linalg.solve_triangular(L, bu, upper=False)
+    u_new = torch.where(mask[:, None], u_new, 0.0)
+    bu_new = torch.where(mask[:, None], bu_new, 0.0)
+    return u_new, bu_new, ~failed
 
 
 def b_ortho(u: torch.Tensor, bu: torch.Tensor, mask=None):
@@ -218,23 +357,8 @@ def b_ortho(u: torch.Tensor, bu: torch.Tensor, mask=None):
 
     Returns ``(u, bu, ok)``; masked rows are zero.
     """
-    k = u.shape[0]
-    mask = _rowmask(mask, k, u.device)
-    norms = norm_n(u)
-    inv = torch.where(norms > 0.0,
-                      1.0 / torch.where(norms > 0.0, norms, 1.0), 1.0)
-    u = u * inv[:, None]
-    bu = bu * inv[:, None]
-    metric = mmT(u, bu)
-    L, failed = masked_cholesky(metric, mask)
-    if failed:
-        u_new, bu_new = b_ortho_svd(u, bu, mask)
-    else:
-        u_new = torch.linalg.solve_triangular(L, u, upper=False)
-        bu_new = torch.linalg.solve_triangular(L, bu, upper=False)
-    u_new = torch.where(mask[:, None], u_new, 0.0)
-    bu_new = torch.where(mask[:, None], bu_new, 0.0)
-    return u_new, bu_new, not failed
+    u, bu, ok = _b_ortho(u, bu, mask)
+    return u, bu, bool(ok)
 
 
 def b_ortho_svd(u: torch.Tensor, bu: torch.Tensor, mask=None,
@@ -258,11 +382,9 @@ def b_ortho_svd(u: torch.Tensor, bu: torch.Tensor, mask=None,
     return u_new, bu_new
 
 
-def b_ortho_vs_x(x: torch.Tensor, bx: torch.Tensor, u: torch.Tensor,
-                 xmask=None, umask=None, max_iter: int = _MAXIT):
-    """B-orthogonalize u against x (metric overlap ``u bx^T``), then
-    orthonormalize u; iterate as :func:`ortho_vs_x`.  Returns
-    ``(u, done)``."""
+def _b_ortho_vs_x(x, bx, u, xmask=None, umask=None,
+                  max_iter: int = _MAXIT):
+    """:func:`b_ortho_vs_x` with ``done`` a 0-d tensor."""
     xmask = _rowmask(xmask, x.shape[0], x.device)
     umask = _rowmask(umask, u.shape[0], u.device)
     xm = torch.where(xmask[:, None], x, 0.0)
@@ -272,6 +394,15 @@ def b_ortho_vs_x(x: torch.Tensor, bx: torch.Tensor, u: torch.Tensor,
         return uu - mm(mmT(uu, bxm), xm)
 
     return _iterate_vs_x(project, bxm, u, umask, max_iter)
+
+
+def b_ortho_vs_x(x: torch.Tensor, bx: torch.Tensor, u: torch.Tensor,
+                 xmask=None, umask=None, max_iter: int = _MAXIT):
+    """B-orthogonalize u against x (metric overlap ``u bx^T``), then
+    orthonormalize u; iterate as :func:`ortho_vs_x`.  Returns
+    ``(u, done)``."""
+    u, done = _b_ortho_vs_x(x, bx, u, xmask, umask, max_iter)
+    return u, bool(done)
 
 
 def svd_biortho(u_l: torch.Tensor, u_r: torch.Tensor, mask=None):
@@ -303,8 +434,8 @@ def biortho_vs_x(xl: torch.Tensor, xr: torch.Tensor, ul: torch.Tensor,
     dtype = ul.dtype
 
     def overlap_err(x, u, growth, cd_ok):
-        if cd_ok:
-            return growth * _eps(dtype)
+        if bool(cd_ok):
+            return float(growth) * _eps(dtype)
         overlap = mmT(x, u)
         return float(torch.sqrt((overlap * overlap).sum()))
 

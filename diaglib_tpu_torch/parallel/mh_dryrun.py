@@ -202,25 +202,13 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _counters():
-    """Each kernel wrapper of the port, by name; each counts its launches
-    in ``.launches``."""
-    from ..ops import bsr, slicing
-    from ..ops import bsr_sliced as bs
-    from ..ops import bsr_sliced_sym as sym
-    from ..ops import dist_sliced as dsl
-
-    return {"peel_rows": slicing.peel_rows, "sym_spmm": sym.sym_spmm,
-            "sliced_wide_mm": slicing.sliced_wide_mm,
-            "bsr_spmm": bsr.bsr_spmm, "sliced_spmm": bs.sliced_spmm,
-            "group_spmm": dsl.group_spmm}
-
-
 def _counted(dev, fn):
     """``(fn(), seconds, launches)``: every launch count set to 0 just
     before the call and read just after it (a device barrier on both
     sides)."""
-    counters = _counters()
+    from ..utils.graphs import kernel_counters
+
+    counters = kernel_counters()
     _sync(dev)
     for f in counters.values():
         f.launches = 0

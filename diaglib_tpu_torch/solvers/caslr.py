@@ -242,19 +242,20 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
 
     vp0 = _nonzero_or_random(vp0, generator)
     vm0 = _nonzero_or_random(vm0, generator)
-    z0 = zeros(lda_pad, n)
-    lvp, lvm, bvp, bvm = z0, z0, z0, z0
+    # scatter_rows writes in place: every space is a buffer of its own
+    lvp, lvm, bvp, bvm = (zeros(lda_pad, n) for _ in range(4))
     ortho_ok, n_matvec = True, 0
     if eff:
         # B-orthonormal start in the (A+B) / (A-B) metrics
         vp0, lvp0, ok_p = b_ortho(vp0, apbmul(vp0))
         vm0, lvm0, ok_m = b_ortho(vm0, ambmul(vm0))
-        lvp, lvm = scatter_rows(z0, lvp0, 0), scatter_rows(z0, lvm0, 0)
+        scatter_rows(lvp, lvp0, 0), scatter_rows(lvm, lvm0, 0)
         ortho_ok, n_matvec = ok_p and ok_m, 2 * n_max
     else:
         vp0, _, _ = ortho_cd(vp0)
         vm0, _, _ = ortho_cd(vm0)
-    vp, vm = scatter_rows(z0, vp0, 0), scatter_rows(z0, vm0, 0)
+    vp = scatter_rows(zeros(lda_pad, n), vp0, 0)
+    vm = scatter_rows(zeros(lda_pad, n), vm0, 0)
     epmat, emmat, smat = (zeros(lda_pad, lda_pad) for _ in range(3))
     ldu, n_act, m_dim = 0, n_max, 1
     eig = zeros(n_max)
@@ -374,13 +375,15 @@ def _caslr_impl(apbmul, ambmul, spdmul, smdmul, lrprec, evec_guess, options,
             if eff:
                 vpn, lvpn, ok_p = b_ortho(eigp, apbmul(eigp))
                 vmn, lvmn, ok_m = b_ortho(eigm, ambmul(eigm))
-                lvp, lvm = scatter_rows(z0, lvpn, 0), scatter_rows(z0, lvmn, 0)
+                lvp = scatter_rows(zeros(lda_pad, n), lvpn, 0)
+                lvm = scatter_rows(zeros(lda_pad, n), lvmn, 0)
             else:
                 vpn, _, ok_p = ortho_cd(eigp)
                 vmn, _, ok_m = ortho_cd(eigm)
-                lvp, lvm = z0, z0
-            vp, vm = scatter_rows(z0, vpn, 0), scatter_rows(z0, vmn, 0)
-            bvp, bvm = z0, z0
+                lvp, lvm = zeros(lda_pad, n), zeros(lda_pad, n)
+            vp = scatter_rows(zeros(lda_pad, n), vpn, 0)
+            vm = scatter_rows(zeros(lda_pad, n), vmn, 0)
+            bvp, bvm = zeros(lda_pad, n), zeros(lda_pad, n)
             ldu, n_act, m_dim = 0, n_max, 1
             ortho_ok = ortho_ok and ok_p and ok_m
         it += 1

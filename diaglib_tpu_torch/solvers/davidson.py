@@ -1,10 +1,21 @@
 """Block Davidson-Liu eigensolvers, standard and generalized (port of
 ``diaglib_tpu/solvers/davidson.py``).
 
-The loop is eager Python over the same state as the JAX package's
-``lax.while_loop``: the expansion space lives in a fixed ``(lda_pad, n)``
-buffer (``lda = dim_dav*n_max`` plus one block of scatter padding) with a
-row count ``ldu``, so the state matches the reference row for row.
+The loop has the reference's shape: one fixed-shape state (the
+reference's ``_DavidsonState``; the expansion space in a ``(lda_pad, n)``
+buffer, ``lda = dim_dav*n_max`` plus one block of scatter padding, with
+the row count ``ldu`` and every other count a 0-d tensor on the device)
+and an iteration in steps that read nothing back (:class:`_Iteration`).
+On CUDA tensors each step is captured once a solve as a CUDA graph and
+replayed (``utils/graphs.py``, the counterpart of the reference's
+``jit`` around ``lax.while_loop``); the host reads the device once an
+iteration, the packed flags after the last step, beside the reduced
+eigh's own check.  The ortho loops of a captured step run a fixed number
+of masked passes (``_UNROLL``); when they needed more, or the QR
+fallback, or the SVD rescue, the step is run again uncaptured from its
+intact inputs (a rare-branch rerun), which gives the loops' own result.
+CPU tensors and ``sharding=`` runs call the same steps directly, with the
+ortho loops reading their predicates.
 
 Semantics kept from the reference:
 
@@ -38,14 +49,16 @@ kept consistent (the reference's fix of the Fortran restart).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch.profiler import record_function
 
-from ..ortho.core import b_ortho, b_ortho_vs_x, ortho_vs_x
+from ..ortho.core import _b_ortho, _b_ortho_vs_x, _ortho_vs_x, b_ortho, unrolled
 from ..reporting import inflight_progress
 from ..types import SolverOptions, SolverResult
+from ..utils.graphs import StepGraphs
 from ..utils.guess import check_guess
 from ..utils.masking import (
     gather_rows,
@@ -54,15 +67,7 @@ from ..utils.masking import (
     prefix_mask,
     scatter_rows,
 )
-from ..utils.mm import (
-    amax_n,
-    global_n,
-    mm_sharding,
-    mmT,
-    mTm,
-    norm_n,
-    routing_for,
-)
+from ..utils.mm import amax_n, global_n, mm_sharding, mmT, mTm, norm_n, routing_for
 from ..utils.reduced import resolve
 
 __all__ = ["davidson", "gen_david"]
@@ -108,147 +113,420 @@ def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
                               generator, sharding)
 
 
+# the unrolled passes of a captured expand or restart step: ortho_vs_x's
+# projection passes, ortho_cd's refinement passes and the Cholesky shift
+# retries (a step whose loops need more is run again uncaptured)
+_UNROLL = {"vs": 2, "cd": 3, "shift": 0}
+_ROUTES = ("graphs", "eager", "unrolled")
+# a private route and pass budget in force, and the records of the solves
+# run under it (see _recording)
+_RECORDING = [None]
+
+
+class _recording:
+    """Private: run davidson / gen_david (and so their ladders) on
+    ``route`` ("graphs": the steps captured and replayed as CUDA graphs;
+    "eager": the same steps called directly, the ortho loops reading their
+    predicates; "unrolled": called directly with the captured route's
+    fixed passes and rare-branch reruns) with the pass ``budgets``; None
+    keeps the solve's own choice.  ``solves`` collects one record a solve
+    (route, iterations, flag reads, rare-branch reruns by step, capture
+    seconds and graph pool bytes, replays by step)."""
+
+    def __init__(self, route=None, budgets=None):
+        if route is not None and route not in _ROUTES:
+            raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
+        self.route, self.budgets = route, budgets
+        self.solves = []
+
+    def __enter__(self):
+        self.prev = _RECORDING[0]
+        _RECORDING[0] = self
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDING[0] = self.prev
+
+
+def _read_flags(flags: torch.Tensor) -> list:
+    """The host's one read of the device an iteration: the packed flags
+    of step 2, (ok, n_frozen, finished, ortho_ok), the last two of the
+    step 3 before it."""
+    _read_flags.count += 1
+    return flags.tolist()
+
+
+_read_flags.count = 0
+
+
+class _Iteration:
+    """One solve's fixed-shape state and the steps of an iteration over it,
+    the reference's ``_DavidsonState`` and loop body.
+
+    Every buffer is allocated once and written in place, and every count
+    the steps use (``ldu``, ``n_act``, ``n_rst``, the matvec block's start,
+    ``ldu_new``, ``n_frozen``, the shift) is a 0-d tensor on the device,
+    so no step reads the device and each can be captured as a CUDA graph:
+
+    1. :meth:`matvec`: the matvec block, its rows of ``a_red`` and ``sym``;
+       (between the steps, uncaptured) :meth:`reduced`, the eigh of the
+       leading ``ldu_new`` block, whose size changes every iteration and
+       whose library call reads its own error flag;
+    2. :meth:`ritz`: the rotations, residuals, norms, locking and
+       histories, and :attr:`flags`: ok, n_frozen, and whether the step 3
+       before it finished its ortho loops, with ortho_ok;
+    3. :meth:`expand` or :meth:`restart`, as the host's count of
+       expansions picks.
+
+    The host reads :attr:`flags` once an iteration.  A step 3 whose
+    unrolled ortho loops fell short is found there, one iteration late:
+    :meth:`undo_ritz` puts back what step 2 changed, :meth:`rerun` runs
+    that step 3 again with the eager loops from the inputs it kept, and
+    steps 1 and 2 run again.
+    """
+
+    def __init__(self, matvec, precnd, bvec, guess, bguess, ortho_ok,
+                 options, sqrtn, budgets):
+        self.matvec_fn, self.precnd, self.bvec = matvec, precnd, bvec
+        self.options, self.sqrtn, self.budgets = options, sqrtn, budgets
+        n_max = self.n_max = options.n_max
+        self.n_targ = options.n_targ
+        lda_pad = self.lda_pad = options.dim_dav * n_max + n_max
+        max_iter = options.max_iter
+        n = guess.shape[1]
+        dtype, dev = guess.dtype, guess.device
+        gen = bvec is not None
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        def full(value, *shape, dt=dtype):
+            return torch.full(shape, value, dtype=dt, device=dev)
+
+        self.rows = torch.arange(n_max, device=dev)
+        self.rows_pad = torch.arange(lda_pad, device=dev)
+        self.targ = self.rows < self.n_targ
+        self.space = scatter_rows(zeros(lda_pad, n), guess, 0)
+        self.aspace = zeros(lda_pad, n)
+        self.bspace = (scatter_rows(zeros(lda_pad, n), bguess, 0) if gen
+                       else None)
+        self.a_red = zeros(lda_pad, lda_pad)
+        self.sym = zeros(lda_pad, lda_pad)
+        self.e_red = zeros(lda_pad)
+        self.c_full = zeros(lda_pad, lda_pad)
+        self.eig = zeros(n_max)
+        self.evec = zeros(n_max, n)
+        self.metric_evec = zeros(n_max, n) if gen else None
+        self.r = zeros(n_max, n)
+        self.done = zeros(n_max, dt=torch.bool)
+        self.rms = full(math.inf, n_max)
+        self.rmx = full(math.inf, n_max)
+        self.eig_h = zeros(max_iter, n_max)
+        self.rms_h = full(math.inf, max_iter, n_max)
+        self.max_h = full(math.inf, max_iter, n_max)
+        i64 = torch.int64
+        self.it = zeros(dt=i64)
+        self.ldu = zeros(dt=i64)
+        self.n_act = full(n_max, dt=i64)
+        self.n_rst = zeros(dt=i64)
+        self.ldu_new = zeros(dt=i64)
+        self.n_frozen = zeros(dt=i64)
+        self.ok = zeros(dt=torch.bool)
+        self.ortho_ok = full(bool(ortho_ok), dt=torch.bool)
+        self.flags = zeros(4, dt=i64)
+        # what step 2 changes, kept for undo_ritz
+        self.kept = {name: torch.empty_like(getattr(self, name))
+                     for name in ("done", "rms", "rmx", "eig", "it")}
+        # step 3's inputs, kept for rerun, and its outcome
+        self.pre = zeros(n_max, n)
+        self.ldu_new3 = zeros(dt=i64)
+        self.n_frozen3 = zeros(dt=i64)
+        self.eig3 = zeros(n_max)
+        self.evec3 = zeros(n_max, n) if gen else None
+        self.metric_evec3 = zeros(n_max, n) if gen else None
+        self.finished3 = full(True, dt=torch.bool)
+        self.ortho_ok3 = zeros(dt=torch.bool)
+
+    # ---- step 1 ----
+    def matvec(self):
+        ldu_new = self.ldu + self.n_act
+        # the matvec block starts past the n_rst roots whose products are
+        # skipped right after a restart; n_rst is 0 on the normal path
+        start = self.ldu + self.n_rst
+        width = ldu_new - start
+        block = gather_rows(self.space, start, self.n_max, count=width)
+        ablock = self.matvec_fn(block)
+        ablock = torch.where((self.rows < width)[:, None], ablock, 0.0)
+        scatter_rows(self.aspace, ablock, start)
+        # incremental reduced-matrix rows: a_red[g, j] = aspace_g . space_j
+        # (lower triangle filled by rows)
+        col_ok = prefix_mask(self.lda_pad, ldu_new, device=ldu_new.device)
+        new_rows = torch.where(col_ok[None, :], mmT(ablock, self.space), 0.0)
+        scatter_rows(self.a_red, new_rows, start)
+        self.sym.copy_(torch.tril(self.a_red)
+                       + torch.tril(self.a_red, diagonal=-1).T)
+        self.ldu_new.copy_(ldu_new)
+
+    # ---- between the steps ----
+    def reduced(self, ldu_new: int, method: str):
+        off_tol = 0.0
+        if method == "jacobi":
+            # the reference's adaptive Jacobi target: the intermediate
+            # solves stay two orders below the current residual level and
+            # tighten to eps as the roots converge
+            prev_rms = torch.where(~self.done & self.targ, self.rms,
+                                   math.inf).min()
+            scale = torch.clamp(self.eig.abs().max(), min=1.0)
+            off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
+        e_red, c_full = masked_eigh_prefix(self.sym, ldu_new, method,
+                                           off_tol=off_tol)
+        self.e_red.copy_(e_red)
+        self.c_full.copy_(c_full)
+
+    # ---- step 2 ----
+    def ritz(self):
+        for name, kept in self.kept.items():
+            kept.copy_(getattr(self, name))
+        n_max = self.n_max
+        eig = self.e_red[:n_max]
+        c = self.c_full[:, :n_max]                     # (lda_pad, n_max)
+        evec = mTm(c, self.space)
+        metric_evec = mTm(c, self.bspace) if self.bvec is not None else evec
+        r = mTm(c, self.aspace) - eig[:, None] * metric_evec
+        active = ~self.done & self.targ
+        rms = torch.where(active, norm_n(r) / self.sqrtn, self.rms)
+        rmx = torch.where(active, amax_n(r.abs()), self.rmx)
+        opts = self.options
+        conv = (rms < opts.tol) & (rmx < opts.tol_max) & (self.it > 0)
+        done = prefix_lock(self.done, conv, self.n_targ)
+        at = self.it.view(1)
+        self.eig_h.index_copy_(0, at, (eig - opts.shift)[None])
+        self.rms_h.index_copy_(0, at, rms[None])
+        self.max_h.index_copy_(0, at, rmx[None])
+        self.eig.copy_(eig)
+        self.evec.copy_(evec)
+        if self.metric_evec is not None:
+            self.metric_evec.copy_(metric_evec)
+        self.r.copy_(r)
+        self.rms.copy_(rms)
+        self.rmx.copy_(rmx)
+        self.done.copy_(done)
+        self.ok.copy_(done[:self.n_targ].all())
+        self.n_frozen.copy_(done.sum())
+        self.it.add_(1)
+        self.flags.copy_(torch.stack([
+            self.ok.to(torch.int64), self.n_frozen,
+            self.finished3.to(torch.int64), self.ortho_ok.to(torch.int64)]))
+
+    def undo_ritz(self):
+        for name, kept in self.kept.items():
+            getattr(self, name).copy_(kept)
+
+    # ---- step 3 ----
+    def _ortho(self):
+        return (unrolled(self.budgets) if self.budgets is not None
+                else contextlib.nullcontext())
+
+    def _close(self, step_ok, rec):
+        """ortho_ok and the finished bit of a step-3 branch."""
+        self.ortho_ok3.copy_(self.ortho_ok)
+        self.ortho_ok.copy_(self.ortho_ok & step_ok)
+        if rec is None or rec.finished is None:
+            self.finished3.fill_(True)
+        else:
+            self.finished3.copy_(rec.finished)
+
+    def expand(self):
+        """Precondition the active residuals, orthogonalize them against
+        the space and append them."""
+        n_max = self.n_max
+        n_frozen = self.n_frozen
+        first = n_frozen.clamp(max=n_max - 1).view(1)
+        shift = -self.eig.index_select(0, first).reshape(())
+        rblk = gather_rows(self.r, n_frozen, n_max, count=n_max - n_frozen)
+        umask = self.rows < n_max - n_frozen
+        self.pre.copy_(torch.where(umask[:, None],
+                                   self.precnd(shift, rblk), 0.0))
+        self.ldu_new3.copy_(self.ldu_new)
+        self.n_frozen3.copy_(n_frozen)
+        self._expand_ortho()
+
+    def _expand_ortho(self):
+        n_act_new = self.n_max - self.n_frozen3
+        umask = self.rows < n_act_new
+        col_ok = self.rows_pad < self.ldu_new3
+        with self._ortho() as rec:
+            if self.bvec is not None:
+                unew, o_done = _b_ortho_vs_x(self.space, self.bspace,
+                                             self.pre, xmask=col_ok,
+                                             umask=umask)
+                bnew = torch.where(umask[:, None], self.bvec(unew), 0.0)
+                unew, bnew, b_ok = _b_ortho(unew, bnew, umask)
+                o_done = o_done & b_ok
+                scatter_rows(self.bspace, bnew, self.ldu_new3)
+            else:
+                unew, o_done = _ortho_vs_x(self.space, self.pre,
+                                           xmask=col_ok, umask=umask)
+            scatter_rows(self.space, unew, self.ldu_new3)
+        self._close(o_done, rec)
+        self.ldu.copy_(self.ldu_new3)
+        self.n_act.copy_(n_act_new)
+        self.n_rst.zero_()
+
+    def restart(self):
+        """Collapse onto the Ritz vectors (re-B-orthonormalized on the
+        generalized path, bspace kept with them); seed the locked
+        eigenvalues so that their matvecs are skipped next iteration."""
+        self.n_frozen3.copy_(self.n_frozen)
+        self.eig3.copy_(self.eig)
+        if self.bvec is not None:
+            self.evec3.copy_(self.evec)
+            self.metric_evec3.copy_(self.metric_evec)
+        self._restart_body()
+
+    def _restart_body(self):
+        ev, b_ok = self.evec, torch.ones_like(self.ok)
+        with self._ortho() as rec:
+            if self.bvec is not None:
+                ev, bev, b_ok = _b_ortho(self.evec3, self.metric_evec3)
+                scatter_rows(self.bspace.zero_(), bev, 0)
+            scatter_rows(self.space.zero_(), ev, 0)
+        self.aspace.zero_()
+        seed = torch.zeros_like(self.e_red)
+        seed[:self.n_max] = self.eig3
+        seed = torch.where(self.rows_pad < self.n_frozen3, seed, 0.0)
+        self.a_red.copy_(torch.diag(seed))
+        self._close(b_ok, rec)
+        self.ldu.zero_()
+        self.n_act.fill_(self.n_max)
+        self.n_rst.copy_(self.n_frozen3)
+
+    def rerun(self, branch: str):
+        """Run the last step 3 (``branch``) again from its kept inputs,
+        with the eager ortho loops: the loops' own result."""
+        self.ortho_ok.copy_(self.ortho_ok3)
+        budgets, self.budgets = self.budgets, None
+        try:
+            (self._expand_ortho if branch == "expand"
+             else self._restart_body)()
+        finally:
+            self.budgets = budgets
+
+
+def _route(dev, sharding) -> str:
+    rec = _RECORDING[0]
+    route = rec.route if rec is not None and rec.route else (
+        "graphs" if dev.type == "cuda" and sharding is None else "eager")
+    if route == "graphs" and (dev.type != "cuda" or sharding is not None):
+        raise ValueError("the captured route needs unsharded CUDA tensors")
+    return route
+
+
 def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
                    sharding):
     gen_eig = bvec is not None
     method = resolve(options.reduced_solver)
-    n_targ, n_max = options.n_targ, options.n_max
-    lda = options.dim_dav * n_max
-    lda_pad = lda + n_max
-    max_iter = options.max_iter
+    n_max, max_iter = options.n_max, options.max_iter
     k_rows, n = evec_guess.shape
     if k_rows != n_max:
         raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
-    dtype, dev = evec_guess.dtype, evec_guess.device
-    sqrtn = math.sqrt(global_n(n, sharding))
-    tol_rms, tol_max = options.tol, options.tol_max
-    rows_max = torch.arange(n_max, device=dev)
-    targ = rows_max < n_targ
+    dev = evec_guess.device
+    route = _route(dev, sharding)
+    rec = _RECORDING[0]
+    budgets = None
+    if route != "eager":
+        budgets = (rec.budgets if rec is not None and rec.budgets
+                   else _UNROLL)
 
     guess = check_guess(evec_guess, generator)
-    ortho_ok = True
+    bguess, ortho_ok = None, True
     if gen_eig:
         guess, bguess, ortho_ok = b_ortho(guess, bvec(guess))
-    space = scatter_rows(torch.zeros((lda_pad, n), dtype=dtype, device=dev),
-                         guess, 0)
-    aspace = torch.zeros((lda_pad, n), dtype=dtype, device=dev)
-    bspace = (scatter_rows(torch.zeros_like(space), bguess, 0) if gen_eig
-              else None)
-    a_red = torch.zeros((lda_pad, lda_pad), dtype=dtype, device=dev)
-    ldu, n_act, n_rst, m_dim = 0, n_max, 0, 1
-    eig = torch.zeros((n_max,), dtype=dtype, device=dev)
-    evec = torch.zeros((n_max, n), dtype=dtype, device=dev)
-    done = torch.zeros((n_max,), dtype=torch.bool, device=dev)
-    rms = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
-    rmx = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
+    st = _Iteration(matvec, precnd, bvec, guess, bguess, ortho_ok, options,
+                    math.sqrt(global_n(n, sharding)), budgets)
+    graphs = StepGraphs(dev, capture=route == "graphs")
+    reads0 = _read_flags.count
+    reruns = {"expand": 0, "restart": 0}
+    scopes = {"expand": "expand-ortho", "restart": None}
+
+    def scope(name):
+        return (record_function(name) if name
+                else contextlib.nullcontext())
+
+    def steps_1_2(ldu_new):
+        with scope("matvec"):
+            graphs.run("matvec", st.matvec)
+        with scope("rayleigh-ritz"):
+            st.reduced(ldu_new, method)
+            graphs.run("ritz", st.ritz)
+        return _read_flags(st.flags)
+
+    def rerun(branch):
+        # a rare branch: the unrolled ortho loops of that step 3 fell
+        # short (more passes, a shift retry, the QR fallback or the SVD
+        # rescue); its inputs were kept, so it runs again uncaptured with
+        # the eager loops, which gives the loops' own result
+        reruns[branch] += 1
+        with scope(scopes[branch]):
+            st.rerun(branch)
+
+    # the host's copies of the counts it needs: the reduced block's size
+    # and the matvec count (ldu, n_act) and the branch (m_dim)
+    ldu, n_act, m_dim = 0, n_max, 1
     ok, n_matvec, it = False, 0, 0
-    eig_h = torch.zeros((max_iter, n_max), dtype=dtype, device=dev)
-    rms_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
-    max_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
-
-    while not ok and it < max_iter:
-        ldu_new = ldu + n_act
-        # the matvec block starts past the n_rst roots whose products are
-        # skipped right after a restart; n_rst is 0 on the normal path
-        start = ldu + n_rst
-        width_valid = ldu_new - start
-
-        with record_function("matvec"):
-            block = gather_rows(space, start, n_max, count=width_valid)
-            ablock = matvec(block)
-            ablock[width_valid:] = 0
-            aspace = scatter_rows(aspace, ablock, start)
-        n_matvec += n_act
-
-        # incremental reduced-matrix rows: a_red[g, j] = aspace_g . space_j
-        # (lower triangle filled by rows)
-        col_ok = prefix_mask(lda_pad, ldu_new, device=dev)
-        new_rows = torch.where(col_ok[None, :], mmT(ablock, space), 0.0)
-        a_red = scatter_rows(a_red, new_rows, start)
-
-        with record_function("rayleigh-ritz"):
-            sym = torch.tril(a_red) + torch.tril(a_red, diagonal=-1).T
-            off_tol = 0.0
-            if method == "jacobi":
-                # the reference's adaptive Jacobi target: the intermediate
-                # solves stay two orders below the current residual level
-                # and tighten to eps as the roots converge
-                prev_rms = torch.where(~done & targ, rms, math.inf).min()
-                scale = torch.clamp(eig.abs().max(), min=1.0)
-                off_tol = torch.clamp(0.01 * prev_rms / scale, 0.0, 1e-5)
-            e_red, c_full = masked_eigh_prefix(sym, ldu_new, method,
-                                               off_tol=off_tol)
-            eig = e_red[:n_max]
-            c = c_full[:, :n_max]                      # (lda_pad, n_max)
-            evec = mTm(c, space)
-            metric_evec = mTm(c, bspace) if gen_eig else evec
-            r = mTm(c, aspace) - eig[:, None] * metric_evec
-
-        active = ~done & targ
-        rms = torch.where(active, norm_n(r) / sqrtn, rms)
-        rmx = torch.where(active, amax_n(r.abs()), rmx)
-        conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
-        done = prefix_lock(done, conv, n_targ)
-        ok = bool(done[:n_targ].all())
-
-        eig_h[it] = eig - options.shift
-        rms_h[it] = rms
-        max_h[it] = rmx
-        if options.verbose:
-            inflight_progress("davidson", it, n_act, eig_h[it], rms, rmx)
-
-        n_frozen = int(done.sum())
-        n_act_new = n_max - n_frozen
-        if ok:
-            ldu, n_rst = ldu_new, 0
-        elif m_dim < options.dim_dav:
-            # expand: precondition the active residuals, orthogonalize them
-            # against the space and append them
-            with record_function("expand-ortho"):
-                shift = -float(eig[n_frozen])
-                rblk = gather_rows(r, n_frozen, n_max, count=n_act_new)
-                pre = precnd(shift, rblk)
-                pre[n_act_new:] = 0
-                umask = rows_max < n_act_new
-                if gen_eig:
-                    unew, o_done = b_ortho_vs_x(space, bspace, pre,
-                                                xmask=col_ok, umask=umask)
-                    bnew = torch.where(umask[:, None], bvec(unew), 0.0)
-                    unew, bnew, b_ok = b_ortho(unew, bnew, umask)
-                    o_done = o_done and b_ok
-                    bspace = scatter_rows(bspace, bnew, ldu_new)
+    pending = None          # the step 3 whose finished bit is not read yet
+    with graphs:
+        while not ok and it < max_iter:
+            ldu_new = ldu + n_act
+            ok_f, n_frozen, finished, ortho_ok = steps_1_2(ldu_new)
+            if pending and not finished:
+                st.undo_ritz()
+                rerun(pending)
+                ok_f, n_frozen, finished, ortho_ok = steps_1_2(ldu_new)
+            pending = None
+            n_matvec += n_act
+            if options.verbose:
+                inflight_progress("davidson", it, n_act, st.eig_h[it],
+                                  st.rms, st.rmx)
+            ok = bool(ok_f)
+            if not ok:
+                pending = ("expand" if m_dim < options.dim_dav
+                           else "restart")
+                with scope(scopes[pending]):
+                    graphs.run(pending, getattr(st, pending))
+                if pending == "expand":
+                    ldu, n_act, m_dim = ldu_new, n_max - n_frozen, m_dim + 1
                 else:
-                    unew, o_done = ortho_vs_x(space, pre, xmask=col_ok,
-                                              umask=umask)
-                space = scatter_rows(space, unew, ldu_new)
-            ldu, n_act, n_rst, m_dim = ldu_new, n_act_new, 0, m_dim + 1
-            ortho_ok = ortho_ok and o_done
-        else:
-            # restart: collapse onto the Ritz vectors (re-B-orthonormalized
-            # on the generalized path, bspace kept with them); seed the
-            # locked eigenvalues so their matvecs are skipped next iteration
-            ev = evec
-            if gen_eig:
-                ev, bev, b_ok = b_ortho(evec, metric_evec)
-                bspace = scatter_rows(torch.zeros_like(bspace), bev, 0)
-                ortho_ok = ortho_ok and b_ok
-            space = scatter_rows(torch.zeros_like(space), ev, 0)
-            aspace = torch.zeros_like(aspace)
-            seed = torch.zeros((lda_pad,), dtype=dtype, device=dev)
-            seed[:n_frozen] = eig[:n_frozen]
-            a_red = torch.diag(seed)
-            ldu, n_act, n_rst, m_dim = 0, n_max, n_frozen, 1
-        it += 1
-
+                    ldu, n_act, m_dim = 0, n_max, 1
+            it += 1
+        if pending:
+            # max_iter ran out after a step 3: its ortho_ok still counts
+            finished, ortho_ok = _read_flags(
+                torch.stack([st.finished3, st.ortho_ok]))
+            if not finished:
+                rerun(pending)
+                ortho_ok = bool(st.ortho_ok)
+    if options.verbose or rec is not None:
+        record = dict(route=route, dtype=str(st.eig.dtype).split(".")[-1],
+                      iterations=it, flag_reads=_read_flags.count - reads0,
+                      reruns=reruns, capture_s=graphs.capture_s,
+                      pool_bytes=graphs.pool_bytes,
+                      replays=dict(graphs.replays))
+        if rec is not None:
+            rec.solves.append(record)
+        if options.verbose:
+            print(f"davidson route={route} iterations={it} rare-branch "
+                  f"reruns {reruns} graph capture {graphs.capture_s:.3f} s",
+                  flush=True)
     return SolverResult(
-        eig=eig - options.shift,
-        evec=evec,
+        eig=st.eig - options.shift,
+        evec=st.evec,
         ok=ok,
         n_iter=it,
         n_matvec=n_matvec,
-        done=done,
-        rms_history=rms_h,
-        max_history=max_h,
-        eig_history=eig_h,
-        ortho_ok=ortho_ok,
+        done=st.done,
+        rms_history=st.rms_h,
+        max_history=st.max_h,
+        eig_history=st.eig_h,
+        ortho_ok=bool(ortho_ok),
     )

@@ -12,7 +12,9 @@
    orthonormalize the halves again, in their metrics for ``caslr_eff``).
 
 The result is the float64 stage's, with both stages' iteration and matvec
-counts added up.
+counts added up.  On CUDA tensors each Davidson stage (``davidson_ladder``,
+``gen_david_ladder``) runs its iteration as replayed CUDA graphs, each
+stage capturing its own (``solvers/davidson.py``).
 
 ``sharding=`` (a :class:`~diaglib_tpu_torch.parallel.VectorSharding`) is
 passed to both stages: the guess, the callbacks' blocks and the result's

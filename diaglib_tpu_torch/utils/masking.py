@@ -2,8 +2,12 @@
 ``diaglib_tpu/utils/masking.py`` the Davidson slice uses).
 
 The solvers keep their subspaces in fixed ``(lda_pad, n)`` buffers, like
-the JAX package, so the state matches it row for row; counts are Python
-ints here, since the loop is eager.
+the JAX package, so the state matches it row for row.  Starts and counts
+may be Python ints or 0-d tensors on the buffers' device: the Davidson
+iteration keeps them on the device, so that its steps read nothing back
+and can be captured as CUDA graphs (``utils/graphs.py``).
+:func:`scatter_rows` writes in place, since a captured step must write
+into buffers whose addresses do not move.
 """
 
 from __future__ import annotations
@@ -16,45 +20,52 @@ __all__ = ["prefix_mask", "gather_rows", "scatter_rows", "masked_cholesky",
            "masked_eigh", "masked_eigh_prefix", "masked_svd", "prefix_lock"]
 
 
-def prefix_mask(k: int, count: int, dtype=torch.bool,
+def prefix_mask(k: int, count, dtype=torch.bool,
                 device=None) -> torch.Tensor:
-    """(k,) mask of ``dtype``, true (1) for indices < count."""
+    """(k,) mask of ``dtype``, true (1) for indices < count (an int or a
+    0-d tensor on ``device``)."""
     return (torch.arange(k, device=device) < count).to(dtype)
 
 
-def gather_rows(x: torch.Tensor, start: int, width: int,
-                count: int | None = None) -> torch.Tensor:
+def _row_index(start, width: int, rows: int, device) -> torch.Tensor:
+    """Indices ``start + [0, width)``, clamped to ``[0, rows)``."""
+    return (start + torch.arange(width, device=device)).clamp(0, rows - 1)
+
+
+def gather_rows(x: torch.Tensor, start, width: int,
+                count=None) -> torch.Tensor:
     """Rows ``[start, start+width)`` of x (indices clipped to the buffer),
     rows >= ``count`` (relative) zeroed."""
-    idx = (start + torch.arange(width, device=x.device)).clamp(
-        0, x.shape[0] - 1)
-    out = x[idx]
+    out = x.index_select(0, _row_index(start, width, x.shape[0], x.device))
     if count is not None:
-        out[count:] = 0
+        drop = torch.arange(width, device=x.device) >= count
+        out = out.masked_fill(drop.view((width,) + (1,) * (x.ndim - 1)), 0)
     return out
 
 
 def scatter_rows(x: torch.Tensor, block: torch.Tensor,
-                 start: int) -> torch.Tensor:
-    """Copy of x with ``block`` written at row ``start``; the start is
-    clamped so the block fits, as ``lax.dynamic_update_slice`` does."""
-    start = min(max(int(start), 0), x.shape[0] - block.shape[0])
-    out = x.clone()
-    out[start:start + block.shape[0]] = block.to(x.dtype)
-    return out
+                 start) -> torch.Tensor:
+    """Write ``block`` into x at row ``start``, in place, and return x; the
+    start is clamped so the block fits, as ``lax.dynamic_update_slice``
+    does."""
+    k = block.shape[0]
+    first = (start.clamp(0, x.shape[0] - k) if isinstance(start, torch.Tensor)
+             else min(max(int(start), 0), x.shape[0] - k))
+    idx = first + torch.arange(k, device=x.device)
+    return x.index_copy_(0, idx, block.to(x.dtype))
 
 
 def masked_cholesky(a: torch.Tensor, mask: torch.Tensor):
     """Lower Cholesky factor of the masked SPD matrix (identity padding).
 
-    Returns (L, failed): ``failed`` is True when the matrix is not
-    numerically positive definite (the factorization stopped or produced
-    non-finite entries)."""
+    Returns (L, failed): ``failed`` is a 0-d bool tensor, true when the
+    matrix is not numerically positive definite (the factorization stopped
+    or produced non-finite entries)."""
     outer = mask[:, None] & mask[None, :]
     a_m = torch.where(outer, a, 0.0) + torch.diag(
         torch.where(mask, 0.0, 1.0).to(a.dtype))
     chol, info = torch.linalg.cholesky_ex(a_m)
-    failed = bool(info != 0) or not bool(torch.isfinite(chol).all())
+    failed = (info != 0) | ~torch.isfinite(chol).all()
     return chol, failed
 
 

@@ -1,0 +1,141 @@
+"""The captured Davidson route on the card: each iteration's steps replayed
+as CUDA graphs, against the same steps called directly, and the float64
+BSR sums called twice.
+
+These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
+no JAX:
+
+    python -m pytest --noconftest tests/test_torch_graphs_cuda.py -q
+
+The flagship ladder (random_bsr_spd(65536, 512, 8), its symmetric store,
+10 roots, n_max 15, tol 1e-10, max_dav 10, lo_iter 35) captured and
+uncaptured in one process gives the same bits in every returned tensor and
+the same counts: both routes run the same arithmetic (an unrolled ortho
+pass past its loop's end is masked out, and launches K3 all the same).
+Two calls of the float64 plain-BSR and distributed-BSR segment products at
+n = 65536 give the same bits.  A step that reads the device cannot be
+captured, and the solve raises instead of running uncaptured (last: a
+failed capture leaves the process as it was, but is run after the rest).
+"""
+
+import importlib
+
+import pytest
+import torch
+
+from diaglib_tpu_torch import SolverOptions, davidson, davidson_ladder
+from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
+from diaglib_tpu_torch.ops.bsr import BSRMatrix, bsr_matvec, random_bsr_spd
+from diaglib_tpu_torch.ops.bsr import row_slots
+from diaglib_tpu_torch.ops.dist_bsr import _segment_spmm
+from diaglib_tpu_torch.problems import diag_precnd, symm_matrix
+from diaglib_tpu_torch.utils.graphs import GraphCaptureError, kernel_counters
+
+pytestmark = pytest.mark.cuda
+
+dmod = importlib.import_module("diaglib_tpu_torch.solvers.davidson")
+N, B, BPR = 65536, 512, 8
+FIELDS = ("eig", "evec", "done", "rms_history", "max_history",
+          "eig_history")
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def flagship(dev):
+    m = random_bsr_spd(N, B, BPR, seed=0, dtype=torch.float32, device=dev)
+    return m, sym.slice_bsr_sym(m)
+
+
+def _ladder(store, route=None):
+    f32 = torch.float32
+    opts = SolverOptions(n_targ=10, n_max=15, max_iter=150, tol=1e-10,
+                         max_dav=10)
+    guess = torch.zeros((15, N), dtype=torch.float64, device=store.u_scale.device)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    with dmod._recording(route) as rec:
+        res = davidson_ladder(
+            sym.sym_sliced_matvec(store, dtype=f32),
+            diag_precnd(store.diagonal.to(f32)), sym.sym_sliced_matvec(store),
+            diag_precnd(store.diagonal), guess, opts, lo_tol=2e-6,
+            lo_iter=35,
+            generator=torch.Generator(device=guess.device).manual_seed(1))
+    torch.cuda.synchronize()
+    return res, rec.solves, {k: f.launches for k, f in counters.items()}
+
+
+def test_captured_ladder_bit_equal_to_uncaptured(flagship):
+    _, store = flagship
+    eager, e_solves, e_launches = _ladder(store, "eager")
+    captured, c_solves, c_launches = _ladder(store)
+    assert [s["route"] for s in c_solves] == ["graphs", "graphs"]
+    assert [s["route"] for s in e_solves] == ["eager", "eager"]
+    assert captured.ok and eager.ok
+    assert (captured.n_iter, captured.n_matvec, captured.ortho_ok) == \
+        (eager.n_iter, eager.n_matvec, eager.ortho_ok)
+    for f in FIELDS:
+        assert torch.equal(getattr(captured, f), getattr(eager, f)), f
+    # the replays count what they launch: the matvec steps' K2 and K1 as
+    # uncaptured (but for a rare-branch rerun, which runs them again), and
+    # more K3, since an unrolled ortho pass launches its products whether
+    # or not its loop has stopped
+    reruns = sum(sum(s["reruns"].values()) for s in c_solves)
+    for k in ("peel_rows", "sym_spmm"):
+        assert c_launches[k] >= e_launches[k]
+        assert reruns or c_launches[k] == e_launches[k]
+    assert c_launches["sym_spmm"] == 2 * c_launches["peel_rows"] > 0
+    assert c_launches["sliced_wide_mm"] >= e_launches["sliced_wide_mm"] > 0
+    # four graphs a stage (matvec, ritz, expand, restart), made once each
+    for s in c_solves:
+        assert s["capture_s"] > 0 and s["pool_bytes"] >= 0
+        assert sum(s["replays"].values()) > 0
+
+
+def test_float64_bsr_sums_bit_equal(flagship, dev):
+    m, _ = flagship
+    m64 = BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start, m.n,
+                    m.block)
+    x = torch.randn((15, N), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    mv = bsr_matvec(m64)
+    y1, y2 = mv(x), mv(x)
+    assert torch.equal(y1, y2)
+    nbr = N // B
+    xb = x.reshape(15, nbr, B).transpose(0, 1)
+    slots = row_slots(m.rows, nbr)
+    outs = []
+    for _ in range(2):
+        y = torch.zeros((nbr, 15, B), dtype=torch.float64, device=dev)
+        outs.append(_segment_spmm(xb, m.cols, m.blocks_t, y, slots))
+    assert torch.equal(outs[0], outs[1])
+    y = outs[0].transpose(0, 1).reshape(15, N)
+    assert float((y - y1).abs().max()) <= 1e-14 * float(y1.abs().max())
+
+
+def test_capture_failure_raises(dev):
+    a = symm_matrix(256, device=dev)
+
+    def reading_matvec(x):
+        if float(x.abs().sum()) < 0:        # a read of the device
+            raise AssertionError
+        return x @ a.T
+
+    opts = SolverOptions(n_targ=2, n_max=4, max_iter=100, tol=1e-8)
+    guess = torch.rand((4, 256), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    with pytest.raises(GraphCaptureError):
+        davidson(reading_matvec, diag_precnd(torch.diagonal(a)), guess, opts)
+    torch.cuda.synchronize()
+    # the same solve runs uncaptured only when asked for privately
+    with dmod._recording("eager"):
+        res = davidson(reading_matvec, diag_precnd(torch.diagonal(a)),
+                       guess, opts)
+    assert res.ok
