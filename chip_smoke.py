@@ -64,13 +64,16 @@ Phases (any failure raises and the script exits non-zero):
    (d) davidson_ladder on the symmetric store (n_max 15, lo_iter 35)
        under wide_mm="auto" and once more under "never": eigenvalues within
        1e-10, iterations within 2;
-   (b) and (d) "auto" again on the captured route (the default: each
-       iteration's steps replayed as CUDA graphs) and on the uncaptured
-       one (the same steps called directly, through the solver's private
-       entry): every returned tensor bit for bit, the same counts and K2
-       / K1 launches, the median of 5 warm walls of each in turns, the host's
-       reads of the device an iteration (torch.cuda's sync debug mode),
-       the rare-branch reruns, graph capture time and pool memory;
+   (a), (b), (d) "auto" and (g)'s two ladders again on the captured
+       route (the default: each iteration's steps replayed as CUDA
+       graphs) and on the uncaptured one (the same steps called directly,
+       through the solvers' private switch): every returned tensor bit for
+       bit, the same counts and K2 / K1 launches, the median of 5 warm
+       walls of each in turns, the host's reads of the device an
+       iteration (torch.cuda's sync debug mode, at most 3 between two
+       flag reads where no step was run again), the rare-branch reruns,
+       graph capture time and pool memory, and the most passes the
+       uncaptured route's eager ortho loops took;
    (e) nonsym_ladder, side "c", on R = E_- S E_+ (n_max 10, max_iter 150,
        lo_tol 2e-6, lo_iter 60);
    (f) under a one-rank NCCL process group (parallel.multihost.initialize,
@@ -126,9 +129,10 @@ Phases (any failure raises and the script exits non-zero):
        field bit-equal, on the card), resumed: check_pairs' bounds, ok in
        fewer iterations than the same solve from the zero guess,
        eigenvalues within 1e-10 of (d)'s; (i3) profiling.trace around one
-       warm (d) ladder: the Chrome trace names the scopes matvec,
-       rayleigh-ritz and expand-ortho and the kernels K1, K2 and K3 (the
-       ladder on its captured route, each step replayed under its scope);
+       warm (d) ladder, then one warm (a) ladder: the Chrome trace names
+       the scopes matvec, rayleigh-ritz and expand-ortho and the kernels
+       K1, K2 and K3 (the ladder on its captured route, each step replayed
+       under its scope);
        the device-busy share of the window, device kernels an iteration, the
        host time under each scope and the device time of the kernels
        launched under it, and the kernels with the most device time; (i4)
@@ -1031,7 +1035,8 @@ def check_casida_pairs(tag, res, apb_bsr, amb_bsr, eff):
 
 def casida_ladders(casida, timed, card):
     """Phase 5(g): the two Casida ladders on the (A+B, A-B) pair, checked
-    by plain products, and against each other."""
+    by plain products, and against each other; each captured against
+    uncaptured."""
     import torch
 
     from diaglib_tpu_torch import (
@@ -1049,13 +1054,22 @@ def casida_ladders(casida, timed, card):
                          tol=1e-10, max_dav=10)
     eff_tiers = casida_tdscf_ops(apb, amb)
     std_tiers = casida_tdscf_ops(apb, amb, prec="std")
-    re, we = timed("caslr_eff_ladder", lambda gen: caslr_eff_ladder(
-        *eff_tiers, guess, opts, generator=gen, **ladder_kw))
+    def run_eff(gen):
+        return caslr_eff_ladder(*eff_tiers, guess, opts, generator=gen,
+                                **ladder_kw)
+
+    def run_std(gen):
+        return caslr_ladder(*std_tiers, guess, opts, algorithm=0,
+                            generator=gen, **ladder_kw)
+
+    dev = guess.device
+    re, we = timed("caslr_eff_ladder", run_eff)
     check_casida_pairs("caslr_eff_ladder", re, apb_bsr, amb_bsr, eff=True)
-    rs, ws = timed("caslr_ladder algorithm=0", lambda gen: caslr_ladder(
-        *std_tiers, guess, opts, algorithm=0, generator=gen, **ladder_kw))
+    captured_vs_uncaptured("caslr_eff_ladder", run_eff, dev, card)
+    rs, ws = timed("caslr_ladder algorithm=0", run_std)
     check_casida_pairs("caslr_ladder algorithm=0", rs, apb_bsr, amb_bsr,
                        eff=False)
+    captured_vs_uncaptured("caslr_ladder algorithm=0", run_std, dev, card)
     rel = float(((re.eig[:N_TARG] - rs.eig[:N_TARG]).abs()
                  / rs.eig[:N_TARG].abs()).max())
     log(f"[casida] caslr_eff_ladder vs caslr_ladder: eigenvalues {rel:.3e} "
@@ -1193,42 +1207,23 @@ class host_reads:
     """Counts the host's reads of the device: torch.cuda's sync debug mode
     warns at every synchronizing call (a copy to the host, ``.item()``, a
     library's error check), and each warning is kept.  ``marks`` holds the
-    count at each of the Davidson steps' flag reads, one an iteration, so
-    ``per_iteration()`` gives the reads between two of them."""
+    count at each flag read of the solvers' steps (``utils.graphs.
+    _read_flags``, one an iteration), so ``per_iteration()`` gives the
+    reads between two of them."""
 
     def __enter__(self):
-        import importlib
         import warnings
 
         import torch
 
-        self.dmod = importlib.import_module(
-            "diaglib_tpu_torch.solvers.davidson")
+        from diaglib_tpu_torch.utils import graphs
+
+        self.graphs = graphs
         self._catch = warnings.catch_warnings(record=True)
         self.log = self._catch.__enter__()
         warnings.simplefilter("always")
         self.marks = []
-        outer = self
-
-        class Marked:
-            def __init__(self, real):
-                self.real = real
-
-            def __call__(self, flags):
-                out = self.real(flags)
-                outer.marks.append(outer.reads())
-                return out
-
-            @property
-            def count(self):
-                return self.real.count
-
-            @count.setter
-            def count(self, value):
-                self.real.count = value
-
-        self.real = self.dmod._read_flags
-        self.dmod._read_flags = Marked(self.real)
+        graphs._read_flags.observer = lambda: self.marks.append(self.reads())
         torch.cuda.set_sync_debug_mode("warn")
         return self
 
@@ -1236,7 +1231,7 @@ class host_reads:
         import torch
 
         torch.cuda.set_sync_debug_mode("default")
-        self.dmod._read_flags = self.real
+        self.graphs._read_flags.observer = None
         self._catch.__exit__(*exc)
         return False
 
@@ -1260,19 +1255,19 @@ SOLVE_FIELDS = ("eig", "evec", "done", "rms_history", "max_history",
 
 
 def captured_vs_uncaptured(tag, run, dev, card, reps=5):
-    """(d) and (b): the ladder on its default route, its steps captured and
-    replayed as CUDA graphs, and on the uncaptured route (the same steps
-    called directly, through the private entry): every returned tensor bit
-    for bit, the same counts, the same K2 and K1 launches (K3's differ: a
-    replay runs every unrolled ortho pass); the median of ``reps`` warm
-    walls of each, run in turns; the host's reads an iteration
-    (host_reads) on each; the rare-branch reruns, graph capture seconds and
-    pool memory of each stage.  Returns the two medians."""
-    import importlib
-
+    """(a), (b), (d) and (g): the ladder on its default route, its steps
+    captured and replayed as CUDA graphs, and on the uncaptured route (the
+    same steps called directly, through the private switch
+    ``utils.graphs._recording``): every returned tensor bit for bit, the
+    same counts, the same K2 and K1 launches (K3's differ: a replay runs
+    every unrolled ortho pass); the median of ``reps`` warm walls of each,
+    run in turns; the host's reads an iteration (host_reads) on each; the
+    rare-branch reruns, graph capture seconds and pool memory of each
+    stage, and the most passes each stage's eager ortho loops took on the
+    uncaptured route.  Returns the two medians."""
     import torch
 
-    dmod = importlib.import_module("diaglib_tpu_torch.solvers.davidson")
+    from diaglib_tpu_torch.utils import graphs
     from diaglib_tpu_torch.utils.graphs import kernel_counters
 
     counters = kernel_counters()
@@ -1281,7 +1276,7 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5):
         for f in counters.values():
             f.launches = 0
         reader = host_reads() if reads else None
-        with dmod._recording(route) as rec:
+        with graphs._recording(route) as rec:
             if reader:
                 with reader:
                     res = run(torch.Generator(device=dev).manual_seed(1))
@@ -1317,10 +1312,11 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5):
                 f"reads median {statistics.median(per)}, max {max(per)})")
 
     stages = "; ".join(
-        f"{s['dtype']} {s['iterations']} iterations, reruns {s['reruns']}, "
-        f"capture {s['capture_s'] * 1e3:.1f} ms, pool "
-        f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}"
-        for s in rc.solves)
+        f"{s['solver']} {s['dtype']} {s['iterations']} iterations, reruns "
+        f"{s['reruns']}, capture {s['capture_s'] * 1e3:.1f} ms, pool "
+        f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}, eager "
+        f"ortho passes at most {u['passes']} (uncaptured)"
+        for s, u in zip(rc.solves, ru.solves))
     log(f"[{tag} captured] {stages} ({card})")
     log(f"[{tag} captured vs uncaptured] bit-identical eig, evec, done, "
         f"histories: {same}; counts {counts[0]} vs {counts[1]}; launches "
@@ -2091,32 +2087,32 @@ def scope_breakdown(trace_events, scopes):
     return busy / 1e3, len(kernels), host, outside, top
 
 
-# what the trace of a (d) ladder must name: the phase scopes and K1-K3
+# what the trace of a (d) or (a) ladder must name: the phase scopes and
+# K1-K3
 TRACE_NAMES = ("matvec", "rayleigh-ritz", "expand-ortho", "sym_spmm_kernel",
                "slice_rows_kernel", "wide_mm_kernel")
 SCOPES = ("matvec", "rayleigh-ritz", "expand-ortho")
 
 
-def traced_ladder(run_d, dev, counted, card):
-    """Phase (i3): profiling.trace around one warm (d) ladder: the trace
-    file names the three phase scopes and the kernels K1, K2 and K3; prints
-    the device-busy share of the window, device kernels an iteration, the
-    host and device time under each scope, and the kernels that take the
-    most device time."""
+def traced_ladder(tag, run, dev, counted, card):
+    """Phase (i3): profiling.trace around one warm ladder ``run(gen)`` on
+    its default route ((d)'s and (a)'s, captured): the trace file names the
+    three phase scopes and the kernels K1, K2 and K3; prints the
+    device-busy share of the window, device kernels an iteration, the host
+    and device time under each scope, and the kernels that take the most
+    device time."""
     import glob
     import tempfile
 
     import torch
 
-    from diaglib_tpu_torch import SolverOptions, profiling
+    from diaglib_tpu_torch import profiling
 
-    opts = SolverOptions(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
-                         tol=1e-10, max_dav=10)
     gen = torch.Generator(device=dev).manual_seed(1)
     with tempfile.TemporaryDirectory(prefix="diaglib_trace_") as tmp:
         with profiling.trace(tmp):
             t0 = time.perf_counter()
-            res = counted("traced davidson_ladder", lambda: run_d(opts, gen))
+            res = counted(f"traced {tag}", lambda: run(gen))
             wall_s = time.perf_counter() - t0
         files = glob.glob(str(Path(tmp) / "*.pt.trace.json"))
         if len(files) != 1:
@@ -2134,16 +2130,16 @@ def traced_ladder(run_d, dev, counted, card):
     parts = ", ".join(f"{k} {c} x host {h:.1f} ms device {d:.1f} ms"
                       for k, (c, h, d) in host.items())
     tops = ", ".join(f"{n} {c} x {t:.1f} ms" for n, c, t in top[:8])
-    log(f"[trace] davidson_ladder under profiling.trace: ok={res.ok}, "
+    log(f"[trace] {tag} under profiling.trace: ok={res.ok}, "
         f"{res.n_iter} iterations, wall {wall_s:.3f} s (profiled); trace "
         f"{size / 1e6:.1f} MB names {list(TRACE_NAMES)}; device busy "
         f"{busy:.1f} ms of the {wall_s * 1e3:.1f} ms wall "
-        f"({100 * busy / (wall_s * 1e3):.1f} %, beside the eager loop's "
-        f"37.3 % in PERF.md §5); {n_kernels} device kernels, "
-        f"{n_kernels / res.n_iter:.1f} an iteration ({card})")
-    log(f"[trace] scopes (kernels by where they were launched): {parts}; "
+        f"({100 * busy / (wall_s * 1e3):.1f} %); {n_kernels} device "
+        f"kernels, {n_kernels / res.n_iter:.1f} an iteration ({card})")
+    log(f"[trace] {tag} scopes (kernels by where they were launched): "
+        f"{parts}; "
         f"launched outside them {outside:.1f} ms")
-    log(f"[trace] device time by kernel: {tops}")
+    log(f"[trace] {tag} device time by kernel: {tops}")
     if not res.ok:
         raise AssertionError("the traced ladder did not converge")
 
@@ -2455,11 +2451,14 @@ def main(argv=None):
     mv_lo = sym.sym_sliced_matvec(store, dtype=f32)
     mv_hi = sym.sym_sliced_matvec(store)
 
-    # (a) LOBPCG ladder on the symmetric store
-    res, _ = timed("lobpcg_ladder", lambda gen: lobpcg_ladder(
-        mv_lo, pc_lo, mv_hi, pc_hi, guess, opts, lo_tol=2e-6, lo_iter=70,
-        generator=gen))
+    # (a) LOBPCG ladder on the symmetric store, captured and uncaptured
+    def run_a(gen):
+        return lobpcg_ladder(mv_lo, pc_lo, mv_hi, pc_hi, guess, opts,
+                             lo_tol=2e-6, lo_iter=70, generator=gen)
+
+    res, _ = timed("lobpcg_ladder", run_a)
     check_pairs("lobpcg_ladder", res, m)
+    captured_vs_uncaptured("lobpcg_ladder", run_a, dev, card)
 
     # (b) generalized Davidson ladder on the (A, B) pair, captured and
     # uncaptured
@@ -2555,7 +2554,9 @@ def main(argv=None):
     # the trace and the timers on (d)'s store and ladder, ELL
     demo_runs(card)
     checkpoint_resume(mv_hi, pc_hi, ra, m, dev, counted, card)
-    traced_ladder(run_d, dev, counted, card)
+    traced_ladder("davidson_ladder", lambda gen: run_d(opts, gen), dev,
+                  counted, card)
+    traced_ladder("lobpcg_ladder", run_a, dev, counted, card)
     host_timers(mv_hi, run_d, stats["sym_spmm"]["f64"][0], wa, dev, counted,
                 card)
     ell_phase(dev, counted, card)

@@ -18,7 +18,8 @@ in one of two ways (:func:`_passes`):
   context records on the device whether every loop stopped within its
   passes (and no QR fallback or SVD rescue was needed), i.e. whether the
   unrolled result is the loop's own.  A caller whose step did not finish
-  runs it again eagerly (``solvers/davidson.py``).
+  runs it again eagerly (``utils/graphs.py``); under :class:`eager_passes`
+  the eager loops record the most passes each took.
 
 * ``norm_est``   — triangular norm bound.
 * ``ortho_cd``   — shifted Cholesky + iterative refinement + growth model.
@@ -110,6 +111,27 @@ class unrolled:
 _UNROLLED = [None]
 
 
+class eager_passes:
+    """Record, while entered, the most passes each eagerly run refinement
+    loop took, by the keys of :class:`unrolled`'s budgets: the budgets
+    under which the unrolled loops would have finished."""
+
+    def __init__(self):
+        self.most = {"vs": 0, "cd": 0, "shift": 0}
+
+    def __enter__(self):
+        self.prev = _COUNTING[0]
+        _COUNTING[0] = self
+        return self
+
+    def __exit__(self, *exc):
+        _COUNTING[0] = self.prev
+
+
+# the eager_passes context in force (None: passes are not counted)
+_COUNTING = [None]
+
+
 def _passes(key: str, max_iter: int, done_of):
     """The passes of a refinement loop that stops once ``done_of()`` (a
     0-d bool tensor, or Python False before the first pass) holds, or
@@ -121,11 +143,16 @@ def _passes(key: str, max_iter: int, done_of):
     short of max_iter records that the loop must have stopped by then."""
     rec = _UNROLLED[0]
     if rec is None:
+        taken = max_iter
         for it in range(max_iter):
             done = done_of()
             if done is not False and bool(done):
-                return
+                taken = it
+                break
             yield it
+        count = _COUNTING[0]
+        if count is not None:
+            count.most[key] = max(count.most[key], taken)
         return
     outer = rec.live
     count = min(max_iter, rec.budgets[key])

@@ -49,16 +49,16 @@ kept consistent (the reference's fix of the Fortran restart).
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
-from torch.profiler import record_function
 
-from ..ortho.core import _b_ortho, _b_ortho_vs_x, _ortho_vs_x, b_ortho, unrolled
+from ..ortho.core import _b_ortho, _b_ortho_vs_x, _ortho_vs_x, b_ortho
 from ..reporting import inflight_progress
 from ..types import SolverOptions, SolverResult
-from ..utils.graphs import StepGraphs
+from ..utils.graphs import StepLoop, StepState, _budgets, _route
+# the private switch of utils.graphs stays importable from here too
+from ..utils.graphs import _UNROLL, _read_flags, _recording  # noqa: F401
 from ..utils.guess import check_guess
 from ..utils.masking import (
     gather_rows,
@@ -113,53 +113,7 @@ def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
                               generator, sharding)
 
 
-# the unrolled passes of a captured expand or restart step: ortho_vs_x's
-# projection passes, ortho_cd's refinement passes and the Cholesky shift
-# retries (a step whose loops need more is run again uncaptured)
-_UNROLL = {"vs": 2, "cd": 3, "shift": 0}
-_ROUTES = ("graphs", "eager", "unrolled")
-# a private route and pass budget in force, and the records of the solves
-# run under it (see _recording)
-_RECORDING = [None]
-
-
-class _recording:
-    """Private: run davidson / gen_david (and so their ladders) on
-    ``route`` ("graphs": the steps captured and replayed as CUDA graphs;
-    "eager": the same steps called directly, the ortho loops reading their
-    predicates; "unrolled": called directly with the captured route's
-    fixed passes and rare-branch reruns) with the pass ``budgets``; None
-    keeps the solve's own choice.  ``solves`` collects one record a solve
-    (route, iterations, flag reads, rare-branch reruns by step, capture
-    seconds and graph pool bytes, replays by step)."""
-
-    def __init__(self, route=None, budgets=None):
-        if route is not None and route not in _ROUTES:
-            raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
-        self.route, self.budgets = route, budgets
-        self.solves = []
-
-    def __enter__(self):
-        self.prev = _RECORDING[0]
-        _RECORDING[0] = self
-        return self
-
-    def __exit__(self, *exc):
-        _RECORDING[0] = self.prev
-
-
-def _read_flags(flags: torch.Tensor) -> list:
-    """The host's one read of the device an iteration: the packed flags
-    of step 2, (ok, n_frozen, finished, ortho_ok), the last two of the
-    step 3 before it."""
-    _read_flags.count += 1
-    return flags.tolist()
-
-
-_read_flags.count = 0
-
-
-class _Iteration:
+class _Iteration(StepState):
     """One solve's fixed-shape state and the steps of an iteration over it,
     the reference's ``_DavidsonState`` and loop body.
 
@@ -182,13 +136,15 @@ class _Iteration:
     unrolled ortho loops fell short is found there, one iteration late:
     :meth:`undo_ritz` puts back what step 2 changed, :meth:`rerun` runs
     that step 3 again with the eager loops from the inputs it kept, and
-    steps 1 and 2 run again.
+    steps 1 and 2 run again (``utils.graphs.StepState`` / ``StepLoop``).
     """
+
+    BODIES = {"expand": "_expand_ortho", "restart": "_restart_body"}
 
     def __init__(self, matvec, precnd, bvec, guess, bguess, ortho_ok,
                  options, sqrtn, budgets):
         self.matvec_fn, self.precnd, self.bvec = matvec, precnd, bvec
-        self.options, self.sqrtn, self.budgets = options, sqrtn, budgets
+        self.options, self.sqrtn = options, sqrtn
         n_max = self.n_max = options.n_max
         self.n_targ = options.n_targ
         lda_pad = self.lda_pad = options.dim_dav * n_max + n_max
@@ -231,21 +187,14 @@ class _Iteration:
         self.n_rst = zeros(dt=i64)
         self.ldu_new = zeros(dt=i64)
         self.n_frozen = zeros(dt=i64)
-        self.ok = zeros(dt=torch.bool)
-        self.ortho_ok = full(bool(ortho_ok), dt=torch.bool)
-        self.flags = zeros(4, dt=i64)
-        # what step 2 changes, kept for undo_ritz
-        self.kept = {name: torch.empty_like(getattr(self, name))
-                     for name in ("done", "rms", "rmx", "eig", "it")}
-        # step 3's inputs, kept for rerun, and its outcome
+        # step 3's inputs, kept for rerun
         self.pre = zeros(n_max, n)
         self.ldu_new3 = zeros(dt=i64)
         self.n_frozen3 = zeros(dt=i64)
         self.eig3 = zeros(n_max)
         self.evec3 = zeros(n_max, n) if gen else None
         self.metric_evec3 = zeros(n_max, n) if gen else None
-        self.finished3 = full(True, dt=torch.bool)
-        self.ortho_ok3 = zeros(dt=torch.bool)
+        self._init_steps(ortho_ok, budgets, dev)
 
     # ---- step 1 ----
     def matvec(self):
@@ -285,8 +234,7 @@ class _Iteration:
 
     # ---- step 2 ----
     def ritz(self):
-        for name, kept in self.kept.items():
-            kept.copy_(getattr(self, name))
+        self.keep_ritz()
         n_max = self.n_max
         eig = self.e_red[:n_max]
         c = self.c_full[:, :n_max]                     # (lda_pad, n_max)
@@ -314,28 +262,9 @@ class _Iteration:
         self.ok.copy_(done[:self.n_targ].all())
         self.n_frozen.copy_(done.sum())
         self.it.add_(1)
-        self.flags.copy_(torch.stack([
-            self.ok.to(torch.int64), self.n_frozen,
-            self.finished3.to(torch.int64), self.ortho_ok.to(torch.int64)]))
-
-    def undo_ritz(self):
-        for name, kept in self.kept.items():
-            getattr(self, name).copy_(kept)
+        self.pack_flags()
 
     # ---- step 3 ----
-    def _ortho(self):
-        return (unrolled(self.budgets) if self.budgets is not None
-                else contextlib.nullcontext())
-
-    def _close(self, step_ok, rec):
-        """ortho_ok and the finished bit of a step-3 branch."""
-        self.ortho_ok3.copy_(self.ortho_ok)
-        self.ortho_ok.copy_(self.ortho_ok & step_ok)
-        if rec is None or rec.finished is None:
-            self.finished3.fill_(True)
-        else:
-            self.finished3.copy_(rec.finished)
-
     def expand(self):
         """Precondition the active residuals, orthogonalize them against
         the space and append them."""
@@ -401,26 +330,6 @@ class _Iteration:
         self.n_act.fill_(self.n_max)
         self.n_rst.copy_(self.n_frozen3)
 
-    def rerun(self, branch: str):
-        """Run the last step 3 (``branch``) again from its kept inputs,
-        with the eager ortho loops: the loops' own result."""
-        self.ortho_ok.copy_(self.ortho_ok3)
-        budgets, self.budgets = self.budgets, None
-        try:
-            (self._expand_ortho if branch == "expand"
-             else self._restart_body)()
-        finally:
-            self.budgets = budgets
-
-
-def _route(dev, sharding) -> str:
-    rec = _RECORDING[0]
-    route = rec.route if rec is not None and rec.route else (
-        "graphs" if dev.type == "cuda" and sharding is None else "eager")
-    if route == "graphs" and (dev.type != "cuda" or sharding is not None):
-        raise ValueError("the captured route needs unsharded CUDA tensors")
-    return route
-
 
 def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
                    sharding):
@@ -432,92 +341,37 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
     dev = evec_guess.device
     route = _route(dev, sharding)
-    rec = _RECORDING[0]
-    budgets = None
-    if route != "eager":
-        budgets = (rec.budgets if rec is not None and rec.budgets
-                   else _UNROLL)
 
     guess = check_guess(evec_guess, generator)
     bguess, ortho_ok = None, True
     if gen_eig:
         guess, bguess, ortho_ok = b_ortho(guess, bvec(guess))
     st = _Iteration(matvec, precnd, bvec, guess, bguess, ortho_ok, options,
-                    math.sqrt(global_n(n, sharding)), budgets)
-    graphs = StepGraphs(dev, capture=route == "graphs")
-    reads0 = _read_flags.count
-    reruns = {"expand": 0, "restart": 0}
-    scopes = {"expand": "expand-ortho", "restart": None}
-
-    def scope(name):
-        return (record_function(name) if name
-                else contextlib.nullcontext())
-
-    def steps_1_2(ldu_new):
-        with scope("matvec"):
-            graphs.run("matvec", st.matvec)
-        with scope("rayleigh-ritz"):
-            st.reduced(ldu_new, method)
-            graphs.run("ritz", st.ritz)
-        return _read_flags(st.flags)
-
-    def rerun(branch):
-        # a rare branch: the unrolled ortho loops of that step 3 fell
-        # short (more passes, a shift retry, the QR fallback or the SVD
-        # rescue); its inputs were kept, so it runs again uncaptured with
-        # the eager loops, which gives the loops' own result
-        reruns[branch] += 1
-        with scope(scopes[branch]):
-            st.rerun(branch)
+                    math.sqrt(global_n(n, sharding)), _budgets(route))
+    loop = StepLoop("davidson", st, dev, route, _SCOPES)
 
     # the host's copies of the counts it needs: the reduced block's size
     # and the matvec count (ldu, n_act) and the branch (m_dim)
     ldu, n_act, m_dim = 0, n_max, 1
     ok, n_matvec, it = False, 0, 0
-    pending = None          # the step 3 whose finished bit is not read yet
-    with graphs:
+    with loop:
         while not ok and it < max_iter:
             ldu_new = ldu + n_act
-            ok_f, n_frozen, finished, ortho_ok = steps_1_2(ldu_new)
-            if pending and not finished:
-                st.undo_ritz()
-                rerun(pending)
-                ok_f, n_frozen, finished, ortho_ok = steps_1_2(ldu_new)
-            pending = None
+            ok, n_frozen = loop.iterate(lambda: st.reduced(ldu_new, method))
             n_matvec += n_act
             if options.verbose:
                 inflight_progress("davidson", it, n_act, st.eig_h[it],
                                   st.rms, st.rmx)
-            ok = bool(ok_f)
             if not ok:
-                pending = ("expand" if m_dim < options.dim_dav
-                           else "restart")
-                with scope(scopes[pending]):
-                    graphs.run(pending, getattr(st, pending))
-                if pending == "expand":
+                if m_dim < options.dim_dav:
+                    loop.branch("expand")
                     ldu, n_act, m_dim = ldu_new, n_max - n_frozen, m_dim + 1
                 else:
+                    loop.branch("restart")
                     ldu, n_act, m_dim = 0, n_max, 1
             it += 1
-        if pending:
-            # max_iter ran out after a step 3: its ortho_ok still counts
-            finished, ortho_ok = _read_flags(
-                torch.stack([st.finished3, st.ortho_ok]))
-            if not finished:
-                rerun(pending)
-                ortho_ok = bool(st.ortho_ok)
-    if options.verbose or rec is not None:
-        record = dict(route=route, dtype=str(st.eig.dtype).split(".")[-1],
-                      iterations=it, flag_reads=_read_flags.count - reads0,
-                      reruns=reruns, capture_s=graphs.capture_s,
-                      pool_bytes=graphs.pool_bytes,
-                      replays=dict(graphs.replays))
-        if rec is not None:
-            rec.solves.append(record)
-        if options.verbose:
-            print(f"davidson route={route} iterations={it} rare-branch "
-                  f"reruns {reruns} graph capture {graphs.capture_s:.3f} s",
-                  flush=True)
+        ortho_ok = loop.close()
+    loop.record(it, st.eig.dtype, options.verbose)
     return SolverResult(
         eig=st.eig - options.shift,
         evec=st.evec,
@@ -528,5 +382,10 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
         rms_history=st.rms_h,
         max_history=st.max_h,
         eig_history=st.eig_h,
-        ortho_ok=bool(ortho_ok),
+        ortho_ok=ortho_ok,
     )
+
+
+# the profiler scope of each step (the restart has none)
+_SCOPES = {"matvec": "matvec", "ritz": "rayleigh-ritz",
+           "expand": "expand-ortho"}

@@ -4,10 +4,12 @@ This is the port's counterpart of the reference's ``jax.jit`` around a
 ``lax.while_loop`` (``diaglib_tpu/utils/compile.py`` and the solvers'
 loops): XLA compiles the whole loop into one device program, so the host
 launches it once and reads nothing back until it ends.  PyTorch runs
-eagerly, so the Davidson iteration (``solvers/davidson.py``) is cut into
-steps over fixed buffers, each step is captured once per solve as a CUDA
-graph and then replayed: one launch a step instead of a few hundred, and
-no read of the device inside a step.
+eagerly, so the iterations of ``davidson`` / ``gen_david``
+(``solvers/davidson.py``), ``lobpcg`` (``solvers/lobpcg.py``) and
+``caslr`` / ``caslr_eff`` (``solvers/caslr.py``) are cut into steps over
+fixed buffers, each step is captured once per solve as a CUDA graph and
+then replayed: one launch a step instead of a few hundred, and no read of
+the device inside a step.
 
 :class:`StepGraphs` holds one solve's graphs, one a step key (the caller
 puts the step, the dtype and the branch into it):
@@ -27,15 +29,36 @@ puts the step, the dtype and the branch into it):
 
 Without capture (CPU tensors, ``sharding=`` runs, or on request) a step
 is called directly.
+
+The solvers share the rest of the machinery here:
+
+* :class:`StepState`, the part of a solve's fixed device state every
+  solver keeps the same way: the packed flags the host reads once an
+  iteration, what the ritz step changes (kept so that it can be undone),
+  the ortho health and the finished bit of the last branch step, and the
+  rare-branch rerun of that step from the inputs it kept;
+* :class:`StepLoop`, the host side of an iteration: the first step, the
+  reduced solve between the steps, the ritz step, the one flag read, and
+  the rerun of the branch step before it when its unrolled ortho loops
+  fell short (found one iteration late, so the iteration is undone and
+  run again);
+* the private route switch :class:`_recording` (the route, the pass
+  budgets, and one record a solve), the counted flag read
+  :func:`_read_flags` and the route choice :func:`_route`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["StepGraphs", "GraphCaptureError", "kernel_counters"]
+from ..ortho.core import eager_passes, unrolled
+
+__all__ = ["StepGraphs", "StepState", "StepLoop", "GraphCaptureError",
+           "kernel_counters"]
 
 
 class GraphCaptureError(RuntimeError):
@@ -156,3 +179,257 @@ class StepGraphs:
                 f"{failure}") from failure
         self.graphs[key] = graph
         self.launches[key] = {k: n for k, n in added.items() if n}
+
+
+# ---- the route switch the solvers share ----
+
+# the unrolled passes of a captured branch step: ortho_vs_x's projection
+# passes, ortho_cd's refinement passes and the Cholesky shift retries (a
+# step whose loops need more is run again uncaptured)
+_UNROLL = {"vs": 2, "cd": 3, "shift": 0}
+_ROUTES = ("graphs", "eager", "unrolled")
+# a private route and pass budget in force, and the records of the solves
+# run under it (see _recording)
+_RECORDING = [None]
+
+
+class _recording:
+    """Private: run the solvers whose iterations are steps (davidson,
+    gen_david, lobpcg, caslr, caslr_eff, and so their ladders) on
+    ``route`` ("graphs": the steps captured and replayed as CUDA graphs;
+    "eager": the same steps called directly, the ortho loops reading their
+    predicates; "unrolled": called directly with the captured route's
+    fixed passes and rare-branch reruns) with the pass ``budgets``; None
+    keeps the solve's own choice.  ``solves`` collects one record a solve
+    (solver, route, iterations, flag reads, rare-branch reruns by step,
+    the most passes the eager ortho loops took, capture seconds and graph
+    pool bytes, replays by step)."""
+
+    def __init__(self, route=None, budgets=None):
+        if route is not None and route not in _ROUTES:
+            raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
+        self.route, self.budgets = route, budgets
+        self.solves = []
+
+    def __enter__(self):
+        self.prev = _RECORDING[0]
+        _RECORDING[0] = self
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDING[0] = self.prev
+
+
+def _read_flags(flags: torch.Tensor) -> list:
+    """The host's one read of the device an iteration: the packed flags
+    of the ritz step, (ok, n_frozen, finished, ortho_ok), the last two of
+    the branch step before it.  ``observer``, when set, is called after
+    each read."""
+    _read_flags.count += 1
+    out = flags.tolist()
+    if _read_flags.observer is not None:
+        _read_flags.observer()
+    return out
+
+
+_read_flags.count = 0
+_read_flags.observer = None
+
+
+def _route(dev, sharding) -> str:
+    """The route of a solve on ``dev``: the private one in force, else
+    "graphs" on unsharded CUDA tensors and "eager" otherwise."""
+    rec = _RECORDING[0]
+    route = rec.route if rec is not None and rec.route else (
+        "graphs" if dev.type == "cuda" and sharding is None else "eager")
+    if route == "graphs" and (dev.type != "cuda" or sharding is not None):
+        raise ValueError("the captured route needs unsharded CUDA tensors")
+    return route
+
+
+def _budgets(route: str):
+    """The pass budgets of the branch steps on ``route``: None (the eager
+    loops) on "eager", else the private ones in force or :data:`_UNROLL`."""
+    if route == "eager":
+        return None
+    rec = _RECORDING[0]
+    return rec.budgets if rec is not None and rec.budgets else _UNROLL
+
+
+# ---- the state and the host loop the solvers share ----
+
+class StepState:
+    """The part of a solve's fixed device state that every solver's steps
+    keep alike.  A subclass allocates its buffers, then calls
+    :meth:`_init_steps`; its ritz step calls :meth:`keep_ritz` first and
+    :meth:`pack_flags` last; each branch step keeps its inputs and runs
+    its body inside :meth:`_ortho`, then calls :meth:`_close`.
+    ``BODIES`` maps each branch to the method that runs it from the kept
+    inputs, which :meth:`rerun` calls with the eager loops."""
+
+    # what a ritz step changes and the steps read back, put back by
+    # undo_ritz before an iteration is run again
+    RITZ_KEPT = ("done", "rms", "rmx", "eig", "it")
+    BODIES: dict = {}
+
+    def _init_steps(self, ortho_ok, budgets, device):
+        self.budgets = budgets
+        self.passes = eager_passes()
+        i64 = torch.int64
+        self.ortho_ok0 = bool(ortho_ok)     # the prologue's, on the host
+        self.ortho_ok = torch.full((), self.ortho_ok0, dtype=torch.bool,
+                                   device=device)
+        self.ok = torch.zeros((), dtype=torch.bool, device=device)
+        self.flags = torch.zeros(4, dtype=i64, device=device)
+        # the last branch step's outcome: whether its loops finished, and
+        # ortho_ok before it (for a rerun)
+        self.finished3 = torch.ones((), dtype=torch.bool, device=device)
+        self.ortho_ok3 = torch.zeros((), dtype=torch.bool, device=device)
+        self.kept = {name: torch.empty_like(getattr(self, name))
+                     for name in self.RITZ_KEPT}
+
+    def keep_ritz(self):
+        for name, kept in self.kept.items():
+            kept.copy_(getattr(self, name))
+
+    def undo_ritz(self):
+        for name, kept in self.kept.items():
+            getattr(self, name).copy_(kept)
+
+    def pack_flags(self):
+        self.flags.copy_(torch.stack([
+            self.ok.to(torch.int64), self.n_frozen,
+            self.finished3.to(torch.int64), self.ortho_ok.to(torch.int64)]))
+
+    def _ortho(self):
+        """The ortho loops of a branch step: unrolled to the budgets, or
+        eager with their passes counted."""
+        return (unrolled(self.budgets) if self.budgets is not None
+                else self.passes)
+
+    def _close(self, step_ok, rec):
+        """ortho_ok and the finished bit of a branch step."""
+        self.ortho_ok3.copy_(self.ortho_ok)
+        self.ortho_ok.copy_(self.ortho_ok & step_ok)
+        if isinstance(rec, unrolled) and rec.finished is not None:
+            self.finished3.copy_(rec.finished)
+        else:
+            self.finished3.fill_(True)
+
+    def rerun(self, branch: str):
+        """Run the last branch step (``branch``) again from its kept
+        inputs, with the eager ortho loops: the loops' own result."""
+        self.ortho_ok.copy_(self.ortho_ok3)
+        budgets, self.budgets = self.budgets, None
+        try:
+            getattr(self, self.BODIES[branch])()
+        finally:
+            self.budgets = budgets
+
+
+class StepLoop:
+    """The host side of a solve run in steps over a :class:`StepState`
+    ``st``, on ``route`` ("graphs" captures each step once and replays
+    it); use as a context around the loop.
+
+    :meth:`iterate` runs the first step (``st.matvec``), the reduced solve
+    between the steps (its argument, uncaptured) and the ritz step
+    (``st.ritz``), and reads the flags; when the branch step before them
+    did not finish its unrolled loops it undoes the ritz step, reruns that
+    branch step with the eager loops and runs the iteration again.
+    :meth:`branch` runs a branch step; :meth:`close` settles the last one
+    after the loop; :meth:`record` files the solve's record.  ``scopes``
+    names the profiler scope of each step (None: no scope)."""
+
+    def __init__(self, name, st, device, route, scopes):
+        self.name, self.st, self.route, self.scopes = name, st, route, scopes
+        self.graphs = StepGraphs(device, capture=route == "graphs")
+        self.reads0 = _read_flags.count
+        self.reruns = dict.fromkeys(st.BODIES, 0)
+        self.pending = None     # the branch step whose finished bit is unread
+        self.ortho_ok = st.ortho_ok0
+
+    def __enter__(self):
+        self.graphs.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.graphs.__exit__(*exc)
+
+    def _scope(self, step):
+        name = self.scopes.get(step)
+        return record_function(name) if name else contextlib.nullcontext()
+
+    def _run(self, step):
+        with self._scope(step):
+            self.graphs.run(step, getattr(self.st, step))
+
+    def _steps(self, reduce):
+        self._run("matvec")
+        with self._scope("ritz"):
+            reduce()
+            self.graphs.run("ritz", self.st.ritz)
+        return _read_flags(self.st.flags)
+
+    def _rerun(self, branch):
+        # a rare branch: the unrolled ortho loops of that step fell short
+        # (more passes, a shift retry, the QR fallback or the SVD rescue);
+        # its inputs were kept, so it runs again uncaptured with the eager
+        # loops, which gives the loops' own result
+        self.reruns[branch] += 1
+        with self._scope(branch):
+            self.st.rerun(branch)
+
+    def iterate(self, reduce):
+        """One iteration's steps 1-2 and its flag read; returns (ok,
+        n_frozen)."""
+        ok, n_frozen, finished, ortho_ok = self._steps(reduce)
+        if self.pending and not finished:
+            self.st.undo_ritz()
+            self._rerun(self.pending)
+            ok, n_frozen, finished, ortho_ok = self._steps(reduce)
+        self.pending = None
+        self.ortho_ok = bool(ortho_ok)
+        return bool(ok), n_frozen
+
+    def branch(self, name):
+        """Run the branch step ``name``; its finished bit is read with the
+        next iteration's flags (or by :meth:`close`)."""
+        self.pending = name
+        self._run(name)
+
+    def close(self) -> bool:
+        """After the loop: a branch step run last (max_iter ran out after
+        it) is settled, since its ortho_ok still counts.  Returns
+        ortho_ok."""
+        if self.pending:
+            finished, ortho_ok = _read_flags(
+                torch.stack([self.st.finished3, self.st.ortho_ok]))
+            if not finished:
+                self._rerun(self.pending)
+                ortho_ok = bool(self.st.ortho_ok)
+            self.ortho_ok = bool(ortho_ok)
+            self.pending = None
+        return self.ortho_ok
+
+    def record(self, iterations, dtype, verbose):
+        """File the solve's record with the private switch in force, and
+        print it when ``verbose``."""
+        rec = _RECORDING[0]
+        if not (verbose or rec is not None):
+            return
+        g = self.graphs
+        record = dict(solver=self.name, route=self.route,
+                      dtype=str(dtype).split(".")[-1], iterations=iterations,
+                      flag_reads=_read_flags.count - self.reads0,
+                      reruns=dict(self.reruns),
+                      passes=dict(self.st.passes.most),
+                      capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                      replays=dict(g.replays))
+        if rec is not None:
+            rec.solves.append(record)
+        if verbose:
+            print(f"{self.name} route={self.route} iterations={iterations} "
+                  f"rare-branch reruns {self.reruns} eager ortho passes at "
+                  f"most {record['passes']} graph capture "
+                  f"{g.capture_s:.3f} s", flush=True)

@@ -75,21 +75,27 @@ def _pad_value(a: torch.Tensor, outer: torch.Tensor) -> torch.Tensor:
     return torch.where(outer, a, 0.0).abs().sum(dim=1).max() + 1.0
 
 
+def masked_pad(a: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The matrix :func:`masked_eigh` solves: masked rows and columns of
+    symmetric ``a`` replaced by a diagonal pad above the genuine spectrum
+    (device ops only, so a captured step can make it)."""
+    outer = mask[:, None] & mask[None, :]
+    pad = _pad_value(a, outer)
+    return torch.where(outer, a, 0.0) + torch.diag(
+        torch.where(mask, 0.0, pad).to(a.dtype))
+
+
 def masked_eigh(a: torch.Tensor, mask: torch.Tensor,
                 method: str = "device", v0=None, off_tol=0.0):
     """eigh of the masked symmetric matrix.
 
     Masked rows and columns are replaced by a diagonal pad above the
-    genuine spectrum, so the genuine eigenpairs come first (ascending) and
-    their eigenvectors are exactly zero on masked rows (the padded matrix
-    is block diagonal).  ``method``, ``v0`` and ``off_tol`` as
-    utils.reduced.eigh.
+    genuine spectrum (:func:`masked_pad`), so the genuine eigenpairs come
+    first (ascending) and their eigenvectors are exactly zero on masked
+    rows (the padded matrix is block diagonal).  ``method``, ``v0`` and
+    ``off_tol`` as utils.reduced.eigh.
     """
-    outer = mask[:, None] & mask[None, :]
-    pad = _pad_value(a, outer)
-    a_m = torch.where(outer, a, 0.0) + torch.diag(
-        torch.where(mask, 0.0, pad).to(a.dtype))
-    return reduced.eigh(a_m, method, v0=v0, off_tol=off_tol)
+    return reduced.eigh(masked_pad(a, mask), method, v0=v0, off_tol=off_tol)
 
 
 def masked_svd(a: torch.Tensor, mask: torch.Tensor, method: str = "device",

@@ -1,6 +1,6 @@
-"""The captured Davidson route on the card: each iteration's steps replayed
-as CUDA graphs, against the same steps called directly, and the float64
-BSR sums called twice.
+"""The captured routes on the card (davidson, lobpcg, caslr, caslr_eff):
+each iteration's steps replayed as CUDA graphs, against the same steps
+called directly, and the float64 BSR sums called twice.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX:
@@ -12,10 +12,13 @@ The flagship ladder (random_bsr_spd(65536, 512, 8), its symmetric store,
 uncaptured in one process gives the same bits in every returned tensor and
 the same counts: both routes run the same arithmetic (an unrolled ortho
 pass past its loop's end is masked out, and launches K3 all the same).
-Two calls of the float64 plain-BSR and distributed-BSR segment products at
-n = 65536 give the same bits.  A step that reads the device cannot be
-captured, and the solve raises instead of running uncaptured (last: a
-failed capture leaves the process as it was, but is run after the rest).
+The same holds for the flagship's lobpcg_ladder (lo_iter 70), and for
+caslr_eff_ladder and caslr_ladder algorithm 0 on bsr_casida_tdscf(65536,
+512, 4) (lo_iter 60, a zero (15, 131072) paired guess).  Two calls of the
+float64 plain-BSR and distributed-BSR segment products at n = 65536 give
+the same bits.  A step that reads the device cannot be captured, and the
+solve raises instead of running uncaptured (last: a failed capture leaves
+the process as it was, but is run after the rest).
 """
 
 import importlib
@@ -23,12 +26,26 @@ import importlib
 import pytest
 import torch
 
-from diaglib_tpu_torch import SolverOptions, davidson, davidson_ladder
+from diaglib_tpu_torch import (
+    SolverOptions,
+    caslr_eff_ladder,
+    caslr_ladder,
+    davidson,
+    davidson_ladder,
+    lobpcg,
+    lobpcg_ladder,
+)
 from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
 from diaglib_tpu_torch.ops.bsr import BSRMatrix, bsr_matvec, random_bsr_spd
 from diaglib_tpu_torch.ops.bsr import row_slots
 from diaglib_tpu_torch.ops.dist_bsr import _segment_spmm
-from diaglib_tpu_torch.problems import diag_precnd, symm_matrix
+from diaglib_tpu_torch.problems import (
+    bsr_casida_tdscf,
+    casida_tdscf_ops,
+    diag_precnd,
+    symm_matrix,
+)
+from diaglib_tpu_torch.utils import graphs
 from diaglib_tpu_torch.utils.graphs import GraphCaptureError, kernel_counters
 
 pytestmark = pytest.mark.cuda
@@ -53,30 +70,40 @@ def flagship(dev):
     return m, sym.slice_bsr_sym(m)
 
 
-def _ladder(store, route=None):
-    f32 = torch.float32
-    opts = SolverOptions(n_targ=10, n_max=15, max_iter=150, tol=1e-10,
-                         max_dav=10)
-    guess = torch.zeros((15, N), dtype=torch.float64, device=store.u_scale.device)
+OPTS = dict(n_targ=10, n_max=15, max_iter=150, tol=1e-10, max_dav=10)
+
+
+def _counted(run, route):
+    """``run(generator)`` on ``route`` (None: the default) with every launch
+    count at 0 before it: (result, solve records, launches)."""
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
-    with dmod._recording(route) as rec:
-        res = davidson_ladder(
-            sym.sym_sliced_matvec(store, dtype=f32),
-            diag_precnd(store.diagonal.to(f32)), sym.sym_sliced_matvec(store),
-            diag_precnd(store.diagonal), guess, opts, lo_tol=2e-6,
-            lo_iter=35,
-            generator=torch.Generator(device=guess.device).manual_seed(1))
+    with graphs._recording(route) as rec:
+        res = run(torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     return res, rec.solves, {k: f.launches for k, f in counters.items()}
 
 
-def test_captured_ladder_bit_equal_to_uncaptured(flagship):
-    _, store = flagship
-    eager, e_solves, e_launches = _ladder(store, "eager")
-    captured, c_solves, c_launches = _ladder(store)
-    assert [s["route"] for s in c_solves] == ["graphs", "graphs"]
+def _symmetric_ladder(ladder, store, lo_iter):
+    """``run(generator)`` of the flagship's ``ladder`` on its store."""
+    f32 = torch.float32
+    guess = torch.zeros((15, N), dtype=torch.float64, device="cuda")
+    return lambda gen: ladder(
+        sym.sym_sliced_matvec(store, dtype=f32),
+        diag_precnd(store.diagonal.to(f32)), sym.sym_sliced_matvec(store),
+        diag_precnd(store.diagonal), guess, SolverOptions(**OPTS),
+        lo_tol=2e-6, lo_iter=lo_iter, generator=gen)
+
+
+def _captured_equals_uncaptured(run, solver):
+    """The ladder ``run`` on the captured route against the uncaptured
+    one: every returned tensor bit for bit, the same counts, the same K2
+    and K1 launches; returns the captured solves' records."""
+    eager, e_solves, e_launches = _counted(run, "eager")
+    captured, c_solves, c_launches = _counted(run, None)
+    assert [(s["solver"], s["route"]) for s in c_solves] == \
+        [(solver, "graphs")] * 2
     assert [s["route"] for s in e_solves] == ["eager", "eager"]
     assert captured.ok and eager.ok
     assert (captured.n_iter, captured.n_matvec, captured.ortho_ok) == \
@@ -93,10 +120,44 @@ def test_captured_ladder_bit_equal_to_uncaptured(flagship):
         assert reruns or c_launches[k] == e_launches[k]
     assert c_launches["sym_spmm"] == 2 * c_launches["peel_rows"] > 0
     assert c_launches["sliced_wide_mm"] >= e_launches["sliced_wide_mm"] > 0
-    # four graphs a stage (matvec, ritz, expand, restart), made once each
+    # each step's graph made once a stage and replayed
     for s in c_solves:
         assert s["capture_s"] > 0 and s["pool_bytes"] >= 0
         assert sum(s["replays"].values()) > 0
+    return c_solves
+
+
+def test_captured_ladder_bit_equal_to_uncaptured(flagship):
+    _, store = flagship
+    _captured_equals_uncaptured(
+        _symmetric_ladder(davidson_ladder, store, 35), "davidson")
+
+
+def test_captured_lobpcg_ladder_bit_equal_to_uncaptured(flagship):
+    _, store = flagship
+    _captured_equals_uncaptured(
+        _symmetric_ladder(lobpcg_ladder, store, 70), "lobpcg")
+
+
+@pytest.fixture(scope="module")
+def casida(dev):
+    _, _, _, (apb, amb) = bsr_casida_tdscf(N, B, 4, seed=0, device=dev)
+    return apb, amb
+
+
+@pytest.mark.parametrize("prec", ["eff", "std"])
+def test_captured_casida_ladders_bit_equal_to_uncaptured(casida, prec):
+    ops = casida_tdscf_ops(*casida, prec=prec)
+    guess = torch.zeros((15, 2 * N), dtype=torch.float64, device="cuda")
+    opts = SolverOptions(**OPTS)
+    if prec == "eff":
+        _captured_equals_uncaptured(lambda gen: caslr_eff_ladder(
+            *ops, guess, opts, lo_tol=2e-6, lo_iter=60, generator=gen),
+            "caslr_eff")
+    else:
+        _captured_equals_uncaptured(lambda gen: caslr_ladder(
+            *ops, guess, opts, algorithm=0, lo_tol=2e-6, lo_iter=60,
+            generator=gen), "caslr")
 
 
 def test_float64_bsr_sums_bit_equal(flagship, dev):
@@ -138,4 +199,24 @@ def test_capture_failure_raises(dev):
     with dmod._recording("eager"):
         res = davidson(reading_matvec, diag_precnd(torch.diagonal(a)),
                        guess, opts)
+    assert res.ok
+
+
+def test_lobpcg_capture_failure_raises(dev):
+    a = symm_matrix(256, device=dev)
+
+    def reading_matvec(x):
+        if float(x.abs().sum()) < 0:        # a read of the device
+            raise AssertionError
+        return x @ a.T
+
+    opts = SolverOptions(n_targ=2, n_max=4, max_iter=100, tol=1e-8)
+    guess = torch.rand((4, 256), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    with pytest.raises(GraphCaptureError, match="'matvec'"):
+        lobpcg(reading_matvec, diag_precnd(torch.diagonal(a)), guess, opts)
+    torch.cuda.synchronize()
+    with graphs._recording("eager"):
+        res = lobpcg(reading_matvec, diag_precnd(torch.diagonal(a)), guess,
+                     opts)
     assert res.ok
