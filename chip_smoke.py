@@ -64,14 +64,16 @@ Phases (any failure raises and the script exits non-zero):
    (d) davidson_ladder on the symmetric store (n_max 15, lo_iter 35)
        under wide_mm="auto" and once more under "never": eigenvalues within
        1e-10, iterations within 2;
-   (a), (b), (d) "auto" and (g)'s two ladders again on the captured
+   (a), (b), (d) "auto", (e) and (g)'s two ladders again on the captured
        route (the default: each iteration's steps replayed as CUDA
        graphs) and on the uncaptured one (the same steps called directly,
        through the solvers' private switch): every returned tensor bit for
-       bit, the same counts and K2 / K1 launches, the median of 5 warm
+       bit, the same counts and K2 / K1 launches (K5 too for (e), whose
+       T band it carries), the median of 5 warm
        walls of each in turns, the host's reads of the device an
        iteration (torch.cuda's sync debug mode, at most 3 between two
-       flag reads where no step was run again), the rare-branch reruns,
+       flag reads where no step was run again; (e) reads its Gram matrix
+       for the host dgeev besides), the rare-branch reruns,
        graph capture time and pool memory, and the most passes the
        uncaptured route's eager ortho loops took;
    (e) nonsym_ladder, side "c", on R = E_- S E_+ (n_max 10, max_iter 150,
@@ -129,7 +131,8 @@ Phases (any failure raises and the script exits non-zero):
        field bit-equal, on the card), resumed: check_pairs' bounds, ok in
        fewer iterations than the same solve from the zero guess,
        eigenvalues within 1e-10 of (d)'s; (i3) profiling.trace around one
-       warm (d) ladder, then one warm (a) ladder: the Chrome trace names
+       warm (d) ladder, then one warm (a) ladder (and, inside (e), one warm
+       (e) ladder): the Chrome trace names
        the scopes matvec, rayleigh-ritz and expand-ortho and the kernels
        K1, K2 and K3 (the ladder on its captured route, each step replayed
        under its scope);
@@ -1252,14 +1255,19 @@ class host_reads:
 
 SOLVE_FIELDS = ("eig", "evec", "done", "rms_history", "max_history",
                 "eig_history")
+NONSYM_FIELDS = ("eig", "evec_r", "evec_l", "done", "rms_history_r",
+                 "rms_history_l", "max_history_r", "max_history_l",
+                 "eig_history")
 
 
-def captured_vs_uncaptured(tag, run, dev, card, reps=5):
-    """(a), (b), (d) and (g): the ladder on its default route, its steps
+def captured_vs_uncaptured(tag, run, dev, card, reps=5, fields=SOLVE_FIELDS,
+                           matvec_kernels=("peel_rows", "sym_spmm")):
+    """(a), (b), (d), (e) and (g): the ladder on its default route, its steps
     captured and replayed as CUDA graphs, and on the uncaptured route (the
     same steps called directly, through the private switch
-    ``utils.graphs._recording``): every returned tensor bit for bit, the
-    same counts, the same K2 and K1 launches (K3's differ: a replay runs
+    ``utils.graphs._recording``): every returned tensor (``fields``) bit
+    for bit, the same counts, the same launches of the ``matvec_kernels``
+    (K3's differ: a replay runs
     every unrolled ortho pass); the median of ``reps`` warm walls of each,
     run in turns; the host's reads an iteration (host_reads) on each; the
     rare-branch reruns, graph capture seconds and pool memory of each
@@ -1293,7 +1301,7 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5):
     cap, rc = once(None)
     unc, ru = once("eager")
     same = all(torch.equal(getattr(cap, f), getattr(unc, f))
-               for f in SOLVE_FIELDS)
+               for f in fields)
     counts = [(r.n_iter, r.n_matvec, r.ok, r.ortho_ok) for r in (cap, unc)]
     walls = {"graphs": [], "eager": []}
     for i in range(reps):
@@ -1325,11 +1333,11 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5):
         f"{med['eager']:.4f} s uncaptured (walls {walls}) ({card})")
     log(f"[{tag} host reads] captured: {reads_line(rr_c)}; uncaptured (the "
         f"eager loop's shape): {reads_line(rr_u)} ({card})")
-    # the matvec steps launch K2 and K1 as often on both routes (but for a
-    # rare-branch rerun, which runs steps 1-2 again); the unrolled ortho
-    # passes of a replay launch K3 whether or not their loop has stopped
+    # the matvec steps launch their kernels as often on both routes (but
+    # for a rare-branch rerun, which runs steps 1-2 again); the unrolled
+    # ortho passes of a replay launch K3 whether or not their loop has
+    # stopped
     reruns = sum(sum(s["reruns"].values()) for s in rc.solves)
-    matvec_kernels = ("peel_rows", "sym_spmm")
     if not (same and counts[0] == counts[1]
             and (reruns or all(rc.launches[k] == ru.launches[k]
                                for k in matvec_kernels))):
@@ -2087,7 +2095,7 @@ def scope_breakdown(trace_events, scopes):
     return busy / 1e3, len(kernels), host, outside, top
 
 
-# what the trace of a (d) or (a) ladder must name: the phase scopes and
+# what the trace of a (d), (a) or (e) ladder must name: the phase scopes and
 # K1-K3
 TRACE_NAMES = ("matvec", "rayleigh-ritz", "expand-ortho", "sym_spmm_kernel",
                "slice_rows_kernel", "wide_mm_kernel")
@@ -2096,8 +2104,8 @@ SCOPES = ("matvec", "rayleigh-ritz", "expand-ortho")
 
 def traced_ladder(tag, run, dev, counted, card):
     """Phase (i3): profiling.trace around one warm ladder ``run(gen)`` on
-    its default route ((d)'s and (a)'s, captured): the trace file names the
-    three phase scopes and the kernels K1, K2 and K3; prints the
+    its default route ((d)'s, (a)'s and (e)'s, captured): the trace file
+    names the three phase scopes and the kernels K1, K2 and K3; prints the
     device-busy share of the window, device kernels an iteration, the host
     and device time under each scope, and the kernels that take the most
     device time."""
@@ -2534,6 +2542,13 @@ def main(argv=None):
 
     res, we = timed("nonsym_ladder", run_e)
     check_nonsym_pairs("nonsym_ladder", res, m, t_bsr, tt_bsr, ra.eig)
+    captured_vs_uncaptured("nonsym_ladder", run_e, dev, card,
+                           fields=NONSYM_FIELDS,
+                           matvec_kernels=("peel_rows", "sym_spmm",
+                                           "sliced_spmm"))
+    # (i3) where the captured nonsymmetric ladder's time goes: the host
+    # dgeev between the steps sits under the rayleigh-ritz scope
+    traced_ladder("nonsym_ladder", run_e, dev, counted, card)
     # (h3) the device driver and the one-rank sharded ladder on (e)'s stores
     nonsym_routes(run_e, res, we, m, t_bsr, tt_bsr, ra.eig, timed, card,
                   dev, ns_hi[0])

@@ -270,8 +270,8 @@ def slice_rows(x: torch.Tensor, nx: int, *, col_scale=None, acc_dtype=None,
     return planes, sx
 
 
-def slice_operand(x: torch.Tensor, n_slices: int = _SLICES,
-                  bits: int = _BITS, *, axis: int = -1):
+def slice_operand(x: torch.Tensor, axis: int, n_slices: int = _SLICES,
+                  bits: int = _BITS):
     """int8 planes of 2-D ``x`` on a power-of-two grid per line along the
     contraction axis ``axis`` (-1: a grid per row; 0: a grid per column).
 
@@ -405,8 +405,8 @@ def sliced_mm(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
     int32 budget (:func:`fits_exact`)."""
     _check_pair("sliced_mm", a, b, a.shape[-1], b.shape[0])
     _check_exact(a.shape[-1], bits)
-    xs, sx = slice_operand(a, n_slices, bits, axis=-1)
-    bs, sb = slice_operand(b, n_slices, bits, axis=0)
+    xs, sx = slice_operand(a, -1, n_slices, bits)
+    bs, sb = slice_operand(b, 0, n_slices, bits)
     return _combine(_slice_pair_products(xs, bs), sx, sb, bits, a.shape[-1])
 
 
@@ -416,8 +416,8 @@ def sliced_mmT(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
     as :func:`sliced_mm`."""
     _check_pair("sliced_mmT", a, b, a.shape[-1], b.shape[-1])
     _check_exact(a.shape[-1], bits)
-    xs, sx = slice_operand(a, n_slices, bits, axis=-1)
-    bs, sb = slice_operand(b, n_slices, bits, axis=-1)
+    xs, sx = slice_operand(a, -1, n_slices, bits)
+    bs, sb = slice_operand(b, -1, n_slices, bits)
     prods = _slice_pair_products(xs, bs.transpose(1, 2))
     return _combine(prods, sx, sb.T, bits, a.shape[-1])
 
@@ -428,8 +428,8 @@ def sliced_mTm(a: torch.Tensor, b: torch.Tensor, n_slices: int = _SLICES,
     :func:`sliced_mm`."""
     _check_pair("sliced_mTm", a, b, a.shape[0], b.shape[0])
     _check_exact(a.shape[0], bits)
-    xs, sx = slice_operand(a, n_slices, bits, axis=0)
-    bs, sb = slice_operand(b, n_slices, bits, axis=0)
+    xs, sx = slice_operand(a, 0, n_slices, bits)
+    bs, sb = slice_operand(b, 0, n_slices, bits)
     prods = _slice_pair_products(xs.transpose(1, 2), bs)
     return _combine(prods, sx.T, sb, bits, a.shape[0])
 

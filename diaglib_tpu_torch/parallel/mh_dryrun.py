@@ -21,8 +21,9 @@ reference's dry run does.  It prints ``MH_DRYRUN_OK`` on success.
 on every rank with inputs pickled from the caller (numpy arrays and plain
 values) and returns each rank's outputs: the sharded operators and
 solvers, a sharded checkpoint save, load and resume, the collective
-inventory of a sharded Davidson iteration, and the flagship's sharded
-ladders (job ``ladders``).  :func:`job_inputs` makes one set of inputs a
+inventory of a sharded Davidson iteration, the flagship's sharded ladders
+(job ``ladders``), and the process-spanning names of ``multihost`` (job
+``mesh``).  :func:`job_inputs` makes one set of inputs a
 job, so that the same job runs under gloo on CPU ranks and under NCCL on
 the cards and the two can be held together.  The workers import only this
 package, never JAX.  One worker by hand::
@@ -762,10 +763,51 @@ def _job_inventory(dev, inp):
                                               sharding=sh)}
 
 
+def _job_mesh(dev, inp):
+    """The process-spanning names of ``multihost`` on this rank: the mesh
+    (and the refusal of an axis other than "n"), ``global_sharding`` of
+    the length of ``x`` beside a ``VectorSharding`` of it, and ``x`` (held
+    in full by every process) through ``make_replicated`` and
+    ``make_global``."""
+    import torch
+    import torch.distributed as dist
+
+    from .multihost import (
+        global_mesh,
+        global_sharding,
+        make_global,
+        make_replicated,
+    )
+    from .sharding import VectorSharding
+
+    x = inp["x"]
+    try:
+        global_mesh("m")
+        refused = False
+    except ValueError:
+        refused = True
+    sh, ref = global_sharding(x.shape[1]), VectorSharding(x.shape[1])
+    fields = ("group", "n", "size", "rank", "n_local", "lo")
+    rep = make_replicated(x)
+    part = make_global(x, sh)
+    # every rank's copy, gathered: a full copy on each
+    copies = [torch.empty_like(rep) for _ in range(dist.get_world_size())]
+    dist.all_gather(copies, rep.contiguous())
+    return {"mesh_is_world": global_mesh() is dist.group.WORLD,
+            "other_axis_refused": refused,
+            "sharding": {k: getattr(sh, k) for k in fields[1:]},
+            "sharding_is_vector_sharding": type(sh) is VectorSharding and all(
+                getattr(sh, k) == getattr(ref, k) for k in fields),
+            "replicated": rep.cpu().numpy(), "replicated_device":
+                str(rep.device),
+            "copies_equal": all(torch.equal(c, rep) for c in copies),
+            "shard": part.cpu().numpy()}
+
+
 JOBS = {"dryrun": _job_dryrun, "dist_sliced": _job_dist_sliced,
         "sharded_solvers": _job_sharded_solvers,
         "checkpoint": _job_checkpoint, "inventory": _job_inventory,
-        "ladders": _job_ladders}
+        "ladders": _job_ladders, "mesh": _job_mesh}
 
 
 def _store_arrays(dm) -> dict:
@@ -782,10 +824,11 @@ def _store_arrays(dm) -> dict:
 def job_inputs(job: str, size: int = 4, workdir: str | None = None) -> dict:
     """The inputs of the ``JOBS`` entry ``job`` for a fleet of ``size``
     ranks, at the sizes of its CPU test (``tests/test_torch_
-    {sharding,dist_sliced,checkpoint,profiling}.py``), made on the CPU from
-    seeds: numpy's generator, and this package's problem generators (CPU
-    ``torch.Generator`` streams where one draws), so that one dict
-    runs the same job under gloo on CPU ranks and under NCCL on the cards.
+    {sharding,dist_sliced,checkpoint,profiling,multihost}.py``), made on the
+    CPU from seeds: numpy's generator, and this package's problem
+    generators (CPU ``torch.Generator`` streams where one draws), so that
+    one dict runs the same job under gloo on CPU ranks and under NCCL on
+    the cards.
     ``workdir`` is where the checkpoint job writes (required for it)."""
     import torch
 
@@ -856,6 +899,8 @@ def job_inputs(job: str, size: int = 4, workdir: str | None = None) -> dict:
                 "guess": np.random.default_rng(4).uniform(-0.5, 0.5,
                                                           (6, 64)),
                 "options": dict(n_targ=3, n_max=6, max_iter=10, tol=1e-8)}
+    if job == "mesh":
+        return {"x": np.random.default_rng(6).standard_normal((3, 64))}
     raise ValueError(f"job_inputs: no inputs for job {job!r}")
 
 

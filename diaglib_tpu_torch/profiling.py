@@ -104,23 +104,23 @@ def _recording(inv):
             setattr(dist, name, real)
 
 
-def collective_inventory(hlo_or_fn, *args, **kwargs):
+def collective_inventory(hlo_text, *args, **kwargs):
     """``{op_kind: {"count": N, "bytes": B}}`` of the collectives of a
     program, B summing output bytes.
 
     Given a ``str``, it parses compiled HLO text exactly as the reference
-    does.  Given a callable, it runs ``hlo_or_fn(*args, **kwargs)`` once
+    does.  Given a callable, it runs ``hlo_text(*args, **kwargs)`` once
     and records the ``torch.distributed`` calls made under it, the eager
     counterpart of reading a compiled program: ``all_reduce`` counts as
     "all-reduce", ``all_gather`` as "all-gather", and each ring permute's
     send/receive pair as one "collective-permute".  An extra collective in
     a sharded solver step changes it deterministically.
     """
-    if isinstance(hlo_or_fn, str):
-        return _hlo_inventory(hlo_or_fn)
+    if isinstance(hlo_text, str):
+        return _hlo_inventory(hlo_text)
     inv = {}
     with _recording(inv):
-        hlo_or_fn(*args, **kwargs)
+        hlo_text(*args, **kwargs)
     return inv
 
 

@@ -27,8 +27,18 @@ ops, so the reduced matrix and its eigenvectors stay on the operands'
 device.  Both solve the leading ``ldu x ldu`` block (the reference's
 prefix buckets are not carried).
 
-The pass is an eager loop over the JAX package's ``step_pre`` /
-``step_post`` state, with the same fixed ``(lda_pad, n)`` buffers.
+A pass has the reference's loop shape: one fixed-shape state (the
+reference's ``_NonsymState``, with the same fixed ``(lda_pad, n)``
+buffers and every count a 0-d tensor on the device) and an iteration in
+steps that read nothing back (:class:`_NonsymIteration`, the reference's
+``step_pre`` / ``step_post``), with the reduced solve between them, as
+the reference's loop reaches the host dgeev through a callback.  On
+unsharded CUDA tensors each step is captured once a pass as a CUDA graph
+and replayed (``utils/graphs.py``); the host reads the device twice an
+iteration, the Gram matrix for dgeev and the packed flags after the last
+step.  CPU tensors and ``sharding=`` runs call the same steps directly,
+with the ortho loops reading their predicates; ``driver="device"`` runs
+the same steps with the Eberlein solve between them.
 
 Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`
 over n): every (k, n) block is the rank's column shard, ``n`` in the rms
@@ -41,15 +51,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
-from ..ortho.core import ortho_cd, ortho_vs_x
+from ..ortho.core import _ortho_cd, _ortho_vs_x, ortho_cd
 from ..reporting import inflight_progress
 from ..types import NonsymResult, SolverOptions
 from ..utils.eberlein import eberlein_eig
+from ..utils.graphs import StepLoop, StepState, _budgets, _route
 from ..utils.guess import check_guess
 from ..utils.masking import gather_rows, prefix_lock, prefix_mask, scatter_rows
 from ..utils.mm import (
@@ -338,6 +350,206 @@ def _check_driver(driver: str):
         raise ValueError("driver must be 'auto', 'jit', 'device' or 'host'")
 
 
+class _NonsymIteration(StepState):
+    """One pass's fixed-shape state and the steps of an iteration over it,
+    the reference's ``_NonsymState`` and its ``step_pre`` / ``step_post``.
+
+    Every buffer is allocated once and written in place, and every count
+    the steps use (``ldu``, ``n_act``, ``ldu_new``, ``n_frozen``, the
+    preconditioner's shift) is a 0-d tensor on the device, so no step
+    reads the device and each can be captured as a CUDA graph:
+
+    1. :meth:`matvec`: the matvec block, its products scattered into
+       ``aspace``, and the masked Gram matrix of the whole space in ``g``
+       (``aspace . space^T`` on the left pass, ``space . aspace^T`` on the
+       right); (between the steps, uncaptured) :meth:`reduced`, the
+       nonsymmetric reduced solve of ``g``'s leading ``ldu_new`` block (the
+       host dgeev, which reads ``g`` back, or the Eberlein solve on the
+       device), its sort and root homing, written into ``wr`` and
+       ``c_use``;
+    2. :meth:`ritz`: the Ritz vectors, residuals, norms, locking and
+       histories, and :attr:`flags`;
+    3. :meth:`expand` or :meth:`restart`, as the host's count of
+       expansions picks.
+
+    A step 3 whose unrolled ortho loops fell short is found with the next
+    iteration's flags: the iteration is undone, the step is run again with
+    the eager loops from the inputs it kept (the preconditioned block, or
+    for the restart a copy of the Ritz vectors, which the next ritz step
+    overwrote), and the iteration is run again (``utils.graphs``).
+    """
+
+    BODIES = {"expand": "_expand_ortho", "restart": "_restart_body"}
+
+    def __init__(self, op, precnd, guess, use_left, options, sqrtn,
+                 budgets):
+        self.op, self.precnd, self.use_left = op, precnd, use_left
+        self.options, self.sqrtn = options, sqrtn
+        n_max = self.n_max = options.n_max
+        self.n_targ = options.n_targ
+        lda_pad = self.lda_pad = options.dim_dav * n_max + n_max
+        max_iter = options.max_iter
+        n = guess.shape[1]
+        dtype, dev = guess.dtype, guess.device
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        def full(value, *shape, dt=dtype):
+            return torch.full(shape, value, dtype=dt, device=dev)
+
+        self.rows = torch.arange(n_max, device=dev)
+        self.rows_pad = torch.arange(lda_pad, device=dev)
+        self.targ = self.rows < self.n_targ
+        self.space = scatter_rows(zeros(lda_pad, n), guess, 0)
+        self.aspace = zeros(lda_pad, n)
+        self.g = zeros(lda_pad, lda_pad)
+        # the reduced solve's results: the leading eigenvalues and the
+        # pass's side of reduced eigenvectors
+        self.wr = zeros(n_max)
+        self.c_use = zeros(lda_pad, n_max)
+        self.eig = zeros(n_max)
+        self.evec = zeros(n_max, n)
+        self.r = zeros(n_max, n)
+        self.done = zeros(n_max, dt=torch.bool)
+        self.rms = full(math.inf, n_max)
+        self.rmx = full(math.inf, n_max)
+        self.eig_h = zeros(max_iter, n_max)
+        self.rms_h = full(math.inf, max_iter, n_max)
+        self.max_h = full(math.inf, max_iter, n_max)
+        i64 = torch.int64
+        self.it = zeros(dt=i64)
+        self.ldu = zeros(dt=i64)
+        self.n_act = full(n_max, dt=i64)
+        self.ldu_new = zeros(dt=i64)
+        self.n_frozen = zeros(dt=i64)
+        # step 3's inputs, kept for rerun
+        self.pre = zeros(n_max, n)
+        self.ldu_new3 = zeros(dt=i64)
+        self.n_frozen3 = zeros(dt=i64)
+        self.evec3 = zeros(n_max, n)
+        self._init_steps(True, budgets, dev)
+
+    # ---- step 1 ----
+    def matvec(self):
+        ldu_new = self.ldu + self.n_act
+        block = gather_rows(self.space, self.ldu, self.n_max,
+                            count=self.n_act)
+        ablock = self.op(block)
+        ablock = torch.where((self.rows < self.n_act)[:, None], ablock, 0.0)
+        scatter_rows(self.aspace, ablock, self.ldu)
+        # right pass: G[i,j] = s_i . (A s_j); left pass G[i,j] = (A^T l_i)
+        # . l_j — both reduce A in the current basis
+        col_ok = prefix_mask(self.lda_pad, ldu_new, device=ldu_new.device)
+        g = (mmT(self.aspace, self.space) if self.use_left
+             else mmT(self.space, self.aspace))
+        self.g.copy_(torch.where(col_ok[:, None] & col_ok[None, :], g, 0.0))
+        self.ldu_new.copy_(ldu_new)
+
+    # ---- between the steps ----
+    def reduced(self, ldu_new: int, n_sort: int, homing: bool, copies,
+                on_device: bool):
+        """The reduced solve of ``g``'s leading ``ldu_new`` block, sorted
+        over ``n_sort`` slots and homed onto ``copies`` (the previous
+        reduced eigenvectors of both sides) when ``homing``; writes ``wr``
+        and ``c_use`` and returns this solve's copies."""
+        n_max = self.n_max
+        if on_device:
+            # the reference's adaptive Eberlein target: the homing rests
+            # on eigenvector overlaps, so an order of margin more than the
+            # symmetric drivers and a tighter cap
+            prev_rms = torch.where(~self.done, self.rms, math.inf).min()
+            off_tol = torch.clamp(1e-3 * prev_rms, 0.0, 1e-6)
+            wr, vr, vl = _device_reduced_eig(self.g, ldu_new, n_sort, homing,
+                                             *copies, n_max, off_tol)
+            self.wr.copy_(wr[:n_max])
+            self.c_use.copy_((vl if self.use_left else vr)[:, :n_max])
+            return vr[:, :2 * n_max], vl[:, :2 * n_max]
+        np_dtype = (np.float64 if self.g.dtype == torch.float64
+                    else np.float32)
+        # the one read of the device besides the flags
+        wr, vr, vl, _ = _host_reduced_eig(
+            self.g.cpu().numpy(), ldu_new, n_sort, homing, *copies, n_max,
+            out_dtype=np_dtype)
+        # fresh pageable tensors each iteration: a copy from them returns
+        # once the data is staged, so nothing here waits for the card
+        self.wr.copy_(torch.from_numpy(wr[:n_max].copy()),
+                      non_blocking=True)
+        self.c_use.copy_(torch.from_numpy(
+            (vl if self.use_left else vr)[:, :n_max].copy()),
+            non_blocking=True)
+        return vr[:, :2 * n_max].copy(), vl[:, :2 * n_max].copy()
+
+    # ---- step 2 ----
+    def ritz(self):
+        self.keep_ritz()
+        opts = self.options
+        eig, c = self.wr, self.c_use
+        evec = mTm(c, self.space)
+        r = mTm(c, self.aspace) - eig[:, None] * evec
+        active = ~self.done & self.targ
+        rms = torch.where(active, norm_n(r) / self.sqrtn, self.rms)
+        rmx = torch.where(active, amax_n(r.abs()), self.rmx)
+        conv = (rms < opts.tol) & (rmx < opts.tol_max) & (self.it > 0)
+        done = prefix_lock(self.done, conv, self.n_targ)
+        at = self.it.view(1)
+        self.eig_h.index_copy_(0, at, (eig - opts.shift)[None])
+        self.rms_h.index_copy_(0, at, rms[None])
+        self.max_h.index_copy_(0, at, rmx[None])
+        self.eig.copy_(eig)
+        self.evec.copy_(evec)
+        self.r.copy_(r)
+        self.rms.copy_(rms)
+        self.rmx.copy_(rmx)
+        self.done.copy_(done)
+        self.ok.copy_(done[:self.n_targ].all())
+        self.n_frozen.copy_(done.sum())
+        self.it.add_(1)
+        self.pack_flags()
+
+    # ---- step 3 ----
+    def expand(self):
+        """Precondition the active residuals at the shift of the first
+        active root, orthogonalize them against the space and append
+        them."""
+        n_max, n_frozen = self.n_max, self.n_frozen
+        first = n_frozen.clamp(max=n_max - 1).view(1)
+        shift = -self.eig.index_select(0, first).reshape(())
+        rblk = gather_rows(self.r, n_frozen, n_max, count=n_max - n_frozen)
+        umask = self.rows < n_max - n_frozen
+        self.pre.copy_(torch.where(umask[:, None],
+                                   self.precnd(shift, rblk), 0.0))
+        self.ldu_new3.copy_(self.ldu_new)
+        self.n_frozen3.copy_(n_frozen)
+        self._expand_ortho()
+
+    def _expand_ortho(self):
+        n_act_new = self.n_max - self.n_frozen3
+        umask = self.rows < n_act_new
+        col_ok = self.rows_pad < self.ldu_new3
+        with self._ortho() as rec:
+            unew, o_done = _ortho_vs_x(self.space, self.pre, xmask=col_ok,
+                                       umask=umask)
+            scatter_rows(self.space, unew, self.ldu_new3)
+        self._close(o_done, rec)
+        self.ldu.copy_(self.ldu_new3)
+        self.n_act.copy_(n_act_new)
+
+    def restart(self):
+        """Collapse the space onto the orthonormalized Ritz vectors."""
+        self.evec3.copy_(self.evec)
+        self._restart_body()
+
+    def _restart_body(self):
+        with self._ortho() as rec:
+            ev, _, cd_ok = _ortho_cd(self.evec3)
+            scatter_rows(self.space.zero_(), ev, 0)
+        self.aspace.zero_()
+        self._close(cd_ok, rec)
+        self.ldu.zero_()
+        self.n_act.fill_(self.n_max)
+
+
 def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
                  generator, sharding=None,
                  driver: str = "auto") -> NonsymPassResult:
@@ -349,123 +561,64 @@ def _nonsym_pass(op, precnd, guess, options: SolverOptions, use_left: bool,
     "device" solves the reduced problem on the operands' device, any
     other on the host.  Runs inside the caller's ``mm_sharding``.
     """
-    use_left = bool(use_left)
     on_device = driver == "device"
-    n_targ, n_max = options.n_targ, options.n_max
-    lda_pad = options.dim_dav * n_max + n_max
-    max_iter = options.max_iter
+    n_max, max_iter = options.n_max, options.max_iter
     k_rows, n = guess.shape
     if k_rows != n_max:
         raise ValueError(f"guess must have n_max={n_max} rows, got {k_rows}")
-    dtype, dev = guess.dtype, guess.device
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    sqrtn = math.sqrt(global_n(n, sharding))
-    tol_rms, tol_max = options.tol, options.tol_max
-    rows_max = torch.arange(n_max, device=dev)
-    targ = rows_max < n_targ
-
+    dev = guess.device
+    route = _route(dev, sharding)
     guess = check_guess(guess, generator)
-    space = scatter_rows(torch.zeros((lda_pad, n), dtype=dtype, device=dev),
-                         guess, 0)
-    aspace = torch.zeros((lda_pad, n), dtype=dtype, device=dev)
-    ldu, n_act, m_dim, fresh = 0, n_max, 1, True
-    # the previous reduced eigenvectors, for the homing: on the host for
-    # the host driver, on the device for the device driver
+    st = _NonsymIteration(op, precnd, guess, bool(use_left), options,
+                          math.sqrt(global_n(n, sharding)), _budgets(route))
+    loop = StepLoop("nonsym", st, dev, route, _SCOPES)
+    # the previous reduced eigenvectors of both sides, for the homing: on
+    # the host for the host dgeev, on the device for the device solve
+    lda_pad = st.lda_pad
     if on_device:
-        copy_r = torch.zeros((lda_pad, 2 * n_max), dtype=dtype, device=dev)
-        copy_l = torch.zeros_like(copy_r)
+        copies = (torch.zeros((lda_pad, 2 * n_max), dtype=guess.dtype,
+                              device=dev),) * 2
     else:
-        copy_r = np.zeros((lda_pad, 2 * n_max), np_dtype)
-        copy_l = np.zeros_like(copy_r)
-    eig = torch.zeros((n_max,), dtype=dtype, device=dev)
-    evec = torch.zeros((n_max, n), dtype=dtype, device=dev)
-    done = torch.zeros((n_max,), dtype=torch.bool, device=dev)
-    rms = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
-    rmx = torch.full((n_max,), math.inf, dtype=dtype, device=dev)
-    ok, ortho_ok, n_matvec, it = False, True, 0, 0
-    eig_h = torch.zeros((max_iter, n_max), dtype=dtype, device=dev)
-    rms_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
-    max_h = torch.full((max_iter, n_max), math.inf, dtype=dtype, device=dev)
+        np_dtype = np.float64 if guess.dtype == torch.float64 else np.float32
+        copies = (np.zeros((lda_pad, 2 * n_max), np_dtype),) * 2
+    solved = [copies]
 
-    while not ok and it < max_iter:
-        # ---- step_pre: the matvec block and the reduced matrix ----
-        ldu_new = ldu + n_act
-        blk = gather_rows(space, ldu, n_max, count=n_act)
-        ablk = op(blk)
-        ablk = torch.where((rows_max < n_act)[:, None], ablk, 0.0)
-        aspace = scatter_rows(aspace, ablk, ldu)
-        col_ok = prefix_mask(lda_pad, ldu_new, device=dev)
-        # right pass: G[i,j] = s_i . (A s_j); left pass G[i,j] = (A^T l_i)
-        # . l_j — both reduce A in the current basis
-        g = mmT(aspace, space) if use_left else mmT(space, aspace)
-        g = torch.where(col_ok[:, None] & col_ok[None, :], g, 0.0)
-        n_sort = n_max if fresh else n_max + n_act
+    def reduce(ldu_new, n_sort, homing, copies):
+        solved[0] = st.reduced(ldu_new, n_sort, homing, copies, on_device)
 
-        # ---- the reduced solve ----
-        if on_device:
-            # the reference's adaptive Eberlein target: the homing rests on
-            # eigenvector overlaps, so an order of margin more than the
-            # symmetric drivers and a tighter cap
-            prev_rms = torch.where(~done, rms, math.inf).min()
-            off_tol = torch.clamp(1e-3 * prev_rms, 0.0, 1e-6)
-            wr, vr, vl = _device_reduced_eig(g, ldu_new, n_sort, not fresh,
-                                             copy_r, copy_l, n_max, off_tol)
-            copy_r, copy_l = vr[:, :2 * n_max], vl[:, :2 * n_max]
-            eig = wr[:n_max]
-            c_use = (vl if use_left else vr)[:, :n_max]
-        else:
-            wr, vr, vl, _ = _host_reduced_eig(
-                g.cpu().numpy(), ldu_new, n_sort, not fresh, copy_r, copy_l,
-                n_max, out_dtype=np_dtype)
-            copy_r = vr[:, :2 * n_max].copy()
-            copy_l = vl[:, :2 * n_max].copy()
-            eig = torch.from_numpy(wr[:n_max].copy()).to(dev)
-            c_use = torch.from_numpy(
-                (vl if use_left else vr)[:, :n_max].copy()).to(dev)
-
-        # ---- step_post: Ritz vectors, residuals, expand or restart ----
-        n_matvec += n_act
-        evec = mTm(c_use, space)
-        r = mTm(c_use, aspace) - eig[:, None] * evec
-
-        active = ~done & targ
-        rms = torch.where(active, norm_n(r) / sqrtn, rms)
-        rmx = torch.where(active, amax_n(r.abs()), rmx)
-        conv = (rms < tol_rms) & (rmx < tol_max) & (it > 0)
-        done = prefix_lock(done, conv, n_targ)
-        ok = bool(done[:n_targ].all())
-
-        eig_h[it] = eig - options.shift
-        rms_h[it] = rms
-        max_h[it] = rmx
-        if options.verbose:
-            inflight_progress("nonsym", it, n_act, eig_h[it], rms, rmx)
-
-        n_frozen = int(done.sum())
-        n_act_new = n_max - n_frozen
-        if ok:
-            ldu, fresh = ldu_new, False
-        elif m_dim < options.dim_dav:
-            umask = rows_max < n_act_new
-            rblk = gather_rows(r, n_frozen, n_max, count=n_act_new)
-            pre = precnd(-float(eig[min(n_frozen, n_max - 1)]), rblk)
-            pre = torch.where(umask[:, None], pre, 0.0)
-            unew, o_done = ortho_vs_x(space, pre, xmask=col_ok, umask=umask)
-            space = scatter_rows(space, unew, ldu_new)
-            ldu, n_act, m_dim, fresh = ldu_new, n_act_new, m_dim + 1, False
-            ortho_ok = ortho_ok and o_done
-        else:
-            ev, _, cd_ok = ortho_cd(evec)
-            space = scatter_rows(torch.zeros_like(space), ev, 0)
-            aspace = torch.zeros_like(aspace)
-            ldu, n_act, m_dim, fresh = 0, n_max, 1, True
-            ortho_ok = ortho_ok and cd_ok
-        it += 1
-
+    # the host's copies of the counts it needs: the reduced block's size
+    # and the matvec count (ldu, n_act), the branch (m_dim) and whether the
+    # space was just (re)started (fresh: no homing, a sort over n_max)
+    ldu, n_act, m_dim, fresh = 0, n_max, 1, True
+    ok, n_matvec, it = False, 0, 0
+    with loop:
+        while not ok and it < max_iter:
+            ldu_new = ldu + n_act
+            n_sort = n_max if fresh else n_max + n_act
+            # an iteration run again (after a rerun) homes onto the copies
+            # it had the first time
+            ok, n_frozen = loop.iterate(functools.partial(
+                reduce, ldu_new, n_sort, not fresh, copies))
+            copies = solved[0]
+            n_matvec += n_act
+            if options.verbose:
+                inflight_progress("nonsym", it, n_act, st.eig_h[it], st.rms,
+                                  st.rmx)
+            if not ok:
+                if m_dim < options.dim_dav:
+                    loop.branch("expand")
+                    ldu, n_act, m_dim = ldu_new, n_max - n_frozen, m_dim + 1
+                    fresh = False
+                else:
+                    loop.branch("restart")
+                    ldu, n_act, m_dim, fresh = 0, n_max, 1, True
+            it += 1
+        ortho_ok = loop.close()
+    loop.record(it, st.eig.dtype, options.verbose)
     return NonsymPassResult(
-        eig=eig - options.shift, evec=evec, ok=ok, n_iter=it,
-        n_matvec=n_matvec, done=done, rms_h=rms_h, max_h=max_h, eig_h=eig_h,
-        ortho_ok=ortho_ok)
+        eig=st.eig - options.shift, evec=st.evec, ok=ok, n_iter=it,
+        n_matvec=n_matvec, done=st.done, rms_h=st.rms_h, max_h=st.max_h,
+        eig_h=st.eig_h, ortho_ok=ortho_ok)
 
 
 def nonsym(matvec, matvec_l, precnd, evec_guess: torch.Tensor,
@@ -601,3 +754,8 @@ def nonsym_finalize(res_r: NonsymPassResult, res_l: NonsymPassResult,
         return _consecutive_result(res_r, res_l,
                                    True if seed_ok is None else bool(seed_ok),
                                    options)
+
+
+# the profiler scope of each step (the restart has none)
+_SCOPES = {"matvec": "matvec", "ritz": "rayleigh-ritz",
+           "expand": "expand-ortho"}

@@ -5,8 +5,9 @@ This is the port's counterpart of the reference's ``jax.jit`` around a
 loops): XLA compiles the whole loop into one device program, so the host
 launches it once and reads nothing back until it ends.  PyTorch runs
 eagerly, so the iterations of ``davidson`` / ``gen_david``
-(``solvers/davidson.py``), ``lobpcg`` (``solvers/lobpcg.py``) and
-``caslr`` / ``caslr_eff`` (``solvers/caslr.py``) are cut into steps over
+(``solvers/davidson.py``), ``lobpcg`` (``solvers/lobpcg.py``),
+``caslr`` / ``caslr_eff`` (``solvers/caslr.py``) and each pass of
+``nonsym`` (``solvers/nonsym.py``) are cut into steps over
 fixed buffers, each step is captured once per solve as a CUDA graph and
 then replayed: one launch a step instead of a few hundred, and no read of
 the device inside a step.
@@ -195,7 +196,7 @@ _RECORDING = [None]
 
 class _recording:
     """Private: run the solvers whose iterations are steps (davidson,
-    gen_david, lobpcg, caslr, caslr_eff, and so their ladders) on
+    gen_david, lobpcg, caslr, caslr_eff, nonsym, and so their ladders) on
     ``route`` ("graphs": the steps captured and replayed as CUDA graphs;
     "eager": the same steps called directly, the ortho loops reading their
     predicates; "unrolled": called directly with the captured route's

@@ -1,4 +1,5 @@
-"""The captured routes on the card (davidson, lobpcg, caslr, caslr_eff):
+"""The captured routes on the card (davidson, lobpcg, caslr, caslr_eff,
+nonsym):
 each iteration's steps replayed as CUDA graphs, against the same steps
 called directly, and the float64 BSR sums called twice.
 
@@ -14,7 +15,10 @@ the same counts: both routes run the same arithmetic (an unrolled ortho
 pass past its loop's end is masked out, and launches K3 all the same).
 The same holds for the flagship's lobpcg_ladder (lo_iter 70), and for
 caslr_eff_ladder and caslr_ladder algorithm 0 on bsr_casida_tdscf(65536,
-512, 4) (lo_iter 60, a zero (15, 131072) paired guess).  Two calls of the
+512, 4) (lo_iter 60, a zero (15, 131072) paired guess), and for the
+two-sided nonsym_ladder on bsr_nonsym_similarity(65536, 512, 8) (side
+"c", n_max 10, lo_iter 60), whose matvecs launch K2, K1 and K5 as often
+on both routes.  Two calls of the
 float64 plain-BSR and distributed-BSR segment products at n = 65536 give
 the same bits.  A step that reads the device cannot be captured, and the
 solve raises instead of running uncaptured (last: a failed capture leaves
@@ -34,6 +38,8 @@ from diaglib_tpu_torch import (
     davidson_ladder,
     lobpcg,
     lobpcg_ladder,
+    nonsym,
+    nonsym_ladder,
 )
 from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
 from diaglib_tpu_torch.ops.bsr import BSRMatrix, bsr_matvec, random_bsr_spd
@@ -41,8 +47,10 @@ from diaglib_tpu_torch.ops.bsr import row_slots
 from diaglib_tpu_torch.ops.dist_bsr import _segment_spmm
 from diaglib_tpu_torch.problems import (
     bsr_casida_tdscf,
+    bsr_nonsym_similarity,
     casida_tdscf_ops,
     diag_precnd,
+    nonsym_similarity_ops,
     symm_matrix,
 )
 from diaglib_tpu_torch.utils import graphs
@@ -160,6 +168,45 @@ def test_captured_casida_ladders_bit_equal_to_uncaptured(casida, prec):
             generator=gen), "caslr")
 
 
+NS_FIELDS = ("eig", "evec_r", "evec_l", "done", "rms_history_r",
+             "max_history_r", "rms_history_l", "max_history_l",
+             "eig_history")
+
+
+def test_captured_nonsym_ladder_bit_equal_to_uncaptured(dev):
+    stores, diag = bsr_nonsym_similarity(N, B, BPR, seed=0, device=dev)
+    f32 = torch.float32
+    guess = torch.zeros((10, N), dtype=torch.float64, device=dev)
+    opts = SolverOptions(n_targ=10, n_max=10, max_iter=150, tol=1e-10,
+                         max_dav=10)
+
+    def run(gen):
+        return nonsym_ladder(
+            *nonsym_similarity_ops(stores, dtype=f32),
+            diag_precnd(diag.to(f32)), *nonsym_similarity_ops(stores),
+            diag_precnd(diag), guess, opts, side="c", lo_tol=2e-6,
+            lo_iter=60, generator=gen)
+
+    eager, e_solves, e_launches = _counted(run, "eager")
+    captured, c_solves, c_launches = _counted(run, None)
+    # the float32 stage's right pass, the float64 stage's two passes
+    assert [(s["solver"], s["route"]) for s in c_solves] == \
+        [("nonsym", "graphs")] * 3
+    assert [s["route"] for s in e_solves] == ["eager"] * 3
+    assert captured.ok and eager.ok
+    assert (captured.n_iter, captured.n_matvec, captured.ortho_ok) == \
+        (eager.n_iter, eager.n_matvec, eager.ortho_ok)
+    for f in NS_FIELDS:
+        assert torch.equal(getattr(captured, f), getattr(eager, f)), f
+    reruns = sum(sum(s["reruns"].values()) for s in c_solves)
+    for k in ("peel_rows", "sym_spmm", "sliced_spmm"):
+        assert c_launches[k] > 0
+        assert reruns or c_launches[k] == e_launches[k]
+    assert c_launches["sliced_wide_mm"] >= e_launches["sliced_wide_mm"] > 0
+    for s in c_solves:
+        assert s["capture_s"] > 0 and sum(s["replays"].values()) > 0
+
+
 def test_float64_bsr_sums_bit_equal(flagship, dev):
     m, _ = flagship
     m64 = BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start, m.n,
@@ -219,4 +266,25 @@ def test_lobpcg_capture_failure_raises(dev):
     with graphs._recording("eager"):
         res = lobpcg(reading_matvec, diag_precnd(torch.diagonal(a)), guess,
                      opts)
+    assert res.ok
+
+
+def test_nonsym_capture_failure_raises(dev):
+    a = symm_matrix(256, device=dev)
+
+    def reading_matvec(x):
+        if float(x.abs().sum()) < 0:        # a read of the device
+            raise AssertionError
+        return x @ a.T
+
+    opts = SolverOptions(n_targ=2, n_max=4, max_iter=100, tol=1e-8)
+    guess = torch.rand((4, 256), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    args = (reading_matvec, reading_matvec, diag_precnd(torch.diagonal(a)),
+            guess, opts)
+    with pytest.raises(GraphCaptureError, match="'matvec'"):
+        nonsym(*args, side="r")
+    torch.cuda.synchronize()
+    with graphs._recording("eager"):
+        res = nonsym(*args, side="r")
     assert res.ok

@@ -2,6 +2,7 @@
 no JAX, and builds no kernel (the CUDA build is lazy)."""
 
 import importlib
+import inspect
 import pkgutil
 import subprocess
 import sys
@@ -90,3 +91,80 @@ def test_port_offers_every_name_of_the_reference():
         missing |= {(sub.lstrip("."), n) for n in names
                     if port is None or not hasattr(port, n)}
     assert missing == NOT_CARRIED
+
+
+# the parameters of the reference the port renames or drops: a JAX PRNG
+# key is a torch.Generator (or an integer seed) in the port; the Pallas
+# interpret switch and the presplit float64 operands have no counterpart
+RENAMED = {"key": ("generator", "seed")}
+DROPPED = {"interpret", "xsplit", "bxsplit"}
+# the parallel layer takes a process group where the reference takes a
+# device mesh (ROADMAP "Deliberate differences")
+OTHER_SIGNATURE = {"VectorSharding", "initialize", "global_sharding",
+                   "make_global", "make_replicated"}
+# DistSlicedBSR's fields without ``first`` (the port keeps no global
+# offset array beside its row partition)
+NOT_TAKEN = {("DistSlicedBSR", "first")}
+
+
+def _signature_faults(sub, name, ref, port):
+    """How ``port``'s signature fails to take ``ref``'s calls."""
+    try:
+        rs, ps = inspect.signature(ref), inspect.signature(port)
+    except (TypeError, ValueError):
+        return []
+    positional = (inspect.Parameter.POSITIONAL_ONLY,
+                  inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    variadic = (inspect.Parameter.VAR_POSITIONAL,
+                inspect.Parameter.VAR_KEYWORD)
+    rp = [p for p in rs.parameters.values() if p.name not in DROPPED
+          and (name, p.name) not in NOT_TAKEN]
+    pp = list(ps.parameters.values())
+    port_pos = [p.name for p in pp if p.kind in positional]
+    port_kw = {p.name for p in pp if p.kind == inspect.Parameter.KEYWORD_ONLY}
+    faults, matched = [], set()
+    for i, p in enumerate(q for q in rp if q.kind in positional):
+        names = RENAMED.get(p.name, (p.name,))
+        if i >= len(port_pos) or port_pos[i] not in names:
+            faults.append(f"{sub}.{name}: positional {p.name!r} at {i}")
+        else:
+            matched.add(port_pos[i])
+    for p in rp:
+        if p.kind != inspect.Parameter.KEYWORD_ONLY:
+            continue
+        hit = [n for n in RENAMED.get(p.name, (p.name,)) if n in port_kw]
+        if hit:
+            matched.add(hit[0])
+        else:
+            faults.append(f"{sub}.{name}: keyword-only {p.name!r}")
+    for p in pp:
+        if (p.name not in matched and p.kind not in variadic
+                and p.default is inspect.Parameter.empty):
+            faults.append(f"{sub}.{name}: added {p.name!r} without default")
+    return faults
+
+
+def test_port_takes_the_reference_calls():
+    """Every callable of an ``__all__`` in diaglib_tpu that the port offers
+    takes the reference's calls: each positional parameter at the same
+    position under the same name, each keyword-only parameter keyword-only
+    under the same name, and a default for each parameter the port adds
+    (but for RENAMED, DROPPED, OTHER_SIGNATURE and NOT_TAKEN)."""
+    mods = ["diaglib_tpu"] + sorted(m.name for m in pkgutil.walk_packages(
+        diaglib_tpu.__path__, prefix="diaglib_tpu."))
+    faults = []
+    for name in mods:
+        ref_mod = importlib.import_module(name)
+        names = getattr(ref_mod, "__all__", None)
+        sub = name[len("diaglib_tpu"):]
+        try:
+            port_mod = importlib.import_module("diaglib_tpu_torch" + sub)
+        except ImportError:
+            continue
+        for n in names or ():
+            ref, port = getattr(ref_mod, n), getattr(port_mod, n, None)
+            if port is None or not callable(ref) or n in OTHER_SIGNATURE:
+                continue
+            faults += _signature_faults(sub.lstrip(".") or "diaglib_tpu", n,
+                                        ref, port)
+    assert faults == []

@@ -54,6 +54,14 @@ def test_hlo_inventory_is_the_reference_dict():
     assert collective_inventory(empty) == j_inventory(empty) == {}
 
 
+def test_hlo_inventory_takes_the_reference_keyword():
+    """The first parameter is named as the reference names it, so a call
+    by keyword reads the same text in both packages."""
+    text = _fixture()
+    got = collective_inventory(hlo_text=text)
+    assert got == j_inventory(hlo_text=text) and got
+
+
 def test_wall_and_phase_timings():
     a = symm_matrix(128, device="cpu")
     x = torch.ones((4, 128), dtype=torch.float64)

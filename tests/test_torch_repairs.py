@@ -1,6 +1,6 @@
 """Forms of the reference's public API that the port refused or misread,
 held against the JAX package: ``bsr_matvec(force_reference=True)``,
-``sliced_wide_mm(n_slices=, bits=)``, ``prefix_mask(k, count, dtype)``,
+``sliced_wide_mm(n_slices=, bits=)``, ``slice_operand(x, axis)``, ``prefix_mask(k, count, dtype)``,
 the re-exports of ``utils``, ``solvers`` and the top-level package, and
 the solvers' verbose progress line.
 
@@ -8,7 +8,7 @@ Tolerances: the forced reference BSR path within 1e-6 max|y| of JAX's in
 float32 (both sum in float32, in other orders) and 1e-12 in float64; the
 exact wide product bit for bit against JAX's kernel in interpret mode
 (the same integer planes and levels, combined into the same float32
-triple); the masks exactly; the progress line in the reference's format,
+triple); slice_operand's planes and scales exactly; the masks exactly; the progress line in the reference's format,
 line for line, its running eigenvalue within 1e-6 * max(1, |eig|) of
 JAX's line (two float64 solves whose early Ritz values differ by the
 reduced solves' rounding) and within 1e-10 of JAX's result on the last
@@ -221,3 +221,20 @@ def test_every_solver_prints_through_inflight_progress(capsys):
                 evec_guess=g2, options=opts, **ops)
     lines = _lines(capsys.readouterr().out, "caslr")
     assert len(lines) == res.n_iter and all(LINE.match(ln) for ln in lines)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_slice_operand_takes_the_reference_positional_call(axis):
+    """``slice_operand(x, axis)`` with the axis second, as the reference
+    is called: the nine planes and the scales of the reference, on each
+    axis."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 256)) * 2.0 ** rng.integers(-20, 20, (6, 1))
+    planes, scale = tsl.slice_operand(torch.from_numpy(x), axis)
+    jp, js = jsl.slice_operand(jnp.asarray(x), axis)
+    assert planes.shape == (9, 6, 256)
+    np.testing.assert_array_equal(planes.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+    # and with the optional parameters positional too
+    planes, scale = tsl.slice_operand(torch.from_numpy(x), axis, 9, 6)
+    np.testing.assert_array_equal(planes.numpy(), np.asarray(jp))

@@ -48,7 +48,7 @@ def test_slice_operand_equals_the_reference(axis):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((6, 40)) * 2.0 ** rng.integers(-30, 30, (6, 1))
     x[:, 3] *= 1e-9
-    planes, scale = tsl.slice_operand(_t(x), 9, 6, axis=axis)
+    planes, scale = tsl.slice_operand(_t(x), axis, 9, 6)
     jp, js = jsl.slice_operand(jnp.asarray(x), axis)
     np.testing.assert_array_equal(planes.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(scale.numpy(), np.asarray(js))

@@ -199,7 +199,7 @@ def test_slice_operand_at_7_bits_is_the_front_end(dtype):
     entry: the grid and planes of the unfused chain, the scale in
     float64."""
     x = torch.from_numpy(_front_end_rows(dtype, seed=16))
-    planes, scale = tsl.slice_operand(x, 8, 7)
+    planes, scale = tsl.slice_operand(x, -1, 8, 7)
     t, want_scale = tsl._row_grid(x, 7)
     assert scale.dtype == torch.float64
     assert torch.equal(scale, want_scale)
