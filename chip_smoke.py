@@ -64,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
    (d) davidson_ladder on the symmetric store (n_max 15, lo_iter 35)
        under wide_mm="auto" and once more under "never": eigenvalues within
        1e-10, iterations within 2;
-   (a), (b), (d) "auto", (e) and (g)'s two ladders again on the captured
+   (a), (b), (d) "auto", (e), (f), (g)'s two ladders and (h3)'s sharded
+       ladder again on the captured
        route (the default: each iteration's steps replayed as CUDA
        graphs) and on the uncaptured one (the same steps called directly,
        through the solvers' private switch): every returned tensor bit for
@@ -81,7 +82,9 @@ Phases (any failure raises and the script exits non-zero):
    (f) under a one-rank NCCL process group (parallel.multihost.initialize,
        an explicit tcp:// rendezvous on the loopback), davidson_ladder with
        sharding= over dist_sliced_matvec of the general store, both tiers
-       (K6 under every matvec; n_max 15, lo_iter 35), then the unsharded
+       (K6 under every matvec; n_max 15, lo_iter 35), on the captured
+       route (each step's all-reduces inside its graph) and held against
+       the uncaptured one as (a)-(e) are, then the unsharded
        davidson_ladder over sliced_bsr_matvec of the same store (K5): the
        same iteration and matvec counts, eigenvalues within 1e-12; under
        the group, two calls of dist_bsr_matvec (float64 x) bit-equal and
@@ -111,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
        reduced solve on the card, run once) and with sharding= under a
        one-rank NCCL group: (e)'s checks, eigenvalues within 1e-9 of
        (e)'s, the sharded run with (e)'s iteration and matvec counts
-       exactly, and the median time of one reduced solve at L = 100 (the
+       exactly (captured, and held against its uncaptured route), and the
+       median time of one reduced solve at L = 100 (the
        ladder's largest) by eberlein_eig on the card and by host dgeev.
        No route falls back to another: a failure raises.
    Each returned set of 10 pairs must be ok, with residuals recomputed by
@@ -147,7 +151,9 @@ Phases (any failure raises and the script exits non-zero):
        product, davidson over it (4 roots, n_max 8, tol 1e-9, max_iter
        300) ok with host residuals below tol; (i6) profiling.collective_inventory of one
        sharded davidson iteration over dist_sliced_matvec (K6) under (f)'s
-       one-rank NCCL group;
+       one-rank NCCL group on the captured, unrolled and eager routes, and
+       of one warm iteration (profiling.flag_window, the captured steps
+       replayed): the captured route's counts the unrolled route's;
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
    the timed runs of 5, (h) and (i) included, and each kernel's times and
    bound; every kernel (six) must have run there.
@@ -156,7 +162,7 @@ Phases (any failure raises and the script exits non-zero):
 path with one NCCL rank a card, through ``parallel.mh_dryrun.run_fleet``:
 it builds the kernels once, needs R cards (else it exits non-zero), and
    (j1) runs each job of mh_dryrun but the flagship's (dryrun, dist_sliced,
-       sharded_solvers, checkpoint, inventory) on one set of inputs
+       sharded_solvers, checkpoint, inventory, routes) on one set of inputs
        (mh_dryrun.job_inputs, the sizes of its CPU test) under gloo on R
        CPU ranks and under NCCL on the R cards, and holds the two:
        integer stages (K6's planes, row scales and levels on the received
@@ -164,12 +170,20 @@ it builds the kernels once, needs R cards (else it exits non-zero), and
        and matvecs within +-2 (matvecs in blocks) but for the solve whose
        guess is drawn from a generator (the CPU and the card draw other
        streams), every rank's reduced results bit-identical, each NCCL
-       rank on its own card, MH_DRYRUN_OK from every rank;
+       rank on its own card, MH_DRYRUN_OK from every rank; the sharded
+       solves run captured on the cards (every step replayed, its
+       collectives and ring permutes inside), and job routes holds every
+       sharded solver captured (unrolled under gloo) against eager, bit
+       for bit on every rank, forced reruns included, with one flag
+       history on every rank;
    (j2) the flagship over R cards: random_bsr_spd(65536, 512, 8) built on
        every rank, each keeping its rows of the general store; the sharded
        davidson_ladder (lo_iter 35) and lobpcg_ladder (lo_iter 70) over
-       dist_sliced_matvec (K2, K6, and K3 in the rotations), run once to
-       warm up and once counted; rank 0's unsharded ladders over
+       dist_sliced_matvec (K2, K6, and K3 in the rotations) on the captured
+       route, run once to warm up and once counted, then captured against
+       uncaptured on every rank (profiling.compare_routes: the same bits
+       and counts, walls in turns, host reads, capture cost, one flag
+       digest on every rank); rank 0's unsharded ladders over
        sliced_bsr_matvec (K5) on the whole store; every pair's residuals by
        dist_bsr_matvec of the float64 products of the original blocks (rms
        < 1e-10, max < 1e-9); eigenvalues within 1e-10 of rank 0's K5
@@ -180,10 +194,12 @@ it builds the kernels once, needs R cards (else it exits non-zero), and
        every rank's received planes, both tiers; the ring permutes posted
        in one order on every rank; the collectives of one warm float64
        sharded Davidson iteration on rank 0 by kind, their NCCL kernels'
-       device ms and the device-busy share (torch.profiler);
+       device ms and the device-busy share (torch.profiler), captured and
+       eager;
    (j3) random_bsr_spd(R * 65536, 512, 8) over R cards, a flagship-sized
-       share a card: the sharded davidson_ladder, the same residual gate,
-       each card's peak memory (under 60 GB);
+       share a card: the sharded davidson_ladder, captured and against
+       uncaptured, the same residual gate, each card's peak memory (under
+       60 GB);
    (j4) K2, K3, K5 and K6 on cuda:0 at the shapes of the R-rank path, bit
        for bit against their plain versions and timed; then a ``kernels``
        line with their launches in (j2) summed over the ranks.
@@ -1083,14 +1099,16 @@ def casida_ladders(casida, timed, card):
         raise AssertionError("the two Casida ladders disagree")
 
 
-def sharded_vs_unsharded(general, m, timed, guess, opts, card,
+def sharded_vs_unsharded(general, m, timed, guess, opts, card, dev,
                          backend=None, inside=None):
     """Phase 5(f): davidson_ladder with ``sharding=`` over
-    dist_sliced_matvec under a one-rank process group (NCCL on the card),
-    then the unsharded ladder over sliced_bsr_matvec (K5) on the same
-    store: both checked by plain products, with the same counts and
-    eigenvalues within 1e-12.  ``inside(one, sh, pc_hi)`` runs under the
-    group, after the sharded ladder."""
+    dist_sliced_matvec under a one-rank process group (NCCL on the card;
+    the captured route, each step's all-reduces inside its graph), held
+    against its uncaptured route (captured_vs_uncaptured), then the
+    unsharded ladder over sliced_bsr_matvec (K5) on the same store: both
+    checked by plain products, with the same counts and eigenvalues
+    within 1e-12.  ``inside(one, sh, pc_hi)`` runs under the group, after
+    the sharded ladder."""
     import torch
     import torch.distributed as dist
 
@@ -1110,11 +1128,16 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
         one = dsl.distribute_sliced_bsr(general, 1, rank=sh.rank)
         d_lo = diag_precnd(one.diagonal.to(f32))
         d_hi = diag_precnd(one.diagonal)
-        rs, ws = timed("sharded davidson_ladder", lambda gen: davidson_ladder(
-            dsl.dist_sliced_matvec(one, sh, dtype=f32), d_lo,
-            dsl.dist_sliced_matvec(one, sh), d_hi, guess, opts, lo_tol=2e-6,
-            lo_iter=35, generator=gen, sharding=sh))
+        def run_f(gen):
+            return davidson_ladder(
+                dsl.dist_sliced_matvec(one, sh, dtype=f32), d_lo,
+                dsl.dist_sliced_matvec(one, sh), d_hi, guess, opts,
+                lo_tol=2e-6, lo_iter=35, generator=gen, sharding=sh)
+
+        rs, ws = timed("sharded davidson_ladder", run_f)
         check_pairs("sharded davidson_ladder", rs, m)
+        captured_vs_uncaptured("sharded davidson_ladder", run_f, dev, card,
+                               matvec_kernels=("peel_rows", "group_spmm"))
         dist_bsr_twice(m, sh, card)
         if inside is not None:
             inside(one, sh, d_hi)
@@ -1139,7 +1162,15 @@ def sharded_vs_unsharded(general, m, timed, guess, opts, card,
 def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
     """Phase (i6): profiling.collective_inventory of one iteration of the
     sharded float64 Davidson over dist_sliced_matvec (K6), under (f)'s
-    one-rank group."""
+    one-rank group, on the captured route (each step's first call runs
+    uncaptured and counts, its capture counts nothing), on the unrolled
+    route (the captured route's passes, called directly) and on the eager
+    one; then the collectives of one warm iteration (from the second flag
+    read to the third, profiling.flag_window) of a three-iteration solve
+    on each route, where every captured step is a replay that counts the
+    collectives its capture recorded.  The captured route's counts must
+    be the unrolled route's, both times (the eager loops may stop after
+    fewer ortho passes)."""
     import dataclasses
 
     import torch
@@ -1147,18 +1178,37 @@ def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
 
     from diaglib_tpu_torch import davidson, profiling
     from diaglib_tpu_torch.ops import dist_sliced as dsl
+    from diaglib_tpu_torch.utils import graphs
 
-    o1 = dataclasses.replace(opts, max_iter=1)
-    inv = counted("sharded davidson iteration", lambda: (
-        profiling.collective_inventory(
-            davidson, dsl.dist_sliced_matvec(one, sh), pc, guess, o1,
-            generator=torch.Generator(device=dev).manual_seed(1),
-            sharding=sh)))
+    def solve(max_iter):
+        return davidson(dsl.dist_sliced_matvec(one, sh), pc, guess,
+                        dataclasses.replace(opts, max_iter=max_iter),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        sharding=sh)
+
+    inv, warm = {}, {}
+    for route in ("graphs", "unrolled", "eager"):
+        with graphs._recording(None if route == "graphs" else route) as rec:
+            inv[route] = counted(
+                f"sharded davidson iteration {route}",
+                lambda: profiling.collective_inventory(solve, 1))
+            with profiling.flag_window(2) as w:
+                solve(3)
+        if {s["route"] for s in rec.solves} != {route} or not w["closed"]:
+            raise AssertionError(f"(i6): the {route} solves ran elsewhere")
+        warm[route] = w["inventory"]
     log(f"[inventory] one sharded davidson iteration over dist_sliced_matvec"
-        f" on a one-rank {dist.get_backend()} group: {json.dumps(inv)} "
-        f"({card})")
-    if not inv.get("all-reduce", {}).get("count"):
+        f" on a one-rank {dist.get_backend()} group, captured / unrolled / "
+        f"eager: " + " / ".join(json.dumps(inv[k]) for k in inv)
+        + "; one warm iteration (flag read 2 to 3, the captured steps "
+        "replayed): " + " / ".join(json.dumps(warm[k]) for k in warm)
+        + f" ({card})")
+    if not inv["graphs"].get("all-reduce", {}).get("count"):
         raise AssertionError("the sharded iteration recorded no all-reduce")
+    if inv["graphs"] != inv["unrolled"] or \
+            warm["graphs"] != warm["unrolled"]:
+        raise AssertionError("the captured sharded iteration's collectives "
+                             "differ from the unrolled route's")
 
 
 def sliced_gram_on_card(dev, card):
@@ -1206,151 +1256,74 @@ def rayleigh_quotient(mv, rows, L, dev, seed):
     return q @ aq.T
 
 
-class host_reads:
-    """Counts the host's reads of the device: torch.cuda's sync debug mode
-    warns at every synchronizing call (a copy to the host, ``.item()``, a
-    library's error check), and each warning is kept.  ``marks`` holds the
-    count at each flag read of the solvers' steps (``utils.graphs.
-    _read_flags``, one an iteration), so ``per_iteration()`` gives the
-    reads between two of them."""
-
-    def __enter__(self):
-        import warnings
-
-        import torch
-
-        from diaglib_tpu_torch.utils import graphs
-
-        self.graphs = graphs
-        self._catch = warnings.catch_warnings(record=True)
-        self.log = self._catch.__enter__()
-        warnings.simplefilter("always")
-        self.marks = []
-        graphs._read_flags.observer = lambda: self.marks.append(self.reads())
-        torch.cuda.set_sync_debug_mode("warn")
-        return self
-
-    def __exit__(self, *exc):
-        import torch
-
-        torch.cuda.set_sync_debug_mode("default")
-        self.graphs._read_flags.observer = None
-        self._catch.__exit__(*exc)
-        return False
-
-    def reads(self):
-        return sum("synchroniz" in str(w.message) for w in self.log)
-
-    def per_iteration(self, solves):
-        """Reads between consecutive flag reads of one solve (an
-        iteration's, from a solve's second on), given the solves' records
-        (their ``flag_reads``, in order)."""
-        out, at = [], 0
-        for s in solves:
-            marks = self.marks[at:at + s["flag_reads"]]
-            out += [b - a for a, b in zip(marks, marks[1:])]
-            at += s["flag_reads"]
-        return out
-
-
-SOLVE_FIELDS = ("eig", "evec", "done", "rms_history", "max_history",
-                "eig_history")
-NONSYM_FIELDS = ("eig", "evec_r", "evec_l", "done", "rms_history_r",
-                 "rms_history_l", "max_history_r", "max_history_l",
-                 "eig_history")
-
-
-def captured_vs_uncaptured(tag, run, dev, card, reps=5, fields=SOLVE_FIELDS,
+def captured_vs_uncaptured(tag, run, dev, card, reps=5,
                            matvec_kernels=("peel_rows", "sym_spmm")):
-    """(a), (b), (d), (e) and (g): the ladder on its default route, its steps
-    captured and replayed as CUDA graphs, and on the uncaptured route (the
-    same steps called directly, through the private switch
-    ``utils.graphs._recording``): every returned tensor (``fields``) bit
-    for bit, the same counts, the same launches of the ``matvec_kernels``
-    (K3's differ: a replay runs
-    every unrolled ortho pass); the median of ``reps`` warm walls of each,
-    run in turns; the host's reads an iteration (host_reads) on each; the
+    """(a), (b), (d), (e), (f), (g) and (h3): the ladder on its default
+    route, its steps captured and replayed as CUDA graphs, and on the
+    uncaptured route (the same steps called directly, through the private
+    switch ``utils.graphs._recording``), by profiling.compare_routes:
+    every returned tensor bit for bit, the same counts, the same launches
+    of the ``matvec_kernels`` (K3's differ: a replay runs every unrolled
+    ortho pass); the median of ``reps`` warm walls of each, run in turns;
+    the host's reads an iteration (profiling.host_reads) on each; the
     rare-branch reruns, graph capture seconds and pool memory of each
     stage, and the most passes each stage's eager ortho loops took on the
-    uncaptured route.  Returns the two medians."""
-    import torch
+    uncaptured route.  Returns compare_routes' dict."""
+    from diaglib_tpu_torch import profiling
 
-    from diaglib_tpu_torch.utils import graphs
-    from diaglib_tpu_torch.utils.graphs import kernel_counters
+    cmp = profiling.compare_routes(run, dev, reps)
+    rc, ru = cmp["solves"]["graphs"], cmp["solves"]["eager"]
+    counts = [cmp["counts"][k] for k in ("graphs", "eager")]
+    walls, med = cmp["walls"], cmp["median"]
 
-    counters = kernel_counters()
-
-    def once(route, reads=False):
-        for f in counters.values():
-            f.launches = 0
-        reader = host_reads() if reads else None
-        with graphs._recording(route) as rec:
-            if reader:
-                with reader:
-                    res = run(torch.Generator(device=dev).manual_seed(1))
-                    torch.cuda.synchronize()
-            else:
-                t0 = time.perf_counter()
-                res = run(torch.Generator(device=dev).manual_seed(1))
-                torch.cuda.synchronize()
-                rec.wall = time.perf_counter() - t0
-        rec.launches = {k: f.launches for k, f in counters.items()}
-        rec.reader = reader
-        return res, rec
-
-    cap, rc = once(None)
-    unc, ru = once("eager")
-    same = all(torch.equal(getattr(cap, f), getattr(unc, f))
-               for f in fields)
-    counts = [(r.n_iter, r.n_matvec, r.ok, r.ortho_ok) for r in (cap, unc)]
-    walls = {"graphs": [], "eager": []}
-    for i in range(reps):
-        for route in ((None, "eager") if i % 2 else ("eager", None)):
-            _, rec = once(route)
-            walls["graphs" if route is None else "eager"].append(rec.wall)
-    med = {k: statistics.median(v) for k, v in walls.items()}
-    _, rr_c = once(None, reads=True)
-    _, rr_u = once("eager", reads=True)
-
-    def reads_line(rec):
-        per = rec.reader.per_iteration(rec.solves)
-        its = sum(s["iterations"] for s in rec.solves)
-        return (f"{rec.reader.reads()} reads in {its} iterations "
-                f"({rec.reader.reads() / its:.2f} an iteration; between flag "
-                f"reads median {statistics.median(per)}, max {max(per)})")
+    def reads_line(route):
+        r = cmp["reads"][route]
+        per = r["between"]
+        return (f"{r['total']} reads in {r['iterations']} iterations "
+                f"({r['total'] / r['iterations']:.2f} an iteration; between "
+                f"flag reads median {statistics.median(per)}, max "
+                f"{max(per)})")
 
     stages = "; ".join(
         f"{s['solver']} {s['dtype']} {s['iterations']} iterations, reruns "
         f"{s['reruns']}, capture {s['capture_s'] * 1e3:.1f} ms, pool "
         f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}, eager "
         f"ortho passes at most {u['passes']} (uncaptured)"
-        for s, u in zip(rc.solves, ru.solves))
+        for s, u in zip(rc, ru))
     log(f"[{tag} captured] {stages} ({card})")
     log(f"[{tag} captured vs uncaptured] bit-identical eig, evec, done, "
-        f"histories: {same}; counts {counts[0]} vs {counts[1]}; launches "
-        f"{json.dumps(rc.launches)} vs {json.dumps(ru.launches)}; median of "
+        f"histories: {cmp['same']}; counts {counts[0]} vs {counts[1]}; "
+        f"launches {json.dumps(cmp['launches']['graphs'])} vs "
+        f"{json.dumps(cmp['launches']['eager'])}; median of "
         f"{reps} warm walls {med['graphs']:.4f} s captured vs "
         f"{med['eager']:.4f} s uncaptured (walls {walls}) ({card})")
-    log(f"[{tag} host reads] captured: {reads_line(rr_c)}; uncaptured (the "
-        f"eager loop's shape): {reads_line(rr_u)} ({card})")
-    # the matvec steps launch their kernels as often on both routes (but
-    # for a rare-branch rerun, which runs steps 1-2 again); the unrolled
-    # ortho passes of a replay launch K3 whether or not their loop has
-    # stopped
-    reruns = sum(sum(s["reruns"].values()) for s in rc.solves)
-    if not (same and counts[0] == counts[1]
-            and (reruns or all(rc.launches[k] == ru.launches[k]
-                               for k in matvec_kernels))):
+    log(f"[{tag} host reads] captured: {reads_line('graphs')}; uncaptured "
+        f"(the eager loop's shape): {reads_line('eager')} ({card})")
+    check_routes(tag, cmp, matvec_kernels)
+    return cmp
+
+
+def check_routes(tag, cmp, matvec_kernels):
+    """Raise unless compare_routes' ``cmp`` holds: the same bits and
+    counts, the same launches of ``matvec_kernels`` (but after a
+    rare-branch rerun, which runs steps 1-2 again; the unrolled ortho
+    passes of a replay launch K3 whether or not their loop has stopped),
+    every stage on its route, and at most 3 host reads between two flag
+    reads of the captured run where no step was run again (a nonsymmetric
+    pass's Gram matrix, which the host dgeev reads, among them)."""
+    lc, lu = cmp["launches"]["graphs"], cmp["launches"]["eager"]
+    routes = {k: {s["route"] for s in cmp["solves"][k]}
+              for k in ("graphs", "eager")}
+    if not (cmp["same"] and cmp["counts"]["graphs"] == cmp["counts"]["eager"]
+            and routes == {"graphs": {"graphs"}, "eager": {"eager"}}
+            and (cmp["reruns"] or all(lc[k] == lu[k]
+                                      for k in matvec_kernels))):
         raise AssertionError(f"{tag}: the captured and uncaptured ladders "
                              "differ")
-    # an iteration after a rare-branch rerun reads more (the rerun's eager
-    # loops): the limit holds where no step was run again
-    per = rr_c.reader.per_iteration(rr_c.solves)
-    if not any(sum(s["reruns"].values()) for s in rr_c.solves) and \
-            max(per) > 3:
+    r = cmp["reads"]["graphs"]
+    if not r["reruns"] and max(r["between"]) > 3:
         raise AssertionError(f"{tag}: more than 3 host reads an iteration "
                              "on the captured route")
-    return med
 
 
 def davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi):
@@ -1406,8 +1379,9 @@ def davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi):
 def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
                   dev, mv_hi, backend=None):
     """Phase 5(h3): (e)'s nonsymmetric ladder with the Eberlein reduced
-    solve on the card, and under a one-rank process group with sharding=;
-    then one reduced solve at the ladder's largest L by each route."""
+    solve on the card, and under a one-rank process group with sharding=
+    (captured, and held against its uncaptured route); then one reduced
+    solve at the ladder's largest L by each route."""
     import scipy.linalg
     import torch
     import torch.distributed as dist
@@ -1429,6 +1403,10 @@ def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
                        lambda gen: run_e(gen, sharding=sh))
         check_nonsym_pairs("sharded nonsym_ladder", rs, m, t_bsr, tt_bsr,
                            eig_sym)
+        captured_vs_uncaptured("sharded nonsym_ladder",
+                               lambda gen: run_e(gen, sharding=sh), dev,
+                               card, matvec_kernels=("peel_rows", "sym_spmm",
+                                                     "sliced_spmm"))
     finally:
         dist.destroy_process_group()
     d_dev = float((rd.eig[:N_TARG] - re_.eig[:N_TARG]).abs().max())
@@ -1471,18 +1449,19 @@ def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
 # the jobs of parallel.mh_dryrun run under gloo on CPU ranks and under NCCL
 # on the cards, on one set of inputs each (mh_dryrun.job_inputs)
 MC_JOBS = ("dryrun", "dist_sliced", "sharded_solvers", "checkpoint",
-           "inventory")
+           "inventory", "routes")
 
 
 def ladder_inputs(n, ladders, unsharded, profile):
     """The ladders job's inputs: random_bsr_spd(n, 512, 8) built on every
-    rank, the ladders of phase 5 at its options, a zero guess."""
+    rank, the ladders of phase 5 at its options, a zero guess; each
+    sharded ladder also captured against uncaptured."""
     return dict(build=dict(n=n, block=BLOCK, bpr=BPR, seed=0),
                 ladders=list(ladders),
                 options=dict(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
                              tol=1e-10, max_dav=10),
                 lo_tol=2e-6, lo_iter=dict(davidson=35, lobpcg=70),
-                unsharded=unsharded, profile=profile)
+                unsharded=unsharded, profile=profile, compare=True)
 
 
 def eig_gap(a, b, n_targ):
@@ -1606,13 +1585,124 @@ def compare_fleet(job, gloo, nccl):
                      f"{g_outs[0]['resumed_iter']} / "
                      f"{g_outs[0]['scratch_iter']}), eigenvalues {d:.2e} "
                      "apart")
+    elif job == "routes":
+        lines += routes_fleet(g_outs, c_outs)
     elif job == "inventory":
-        inv = [o["inventory"] for o in g_outs + c_outs]
-        if any(i != inv[0] for i in inv):
-            raise AssertionError(f"inventory: {inv}")
-        lines.append(f"one sharded iteration's collectives equal on every "
-                     f"rank of both: {json.dumps(inv[0])}")
+        for key, what in (("inventory", "eager"),
+                          ("captured", "captured (unrolled under gloo)"),
+                          ("warm", "one warm iteration, captured steps "
+                                   "replayed (unrolled under gloo)")):
+            inv = [o[key] for o in g_outs + c_outs]
+            if any(i != inv[0] for i in inv):
+                raise AssertionError(f"inventory {key}: {inv}")
+            lines.append(f"one sharded iteration's collectives, {what}, "
+                         f"equal on every rank of both: {json.dumps(inv[0])}")
     return lines
+
+
+def _fields_equal(a, b):
+    """Two result dicts of job ``routes`` equal field for field (arrays bit
+    for bit; the records, walls and launch counts aside)."""
+    import numpy as np
+
+    skip = ("solves", "wall", "launches")
+    return a.keys() == b.keys() and all(
+        np.array_equal(v, b[k]) if isinstance(v, np.ndarray) else v == b[k]
+        for k, v in a.items() if k not in skip)
+
+
+def routes_fleet(g_outs, c_outs):
+    """Job ``routes`` under gloo ("unrolled" against "eager") and under
+    NCCL on the cards ("graphs", each step captured and replayed with its
+    collectives and ring permutes inside, against "eager"): on every rank
+    of each, the two routes the same bits, every stage on its route, the
+    forced reruns counted and the same bits as "eager", the flag history
+    and the eigenvalue history the same on every rank; NCCL against gloo
+    as the other jobs (eigenvalues within 1e-10, counts within +-2)."""
+    lines = []
+    for outs, want in ((g_outs, ("unrolled", "eager")),
+                       (c_outs, ("graphs", "eager"))):
+        first = want[0]
+        if any(o["routes"] != want for o in outs):
+            raise AssertionError(f"routes: not {want} on every rank")
+        names = [k[6:] for k in outs[0] if k.startswith("eager:")]
+        shorts = [k[6:] for k in outs[0] if k.startswith("short:")]
+        pairs = ([(f"{first}:{n}", n, False) for n in names]
+                 + [(f"short:{n}", n, True) for n in shorts])
+        for tag, name, forced in pairs:
+            for o in outs:
+                got = o[tag]
+                reruns = sum(sum(s["reruns"].values()) for s in got["solves"])
+                if not (_fields_equal(got, o[f"eager:{name}"])
+                        and {s["route"] for s in got["solves"]} == {first}
+                        and (reruns > 0 or not forced)):
+                    raise AssertionError(f"routes: {tag} differs from "
+                                         "eager on a rank")
+            hist = [[s["flag_history"] for s in o[tag]["solves"]]
+                    for o in outs]
+            if any(h != hist[0] for h in hist) or not same_on_every_rank(
+                    [o[tag] for o in outs], "eig_ranks"):
+                raise AssertionError(f"routes: {tag}: the ranks differ")
+        reruns = {n: sum(sum(s["reruns"].values())
+                         for s in outs[0][f"short:{n}"]["solves"])
+                  for n in shorts}
+        cap = {n: round(sum(s["capture_s"] for s in
+                            outs[0][f"{first}:{n}"]["solves"]) * 1e3, 1)
+               for n in names}
+        lines.append(
+            f"{first} == eager bit for bit on all {len(outs)} ranks for "
+            f"{', '.join(names)}; one-pass budgets force reruns {reruns} "
+            f"and stay bit-equal; flag and eigenvalue histories the same "
+            f"on every rank; capture ms rank 0 {cap}")
+    for k in c_outs[0]:
+        if not k.startswith("eager:"):
+            continue
+        name = k[6:]
+        g, c = g_outs[0][k], c_outs[0][f"graphs:{name}"]
+        n_targ = 5 if name == "nonsym" else 4
+        d, close = eig_gap(c["eig"], g["eig"], n_targ)
+        if not (close and g["ok"] and c["ok"]
+                and abs(c["n_iter"] - g["n_iter"]) <= 2
+                and abs(c["n_matvec"] - g["n_matvec"]) <= 2 * 8):
+            raise AssertionError(f"routes {name}: gloo and NCCL disagree")
+        lines.append(f"{name} captured on the cards vs eager on gloo: "
+                     f"eigenvalues {d:.2e} apart, iterations {g['n_iter']} "
+                     f"/ {c['n_iter']}, matvecs {g['n_matvec']} / "
+                     f"{c['n_matvec']}")
+    return lines
+
+
+def routes_lines(tag, name, outs, card):
+    """A ladder's ``{name}_compare`` (profiling.compare_routes) on every
+    rank of the ladders job: each captured equal to uncaptured (the same
+    bits, counts and K2 / K6 launches, at most 3 host reads an iteration),
+    the captured flag digest the same on every rank; prints one line a
+    rank."""
+    digests = {o[f"{name}_compare"]["digest"] for o in outs}
+    if len(digests) != 1 or {o[f"{name}_digest"] for o in outs} \
+            != digests:
+        raise AssertionError(f"{tag} {name}: the ranks read other flags")
+    for r, o in enumerate(outs):
+        cmp = o[f"{name}_compare"]
+        check_routes(f"{tag} rank {r} {name}_ladder", cmp,
+                     ("peel_rows", "group_spmm"))
+        rd = {k: cmp["reads"][k] for k in ("graphs", "eager")}
+        stages = "; ".join(
+            f"{s['dtype']} {s['iterations']} iterations, reruns "
+            f"{s['reruns']}, capture {s['capture_s'] * 1e3:.1f} ms, pool "
+            f"{s['pool_bytes'] / 2**20:.1f} MiB"
+            for s in cmp["solves"]["graphs"])
+        log(f"[multicard] {tag} rank {r} sharded {name}_ladder captured vs "
+            f"uncaptured: bit-identical {cmp['same']}, counts "
+            f"{cmp['counts']['graphs']} vs {cmp['counts']['eager']}; "
+            f"median of {len(cmp['walls']['graphs'])} warm walls "
+            f"{cmp['median']['graphs']:.4f} s captured vs "
+            f"{cmp['median']['eager']:.4f} s uncaptured (walls "
+            f"{cmp['walls']}); host reads "
+            + ", ".join(f"{k} {v['total']} in {v['iterations']} iterations "
+                        f"(max {max(v['between'])} between flag reads)"
+                        for k, v in rd.items())
+            + f"; {stages}; flag digest {cmp['digest'][:12]} ({card})")
 
 
 def check_ladders(tag, outs, card, unsharded):
@@ -1659,6 +1749,14 @@ def check_ladders(tag, outs, card, unsharded):
     for name in ("davidson", "lobpcg"):
         if f"{name}_eig" not in first:
             continue
+        # captured under NCCL; a gloo fleet (a rehearsal on CPU ranks) has
+        # no capture
+        if any(o[f"{name}_routes"] != (["graphs"] if o["backend"] == "nccl"
+                                       else ["eager"]) for o in outs):
+            raise AssertionError(f"{tag} {name}: a rank's sharded ladder "
+                                 "ran on another route")
+        if f"{name}_compare" in first:
+            routes_lines(tag, name, outs, card)
         for o in outs:
             rms, rmax = np.max(o[f"{name}_res_rms"]), np.max(
                 o[f"{name}_res_max"])
@@ -1705,26 +1803,34 @@ def check_ladders(tag, outs, card, unsharded):
     return launches, k5_launches
 
 
-def print_profile(prof, card):
-    """The collectives of one warm float64 sharded Davidson iteration on
-    rank 0: by kind, with their NCCL kernels' device ms, and the device's
-    busy share of the window."""
-    inv, nccl = prof["inventory"], prof["nccl"]
-    parts = []
-    for kind in sorted(set(inv) | set(nccl)):
-        rec, dev_ = inv.get(kind, {}), nccl.get(kind, {})
-        parts.append(f"{kind} {rec.get('count', 0)} calls "
-                     f"{rec.get('bytes', 0)} B, {dev_.get('kernels', 0)} "
-                     f"NCCL kernels {dev_.get('device_ms', 0.0):.4f} ms")
-    log(f"[multicard] profile, one warm f64 sharded davidson iteration on "
-        f"rank 0: {'; '.join(parts)}; device busy {prof['busy_ms']:.3f} ms "
-        f"of the {prof['window_ms']:.3f} ms window "
-        f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
-        f"{prof['device_kernels']} device kernels ({card})")
-    if not inv.get("all-reduce", {}).get("count"):
-        raise AssertionError("the profiled iteration made no all-reduce")
-    if not nccl:
-        log("[multicard] torch.profiler saw no NCCL kernel")
+def print_profile(profs, card):
+    """One warm float64 sharded Davidson iteration on rank 0 on each route
+    (captured, its steps replayed, and eager): its collectives by kind,
+    with their NCCL kernels' device ms, and the device's busy share of the
+    window; the two routes' collectives the same kinds."""
+    for route, prof in profs.items():
+        inv, nccl = prof["inventory"], prof["nccl"]
+        parts = []
+        for kind in sorted(set(inv) | set(nccl)):
+            rec, dev_ = inv.get(kind, {}), nccl.get(kind, {})
+            parts.append(f"{kind} {rec.get('count', 0)} calls "
+                         f"{rec.get('bytes', 0)} B, {dev_.get('kernels', 0)}"
+                         f" NCCL kernels {dev_.get('device_ms', 0.0):.4f} ms")
+        share = (f"{100 * prof['busy_ms'] / prof['window_ms']:.1f} %"
+                 if prof["window_ms"] else "not measured")
+        log(f"[multicard] profile, one warm f64 sharded davidson iteration "
+            f"on rank 0, {route}: {'; '.join(parts)}; device busy "
+            f"{prof['busy_ms']:.3f} ms of the {prof['window_ms']:.3f} ms "
+            f"window ({share}; host clock {prof['host_ms']:.3f} ms), "
+            f"{prof['device_kernels']} device kernels ({card})")
+        if not inv.get("all-reduce", {}).get("count"):
+            raise AssertionError(f"the profiled {route} iteration made no "
+                                 "all-reduce")
+        if not nccl:
+            log(f"[multicard] torch.profiler saw no NCCL kernel ({route})")
+    if set(profs["graphs"]["inventory"]) != set(profs["eager"]["inventory"]):
+        raise AssertionError("the captured and eager iterations post other "
+                             "kinds of collective")
 
 
 def four_way_kernels(ranks, card, max_err):
@@ -2543,7 +2649,6 @@ def main(argv=None):
     res, we = timed("nonsym_ladder", run_e)
     check_nonsym_pairs("nonsym_ladder", res, m, t_bsr, tt_bsr, ra.eig)
     captured_vs_uncaptured("nonsym_ladder", run_e, dev, card,
-                           fields=NONSYM_FIELDS,
                            matvec_kernels=("peel_rows", "sym_spmm",
                                            "sliced_spmm"))
     # (i3) where the captured nonsymmetric ladder's time goes: the host
@@ -2556,7 +2661,7 @@ def main(argv=None):
 
     # (f) the sharded ladder over the distributed sliced operator (K6), and
     # (i6) the collectives of one sharded iteration under its group
-    sharded_vs_unsharded(general, m, timed, guess, opts, card,
+    sharded_vs_unsharded(general, m, timed, guess, opts, card, dev,
                          inside=lambda one, sh, pc: sharded_inventory(
                              one, sh, pc, guess, opts, dev, counted, card))
     del general

@@ -193,7 +193,9 @@ def dist_bsr_matvec(dm: DistBSRMatrix, sharding):
 
     ``sharding`` is a VectorSharding over exactly ``dm.ndev`` ranks; ``dm``
     is the stacked matrix or this rank's shard.  The closure drops into any
-    solver as its ``matvec`` next to the same ``sharding``.
+    solver as its ``matvec`` next to the same ``sharding``; it reads
+    nothing back from the device (the row slots are made here, once), so
+    a captured solver step holds it whole, its ring permutes included.
     """
     sh = _check_group(dm, sharding)
     B = dm.block

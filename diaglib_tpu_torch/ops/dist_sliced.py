@@ -269,7 +269,9 @@ def dist_sliced_matvec(dm: DistSlicedBSR, sharding, *, dtype=torch.float64,
     (every permute is started before the local group runs), sliced on this
     rank (kernel K2 on the card), contracted by :func:`group_spmm` (K6),
     and its levels combined in float64 (float32 on the fast tier) with its
-    own x scales; the sum is scaled by the local ``col_scale``.
+    own x scales; the sum is scaled by the local ``col_scale``.  It reads
+    nothing back from the device (the row starts are made here, once), so
+    a captured solver step holds it whole, its ring permutes included.
     """
     sh = _check_group(dm, sharding)
     B = sh.block

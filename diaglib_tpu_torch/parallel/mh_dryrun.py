@@ -329,34 +329,44 @@ def _build_operator(dev, inp, rank, size, keep_whole):
 
 
 def _profile_iteration(dev, run):
-    """``run()`` (one warm sharded iteration) under torch.profiler and the
-    collective inventory: the collectives by kind with their count, bytes
-    and the device ms of their NCCL kernels, the device-busy ms (the union
-    of every kernel, copy and fill) and the window's host ms."""
+    """``run()`` (a sharded solve of three or more iterations) under
+    torch.profiler, its second iteration marked (``profiling.flag_window``:
+    from the second flag read to the third, the steps of a captured solve
+    replayed): that iteration's collectives by kind with their count,
+    bytes and the device ms of their NCCL kernels, the device-busy ms (the
+    union of every kernel, copy and fill that starts in the window), its
+    device kernels, and the window's host ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..profiling import collective_inventory
+    from ..profiling import flag_window
 
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        inv = collective_inventory(run)
+        with flag_window(2, prof) as win:
+            run()
         _sync(dev)
-        window = (time.perf_counter() - t0) * 1e3
+    if not win["closed"]:
+        raise RuntimeError("the profiled solve ran fewer than 2 iterations")
+    events = prof.events()
+    mark = next(e for e in events if e.name == "flag-window"
+                and e.device_type == DeviceType.CPU)
+    w_lo, w_hi = mark.time_range.start, mark.time_range.end
     kinds = {"AllReduce": "all-reduce", "AllGather": "all-gather",
              "SendRecv": "collective-permute", "Send": "collective-permute",
              "Recv": "collective-permute"}
     spans, nccl, n_kernels = [], {}, 0
-    for e in prof.events():
+    for e in events:
         # the device timeline also holds each record_function scope and
         # each collective's "nccl:..." annotation as a range: not work
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
-        n_kernels += 1
         lo, hi = e.time_range.start, e.time_range.end
-        spans.append((lo, hi))
+        if not w_lo <= lo < w_hi:
+            continue
+        n_kernels += 1
+        spans.append((lo, min(hi, w_hi)))
         if "nccl" in e.name.lower():
             kind = next((v for k, v in kinds.items() if k in e.name),
                         "other")
@@ -368,8 +378,9 @@ def _profile_iteration(dev, run):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return {"inventory": inv, "nccl": nccl, "device_kernels": n_kernels,
-            "busy_ms": busy / 1e3, "window_ms": window}
+    return {"inventory": win["inventory"], "nccl": nccl,
+            "device_kernels": n_kernels, "busy_ms": busy / 1e3,
+            "window_ms": (w_hi - w_lo) / 1e3, "host_ms": win["host_ms"]}
 
 
 def _job_ladders(dev, inp):
@@ -386,14 +397,19 @@ def _job_ladders(dev, inp):
     ladder of ``ladders`` ("davidson", "lobpcg") under ``options`` with
     ``lo_tol`` and ``lo_iter[name]``, from ``guess`` (numpy (n_max, n)) or
     a zero guess filled from a generator seeded with 1, run once to warm
-    up (unless ``warm`` is false) and once with the launch counts at 0.
+    up (unless ``warm`` is false) and once with the launch counts at 0, on
+    the default route (captured under NCCL on the cards; its routes and
+    the digest of its flag history are returned).  With ``compare`` (on
+    the cards), each ladder once more captured against uncaptured
+    (``profiling.compare_routes``, 5 warm walls of each).
     The returned pairs' residuals come from the float64 product of the
     original blocks, distributed (``dist_bsr_matvec``).  With
     ``unsharded``, rank 0 also runs each ladder over ``sliced_bsr_matvec``
     (K5) on the whole store, and its pairs' residuals are taken the same
-    way.  With ``profile``, one warm float64 sharded Davidson iteration is
-    profiled on rank 0 (:func:`_profile_iteration`).  Each card's peak
-    memory is read after the build and after the ladders."""
+    way.  With ``profile``, one warm float64 sharded Davidson iteration on
+    each route, captured and eager, is profiled on rank 0
+    (:func:`_profile_iteration`).  Each card's peak memory is read after
+    the build and after the ladders."""
     import dataclasses
 
     import torch
@@ -402,8 +418,10 @@ def _job_ladders(dev, inp):
     from ..ops.bsr_sliced import sliced_bsr_matvec
     from ..ops.dist_bsr import dist_bsr_matvec
     from ..ops.dist_sliced import dist_sliced_matvec
+    from .. import profiling
     from ..problems import diag_precnd
     from ..solvers import davidson, davidson_ladder, lobpcg_ladder
+    from ..utils import graphs
     from ..utils.mm import mm_sharding, mmT
     from .sharding import VectorSharding
 
@@ -476,13 +494,22 @@ def _job_ladders(dev, inp):
         args = (mv_lo, pc_lo, mv_hi, pc_hi, guess, sh)
         if inp.get("warm", True):
             _counted(dev, lambda: run(*args))
-        res, wall, launches = _counted(dev, lambda: run(*args))
+        with graphs._recording() as rec:
+            res, wall, launches = _counted(dev, lambda: run(*args))
         pairs(name, res, wall, launches, res.evec[:n_targ].contiguous(),
               res.eig[:n_targ])
+        out[f"{name}_routes"] = sorted({s["route"] for s in rec.solves})
+        out[f"{name}_digest"] = profiling.flag_digest(rec.solves)
         out[f"{name}_eig_ranks"] = _gathered(sh, res.eig_history)
         with mm_sharding(sh):
             out[f"{name}_gram_ranks"] = _gathered(
                 sh, mmT(res.evec, res.evec))
+        if inp.get("compare") and cuda:
+            cmp = profiling.compare_routes(
+                lambda gen: lad(*args[:5], opts, lo_tol=inp["lo_tol"],
+                                lo_iter=lo_iter, sharding=sh, generator=gen),
+                dev)
+            out[f"{name}_compare"] = cmp
         if not unsharded:
             continue
         # rank 0's unsharded ladder over K5; the others wait in the
@@ -509,18 +536,23 @@ def _job_ladders(dev, inp):
     if cuda:
         out["peak_ladder_bytes"] = torch.cuda.max_memory_allocated(dev)
     if inp.get("profile"):
-        o1 = dataclasses.replace(opts, max_iter=1)
+        o3 = dataclasses.replace(opts, max_iter=3)
 
-        def one():
-            return davidson(mv_hi, pc_hi, guess, o1, sharding=sh,
+        def three():
+            return davidson(mv_hi, pc_hi, guess, o3, sharding=sh,
                             generator=torch.Generator(
                                 device=dev).manual_seed(1))
 
-        one()
-        prof = _profile_iteration(dev, one) if r == 0 else None
-        if r != 0:
-            one()
-        out["profile"] = prof
+        # one warm iteration on each route: the third of a solve whose
+        # steps were captured in its first two (a replay of each)
+        out["profile"] = {}
+        for route in ("graphs", "eager"):
+            with graphs._recording(None if route == "graphs" else route):
+                three()
+                if r == 0:
+                    out["profile"][route] = _profile_iteration(dev, three)
+                else:
+                    three()
     return out
 
 
@@ -626,6 +658,130 @@ def _job_sharded_solvers(dev, inp):
         sharding=shb), shb))
     out.update(_casida_solves(dev, inp, opts))
     out.update(_nonsym_solves(dev, inp))
+    return out
+
+
+# the sharded solves of job ``routes`` (on job sharded_solvers' inputs)
+ROUTE_SOLVES = ("davidson", "gen_david", "lobpcg", "caslr0", "caslr1",
+                "caslr_eff", "nonsym", "bsr_davidson")
+
+
+def _route_runs(dev, inp):
+    """Each solve of :data:`ROUTE_SOLVES` as a call without arguments,
+    sharded over the world on ``inp`` (:func:`job_inputs` of
+    "sharded_solvers"): the dense operators with each rank holding its
+    rows (the matvec all-gathers x), the Casida blocks likewise, nonsym
+    side "c" with the host driver, and davidson over ``dist_bsr_matvec``
+    (ring permutes in the matvec step)."""
+    import torch
+
+    from ..ops.bsr import bsr_diagonal, bsr_from_arrays
+    from ..ops.dist_bsr import dist_bsr_matvec, distribute_bsr
+    from ..problems import diag_precnd, lrprec_eff, lrprec_std
+    from ..solvers import caslr, caslr_eff, davidson, gen_david, lobpcg
+    from ..solvers import nonsym
+    from .sharding import VectorSharding
+
+    sh, a, mv = _dense_rows(dev, inp["a"])
+    _, _, bv = _dense_rows(dev, inp["s"])
+    pc = diag_precnd(sh.local_cols(torch.diagonal(a)))
+    guess = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
+    opts = _solve_opts(**inp["options"])
+
+    blk = {k: torch.as_tensor(v, device=dev)
+           for k, v in inp["casida"].items()}
+    ops = {f"{k}mul": _dense_rows(dev, blk[k].cpu().numpy())[2]
+           for k in ("apb", "amb", "spd", "smd")}
+    aa, sg = sh.local_cols(blk["aa"]), sh.local_cols(blk["sigma"])
+    cguess = _paired_local(sh, torch.as_tensor(inp["casida_guess"],
+                                               device=dev))
+
+    shn, ns, ns_mv = _dense_rows(dev, inp["nonsym"])
+    _, _, ns_mvt = _dense_rows(dev, inp["nonsym"].T.copy())
+    ns_pc = diag_precnd(shn.local_cols(torch.diagonal(ns)))
+    ns_guess = shn.local_cols(torch.as_tensor(inp["nonsym_guess"],
+                                              device=dev))
+    ns_opts = _solve_opts(**inp["nonsym_options"])
+
+    m = bsr_from_arrays(inp["bsr"], device=dev)
+    shb = VectorSharding(m.n)
+    bmv = dist_bsr_matvec(distribute_bsr(m, shb.size, rank=shb.rank), shb)
+    bpc = diag_precnd(shb.local_cols(bsr_diagonal(m)))
+    bguess = shb.local_cols(torch.as_tensor(inp["bsr_guess"], device=dev))
+
+    def casida(run, prec, **kw):
+        return lambda: run(lrprec=prec, evec_guess=cguess, options=opts,
+                           sharding=sh, **kw, **ops)
+
+    return sh, {
+        "davidson": lambda: davidson(mv, pc, guess, opts, sharding=sh),
+        "gen_david": lambda: gen_david(mv, pc, bv, guess, opts,
+                                       sharding=sh),
+        "lobpcg": lambda: lobpcg(mv, pc, guess, opts, sharding=sh),
+        "caslr0": casida(caslr, lrprec_std(aa, sg), algorithm=0),
+        "caslr1": casida(caslr, lrprec_std(aa, sg), algorithm=1),
+        "caslr_eff": casida(caslr_eff, lrprec_eff(aa, sg)),
+        "nonsym": lambda: nonsym(ns_mv, ns_mvt, ns_pc, ns_guess, ns_opts,
+                                 side="c", sharding=shn, driver="host"),
+        "bsr_davidson": lambda: davidson(bmv, bpc, bguess, opts,
+                                         sharding=shb),
+    }
+
+
+def _fields(res) -> dict:
+    """Every field of a solver result, tensors as numpy arrays."""
+    import dataclasses
+
+    import torch
+
+    return {f.name: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for f in dataclasses.fields(res)
+            for v in (getattr(res, f.name),)}
+
+
+def _job_routes(dev, inp):
+    """Each sharded solve of :data:`ROUTE_SOLVES` on two routes of
+    ``utils.graphs``: the captured route's logic first ("graphs", the
+    steps captured and replayed, on an NCCL group of cards; "unrolled",
+    the same fixed passes and reruns without capture, on a gloo group),
+    then "eager"; then the solves of ``short`` once more on the first
+    route with one-pass ortho budgets, which forces rare-branch reruns.
+    Returns ``routes`` (the two route names) and, by
+    ``"{route}:{solve}"`` (``"short:{solve}"`` for the forced reruns), a
+    dict of every result field (numpy arrays), the solve records of its
+    stages (``utils.graphs._recording``: flag history, reruns, replays)
+    and the eigenvalue history of every rank (gathered); and the launch
+    counts of each run; and what ``keep_alive`` kept of the ring permutes
+    of offsets 0 to the world size, one each."""
+    import torch
+    import torch.distributed as dist
+
+    from ..utils import graphs
+
+    first = "graphs" if dist.get_backend() == "nccl" else "unrolled"
+    sh, runs = _route_runs(dev, inp)
+    names = inp.get("solves", ROUTE_SOLVES)
+    out = {"routes": (first, "eager")}
+    # the shards the ring permutes of offsets 0-4 keep alive
+    kept = []
+    x = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
+    with sh.keep_alive(kept):
+        for s in range(sh.size + 1):
+            sh.permute(x, s)
+    out["kept"] = [(tuple(t.shape), str(t.dtype)) for t in kept]
+    out["kept_after"] = sh._kept
+    plan = [(route, name, None) for route in (first, "eager")
+            for name in names]
+    plan += [("short", name, {"vs": 1, "cd": 1, "shift": 0})
+             for name in inp.get("short", ())]
+    for tag, name, budgets in plan:
+        route = first if tag == "short" else tag
+        with graphs._recording(route, budgets) as rec:
+            res, wall, launches = _counted(dev, runs[name])
+        rec_out = _fields(res)
+        rec_out.update(solves=rec.solves, wall=wall, launches=launches,
+                       eig_ranks=_gathered(sh, res.eig_history))
+        out[f"{tag}:{name}"] = rec_out
     return out
 
 
@@ -746,21 +902,42 @@ def _job_checkpoint(dev, inp):
 def _job_inventory(dev, inp):
     """``profiling.collective_inventory`` of one iteration of a sharded
     ``davidson`` on the dense matrix ``a`` from ``guess`` under
-    ``options``."""
+    ``options``: on the eager route (``inventory``, the loops' own
+    passes), and on the captured route's logic ("graphs" under NCCL on
+    the cards, "unrolled" under gloo): one iteration (``captured``, each
+    step's warm-up call counted, its capture not) and one warm iteration
+    of a three-iteration solve (``warm``: from the second flag read to
+    the third, ``profiling.flag_window``; a captured step's replay counts
+    what its capture recorded)."""
     import dataclasses
 
     import torch
+    import torch.distributed as dist
 
     from ..problems import diag_precnd
-    from ..profiling import collective_inventory
+    from ..profiling import collective_inventory, flag_window
     from ..solvers import davidson
+    from ..utils import graphs
 
     sh, a, mv = _dense_rows(dev, inp["a"])
     pc = diag_precnd(sh.local_cols(torch.diagonal(a)))
     guess = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
-    opts = dataclasses.replace(_solve_opts(**inp["options"]), max_iter=1)
-    return {"inventory": collective_inventory(davidson, mv, pc, guess, opts,
-                                              sharding=sh)}
+    opts = _solve_opts(**inp["options"])
+
+    def solve(max_iter):
+        return davidson(mv, pc, guess, dataclasses.replace(
+            opts, max_iter=max_iter), sharding=sh)
+
+    first = "graphs" if dist.get_backend() == "nccl" else "unrolled"
+    out = {}
+    with graphs._recording("eager"):
+        out["inventory"] = collective_inventory(solve, 1)
+    with graphs._recording(first):
+        out["captured"] = collective_inventory(solve, 1)
+        with flag_window(2) as w:
+            solve(3)
+    out["warm"] = w["inventory"]
+    return out
 
 
 def _job_mesh(dev, inp):
@@ -807,7 +984,7 @@ def _job_mesh(dev, inp):
 JOBS = {"dryrun": _job_dryrun, "dist_sliced": _job_dist_sliced,
         "sharded_solvers": _job_sharded_solvers,
         "checkpoint": _job_checkpoint, "inventory": _job_inventory,
-        "ladders": _job_ladders, "mesh": _job_mesh}
+        "ladders": _job_ladders, "mesh": _job_mesh, "routes": _job_routes}
 
 
 def _store_arrays(dm) -> dict:
@@ -858,6 +1035,9 @@ def job_inputs(job: str, size: int = 4, workdir: str | None = None) -> dict:
                                  max_dav=10, wide_mm="never",
                                  sliced_mm="never"),
                     lo_tol=1e-4, lo_iter=35)
+    if job == "routes":
+        return dict(job_inputs("sharded_solvers", size),
+                    short=("davidson", "bsr_davidson", "nonsym"))
     if job == "sharded_solvers":
         n = 256
         rng = np.random.default_rng(3)

@@ -18,6 +18,8 @@ name and signature for it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
@@ -83,10 +85,28 @@ class VectorSharding:
                              "ranks")
         self.n_local = self.n // self.size
         self.lo = self.rank * self.n_local
+        self._kept = None
 
     def __repr__(self):
         return (f"VectorSharding(n={self.n}, rank={self.rank}, "
                 f"size={self.size})")
+
+    @property
+    def backend(self) -> str:
+        """The group's backend: "nccl" (whose collectives a CUDA graph
+        can capture) or "gloo"."""
+        return str(dist.get_backend(self.group))
+
+    @contextlib.contextmanager
+    def keep_alive(self, kept: list):
+        """Under it, every ring permute appends the shards it sends and
+        receives to ``kept``: a captured step's permutes keep them for as
+        long as its graph lives (``utils.graphs.StepGraphs``)."""
+        prev, self._kept = self._kept, kept
+        try:
+            yield kept
+        finally:
+            self._kept = prev
 
     def _global(self, r: int) -> int:
         if self.group is dist.group.WORLD:
@@ -134,7 +154,9 @@ class VectorSharding:
         for each offset of their global ``steps``, ascending, on every
         rank, and wait for them in that order.  Under NCCL the exchange
         runs on the communicator's own stream; ``wait()`` makes the
-        current stream wait for it before the received shard is read."""
+        current stream wait for it before the received shard is read.
+        Inside a captured solver step (``utils.graphs``) the exchange is
+        part of the graph and is waited within the same step."""
         s %= self.size
         if s == 0:
             return x if wait else _Pending(x, [])
@@ -142,6 +164,8 @@ class VectorSharding:
         buf = torch.empty_like(x)
         dst = self._global((self.rank - s) % self.size)
         src = self._global((self.rank + s) % self.size)
+        if self._kept is not None:
+            self._kept += [x, buf]
         ops = [dist.P2POp(dist.isend, x, dst, group=self.group, tag=s),
                dist.P2POp(dist.irecv, buf, src, group=self.group, tag=s)]
         pending = _Pending(buf, dist.batch_isend_irecv(ops), x)

@@ -11,22 +11,33 @@
 * :func:`collective_inventory` counts the collectives of one run: parsed
   from compiled HLO text, as the reference does, or recorded from the
   port's ``torch.distributed`` calls.
+* :func:`compare_routes` runs a solve on its captured route (the steps
+  replayed as CUDA graphs) and on the uncaptured one, and holds the two
+  together: the same bits, the counts, walls in turns, the host's reads
+  of the device an iteration (:class:`host_reads`); :func:`flag_window`
+  marks one iteration of a solve, from one flag read to the next, for a
+  profile or an inventory of a warm iteration.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import os
 import re
 import socket
+import statistics
 import time
+import warnings
 
 import torch
 import torch.distributed as dist
 
 from ._tree import leaves
 
-__all__ = ["trace", "wall", "phase_timings", "collective_inventory"]
+__all__ = ["trace", "wall", "phase_timings", "collective_inventory",
+           "host_reads", "compare_routes", "flag_window"]
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s32": 4,
                 "u32": 4, "s8": 1, "u8": 1, "pred": 1, "s64": 8, "u64": 8}
@@ -64,21 +75,33 @@ _RECORDED = {
 }
 
 
-@contextlib.contextmanager
-def _recording(inv):
-    """Count every collective the port issues through torch.distributed
-    into ``inv``; a ring permute's send/receive pair
-    (``dist.batch_isend_irecv``) counts once, by its received bytes."""
-    def note(kind, tensors):
+# the inventories recording now, outermost first: each collective the
+# port issues is counted into every one of them
+_LIVE: list = []
+
+
+def _note(kind, nbytes):
+    for inv in _LIVE:
         rec = inv.setdefault(kind, {"count": 0, "bytes": 0})
         rec["count"] += 1
-        rec["bytes"] += _nbytes(tensors)
+        rec["bytes"] += nbytes
+
+
+@contextlib.contextmanager
+def _patched():
+    """torch.distributed's collectives counted into the live inventories
+    (patched once however deep the recordings nest); a ring permute's
+    send/receive pair (``dist.batch_isend_irecv``) counts once, by its
+    received bytes."""
+    if _patched.on:
+        yield
+        return
 
     def wrap(name, kind, outputs):
         real = getattr(dist, name)
 
         def call(*args, **kwargs):
-            note(kind, outputs(args))
+            _note(kind, _nbytes(outputs(args)))
             return real(*args, **kwargs)
 
         return real, call
@@ -92,16 +115,57 @@ def _recording(inv):
     def batch(p2p_op_list):
         for op in p2p_op_list:
             if op.op is dist.irecv:
-                note("collective-permute", [op.tensor])
+                _note("collective-permute", _nbytes([op.tensor]))
         return real_batch(p2p_op_list)
 
     saved["batch_isend_irecv"] = real_batch
     dist.batch_isend_irecv = batch
+    _patched.on = True
     try:
-        yield inv
+        yield
     finally:
+        _patched.on = False
         for name, real in saved.items():
             setattr(dist, name, real)
+
+
+_patched.on = False
+
+
+@contextlib.contextmanager
+def _recording(inv):
+    """Count every collective the port issues through torch.distributed
+    into ``inv`` (and into the recordings around it)."""
+    _LIVE.append(inv)
+    try:
+        with _patched():
+            yield inv
+    finally:
+        _LIVE.remove(inv)
+
+
+@contextlib.contextmanager
+def _captured(posted):
+    """A CUDA graph capture (``utils.graphs.StepGraphs``): what it posts
+    is recorded into ``posted`` alone, since a capture runs nothing; the
+    graph's replays count it (:func:`_replayed`)."""
+    live = _LIVE[:]
+    _LIVE.clear()
+    try:
+        with _recording(posted):
+            yield posted
+    finally:
+        _LIVE[:] = live
+
+
+def _replayed(posted):
+    """A replay of a captured graph that posted ``posted``: counted into
+    the live inventories as if its collectives ran again."""
+    for inv in _LIVE:
+        for kind, rec in posted.items():
+            mine = inv.setdefault(kind, {"count": 0, "bytes": 0})
+            mine["count"] += rec["count"]
+            mine["bytes"] += rec["bytes"]
 
 
 def collective_inventory(hlo_text, *args, **kwargs):
@@ -114,7 +178,10 @@ def collective_inventory(hlo_text, *args, **kwargs):
     counterpart of reading a compiled program: ``all_reduce`` counts as
     "all-reduce", ``all_gather`` as "all-gather", and each ring permute's
     send/receive pair as one "collective-permute".  An extra collective in
-    a sharded solver step changes it deterministically.
+    a sharded solver step changes it deterministically.  A solver step
+    captured as a CUDA graph (the sharded solves under NCCL) counts its
+    collectives at each replay, as its warm-up call counted them, and its
+    capture counts none: the inventory is the collectives that ran.
     """
     if isinstance(hlo_text, str):
         return _hlo_inventory(hlo_text)
@@ -169,3 +236,165 @@ def phase_timings(matvec, x, reps: int = 10):
         out = matvec(x)
     _sync(out)
     return (time.perf_counter() - t0) / reps
+
+
+class host_reads:
+    """Counts the host's reads of the device: torch.cuda's sync debug mode
+    warns at every synchronizing call (a copy to the host, ``.item()``, a
+    library's error check), and each warning is kept.  ``marks`` holds the
+    count at each flag read of the solvers' steps (``utils.graphs.
+    _read_flags``), so :meth:`per_iteration` gives the reads between two
+    of them."""
+
+    def __enter__(self):
+        from .utils import graphs
+
+        self._graphs = graphs
+        self._catch = warnings.catch_warnings(record=True)
+        self.log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.marks = []
+        graphs._read_flags.observer = lambda: self.marks.append(self.reads())
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._graphs._read_flags.observer = None
+        self._catch.__exit__(*exc)
+        return False
+
+    def reads(self) -> int:
+        return sum("synchroniz" in str(w.message) for w in self.log)
+
+    def per_iteration(self, solves) -> list:
+        """Reads between consecutive flag reads of one solve (an
+        iteration's, from a solve's second on), given the solves' records
+        (their ``flag_reads``, in order)."""
+        out, at = [], 0
+        for s in solves:
+            marks = self.marks[at:at + s["flag_reads"]]
+            out += [b - a for a, b in zip(marks, marks[1:])]
+            at += s["flag_reads"]
+        return out
+
+
+def _equal(a, b) -> bool:
+    """Every field of two solver results the same (tensors bit for bit)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def flag_digest(solves) -> str:
+    """sha1 of the flags every solve of ``solves`` (records of
+    ``utils.graphs._recording``) read, in order: the same on every rank of
+    a sharded solve, whose ranks take the same branches."""
+    return hashlib.sha1(repr([s["flag_history"] for s in solves])
+                        .encode()).hexdigest()
+
+
+def compare_routes(run, device, reps: int = 5) -> dict:
+    """``run(generator)`` (a solve or a ladder on CUDA tensors; a fresh
+    generator seeded with 1 each time) on its default route, the steps
+    captured and replayed as CUDA graphs, and on the uncaptured one (the
+    same steps called directly, through the private switch
+    ``utils.graphs._recording("eager")``), each launch count at 0 before
+    every run.  Returns a dict: ``same`` (every field of the two results
+    equal, tensors bit for bit), ``counts`` (n_iter, n_matvec, ok,
+    ortho_ok of each), ``launches`` and ``solves`` (the records of each
+    route's first run), ``walls`` (``reps`` warm walls of each, run in
+    turns) and their ``median``, ``reads`` (the host's reads of the
+    device in one more run of each: ``total``, ``iterations`` and the
+    reads ``between`` two flag reads), ``reruns`` of the captured run and
+    the ``digest`` of its flag history (:func:`flag_digest`).  Keys are
+    "graphs" and "eager"."""
+    from .utils import graphs
+    from .utils.graphs import kernel_counters
+
+    counters = kernel_counters()
+
+    def once(route, reads=False):
+        for f in counters.values():
+            f.launches = 0
+        reader = host_reads() if reads else contextlib.nullcontext()
+        with graphs._recording(None if route == "graphs" else route) as rec:
+            with reader:
+                t0 = time.perf_counter()
+                res = run(torch.Generator(device=device).manual_seed(1))
+                torch.cuda.synchronize(device)
+                rec.wall = time.perf_counter() - t0
+        rec.launches = {k: f.launches for k, f in counters.items()}
+        rec.reader = reader if reads else None
+        return res, rec
+
+    (cap, rc), (unc, ru) = once("graphs"), once("eager")
+    walls = {"graphs": [], "eager": []}
+    for i in range(reps):
+        for route in (("graphs", "eager") if i % 2 else ("eager", "graphs")):
+            walls[route].append(once(route)[1].wall)
+    reads = {}
+    for route in ("graphs", "eager"):
+        _, rec = once(route, reads=True)
+        its = sum(s["iterations"] for s in rec.solves)
+        reads[route] = {"total": rec.reader.reads(), "iterations": its,
+                        "between": rec.reader.per_iteration(rec.solves),
+                        "reruns": sum(sum(s["reruns"].values())
+                                      for s in rec.solves)}
+    return {"same": _equal(cap, unc),
+            "counts": {k: (r.n_iter, r.n_matvec, r.ok, r.ortho_ok)
+                       for k, r in (("graphs", cap), ("eager", unc))},
+            "launches": {"graphs": rc.launches, "eager": ru.launches},
+            "solves": {"graphs": rc.solves, "eager": ru.solves},
+            "walls": walls,
+            "median": {k: statistics.median(v) for k, v in walls.items()},
+            "reads": reads,
+            "reruns": sum(sum(s["reruns"].values()) for s in rc.solves),
+            "digest": flag_digest(rc.solves)}
+
+
+@contextlib.contextmanager
+def flag_window(start: int = 2, prof=None):
+    """Mark one iteration of the solve run under it: from its ``start``-th
+    flag read (``utils.graphs._read_flags``) to the next, the
+    collectives are recorded (``inventory``, as
+    :func:`collective_inventory` records them: a replayed step counts what
+    it runs) and, with a running ``torch.profiler`` ``prof``, the span is
+    a ``record_function`` scope named "flag-window".  Yields a dict with
+    ``inventory``, ``host_ms`` (the window on the host's clock, which
+    starts and ends at a read of the device) and ``closed``."""
+    from .utils import graphs
+
+    out = {"inventory": {}, "host_ms": None, "closed": False}
+    state = {"reads": 0, "open": []}
+
+    def observe():
+        state["reads"] += 1
+        if state["reads"] == start:
+            rec = _recording(out["inventory"])
+            rec.__enter__()
+            state["open"].append(rec)
+            if prof is not None:
+                scope = torch.profiler.record_function("flag-window")
+                scope.__enter__()
+                state["open"].append(scope)
+            state["t0"] = time.perf_counter()
+        elif state["reads"] == start + 1:
+            out["host_ms"] = (time.perf_counter() - state["t0"]) * 1e3
+            while state["open"]:
+                state["open"].pop().__exit__(None, None, None)
+            out["closed"] = True
+
+    prev = graphs._read_flags.observer
+    graphs._read_flags.observer = observe
+    try:
+        yield out
+    finally:
+        graphs._read_flags.observer = prev
+        while state["open"]:
+            state["open"].pop().__exit__(None, None, None)

@@ -30,9 +30,10 @@ replayed (``utils/graphs.py``); the host reads the device once an
 iteration, the packed flags after the ritz step, beside the reduced
 solve's own checks.  The expand or restart step keeps its inputs (the
 preconditioned block; the Ritz components), so one whose unrolled ortho
-loops fell short is run again uncaptured from them.  CPU tensors and
-``sharding=`` runs call the same steps directly, with the ortho loops
-reading their predicates.
+loops fell short is run again uncaptured from them.  A ``sharding=`` run
+over an NCCL group is captured the same way on every rank, its
+collectives inside the graphs; CPU tensors and gloo groups call the same
+steps directly, with the ortho loops reading their predicates.
 
 The reduced solves stay between the steps: they work on the leading
 ``ldu x ldu`` block directly, so the reference's prefix buckets with

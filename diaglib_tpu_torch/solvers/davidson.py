@@ -14,8 +14,10 @@ eigh's own check.  The ortho loops of a captured step run a fixed number
 of masked passes (``_UNROLL``); when they needed more, or the QR
 fallback, or the SVD rescue, the step is run again uncaptured from its
 intact inputs (a rare-branch rerun), which gives the loops' own result.
-CPU tensors and ``sharding=`` runs call the same steps directly, with the
-ortho loops reading their predicates.
+A ``sharding=`` run over an NCCL group is captured the same way on every
+rank, its all-reduces, all-gathers and ring permutes inside the graphs;
+CPU tensors and gloo groups call the same steps directly, with the ortho
+loops reading their predicates.
 
 Semantics kept from the reference:
 

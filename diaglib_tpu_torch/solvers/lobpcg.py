@@ -9,8 +9,10 @@ iteration in steps that read nothing back (:class:`_LobpcgIteration`).
 On CUDA tensors each step is captured once a solve as a CUDA graph and
 replayed (``utils/graphs.py``); the host reads the device once an
 iteration, the packed flags after the ritz step, beside the reduced
-eigh's own check.  CPU tensors and ``sharding=`` runs call the same steps
-directly, with the ortho loops reading their predicates.
+eigh's own check.  A ``sharding=`` run over an NCCL group is captured the
+same way on every rank, its collectives inside the graphs; CPU tensors
+and gloo groups call the same steps directly, with the ortho loops
+reading their predicates.
 
 The update step rewrites the whole ``[X | P | W]``, so a captured update
 whose unrolled ortho loops fell short (found with the next iteration's

@@ -36,9 +36,12 @@ the reference's loop reaches the host dgeev through a callback.  On
 unsharded CUDA tensors each step is captured once a pass as a CUDA graph
 and replayed (``utils/graphs.py``); the host reads the device twice an
 iteration, the Gram matrix for dgeev and the packed flags after the last
-step.  CPU tensors and ``sharding=`` runs call the same steps directly,
-with the ortho loops reading their predicates; ``driver="device"`` runs
-the same steps with the Eberlein solve between them.
+step.  A ``sharding=`` run over an NCCL group is captured the same way on
+every rank, its collectives inside the graphs (every rank reads the same
+all-reduced Gram matrix); CPU tensors and gloo groups call the same
+steps directly, with the ortho loops reading their predicates;
+``driver="device"`` runs the same steps with the Eberlein solve between
+them.
 
 Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`
 over n): every (k, n) block is the rank's column shard, ``n`` in the rms

@@ -10,7 +10,10 @@ eagerly, so the iterations of ``davidson`` / ``gen_david``
 ``nonsym`` (``solvers/nonsym.py``) are cut into steps over
 fixed buffers, each step is captured once per solve as a CUDA graph and
 then replayed: one launch a step instead of a few hundred, and no read of
-the device inside a step.
+the device inside a step.  A ``sharding=`` solve over an NCCL group is
+captured the same way, on every rank: the steps' all-reduces, all-gathers
+and ring permutes run inside the graphs, as the reference's collectives
+run inside its compiled loop.
 
 :class:`StepGraphs` holds one solve's graphs, one a step key (the caller
 puts the step, the dtype and the branch into it):
@@ -25,11 +28,36 @@ puts the step, the dtype and the branch into it):
 * the kernel wrappers count launches in Python, which a replay does not
   run: the counts a capture adds are taken back and added again at every
   replay, so a replayed step counts what it launches;
+* the port's collectives are counted in Python too
+  (``profiling.collective_inventory``): what a capture posts is recorded
+  apart and added to the inventories at every replay, so a replayed step
+  counts the collectives it runs and a capture counts none;
 * a failed capture raises :class:`GraphCaptureError`; nothing falls back
   to the uncaptured loop.
 
-Without capture (CPU tensors, ``sharding=`` runs, or on request) a step
-is called directly.
+Under a sharding (an NCCL group; every rank runs the same solve):
+
+* every rank captures and replays the same steps in the same order: the
+  host's branches (a rerun, a restart, the end of the loop) follow the
+  flags, which are computed from all-reduced results and so the same bits
+  on every rank (``mm_sharding``); a solve's record keeps the flags it
+  read (``flag_history``), which the fleet jobs compare across the ranks;
+* the warm-up call of a step posts every collective and ring permute the
+  captured step will post (the same call), so NCCL's peers are connected
+  before any capture;
+* NCCL runs a collective on its own stream, joined to the capture stream
+  by events; every collective's ``wait()`` falls inside its step, so the
+  capture ends with every stream joined;
+* the capture's error mode is thread-local: NCCL's watchdog thread polls
+  the events of the eager collectives (the prologue's, a rerun's) while a
+  step is captured, which a global-mode capture would count as a fault;
+* the shards a step's ring permutes send and receive are kept for as long
+  as the graph lives (``VectorSharding.keep_alive``);
+* a rare-branch rerun runs uncaptured on every rank at once, its eager
+  collectives on the same communicator between the replays.
+
+gloo groups and CPU tensors have no capture: their steps are called
+directly (the "eager" route, or on request "unrolled").
 
 The solvers share the rest of the machinery here:
 
@@ -56,7 +84,9 @@ import time
 import torch
 from torch.profiler import record_function
 
+from .. import profiling
 from ..ortho.core import eager_passes, unrolled
+from .mm import current_sharding
 
 __all__ = ["StepGraphs", "StepState", "StepLoop", "GraphCaptureError",
            "kernel_counters"]
@@ -100,20 +130,26 @@ class StepGraphs:
     docstring), or, with ``capture`` false, none.  Use as a context around
     the solve's loop; ``run(key, fn)`` runs the step ``fn`` (no arguments,
     results written into buffers that outlive the solve's loop).
+    ``sharding`` is the solve's (NCCL) sharding, whose collectives the
+    steps post, or None.
 
     ``capture_s`` is the host time spent capturing, ``pool_bytes`` the
     device memory the graphs' shared pool reserved while capturing,
     ``replays`` the replays by key."""
 
-    def __init__(self, device: torch.device, capture: bool = True):
+    def __init__(self, device: torch.device, capture: bool = True,
+                 sharding=None):
         self.device = torch.device(device)
         self.capture = capture
         if capture and self.device.type != "cuda":
             raise ValueError(f"no CUDA graphs on {self.device}")
+        self.sharding = sharding
         self.stream = _capture_stream(self.device) if capture else None
         self.counters = kernel_counters() if capture else {}
         self.graphs: dict = {}
         self.launches: dict = {}
+        self.posted: dict = {}      # the collectives a key's capture posted
+        self.kept: dict = {}        # the tensors its ring permutes use
         self.replays: dict = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -147,6 +183,8 @@ class StepGraphs:
         graph.replay()
         for name, n in self.launches[key].items():
             self.counters[name].launches += n
+        if self.posted[key]:
+            profiling._replayed(self.posted[key])
         self.replays[key] = self.replays.get(key, 0) + 1
 
     def _capture(self, key, fn):
@@ -157,12 +195,19 @@ class StepGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        posted, kept = {}, []
         # capture_begin/end rather than torch.cuda.graph, whose entry
-        # synchronizes the card and runs the garbage collector each time
-        graph.capture_begin(pool=self._pool)
+        # synchronizes the card and runs the garbage collector each time;
+        # a sharded step's capture is thread-local (see the module
+        # docstring: NCCL's watchdog thread)
+        graph.capture_begin(pool=self._pool, capture_error_mode=(
+            "global" if self.sharding is None else "thread_local"))
+        keep = (contextlib.nullcontext() if self.sharding is None
+                else self.sharding.keep_alive(kept))
         failure = None
         try:
-            fn()
+            with profiling._captured(posted), keep:
+                fn()
         except Exception as exc:        # re-raised below, with the step
             failure = exc
         try:
@@ -180,6 +225,8 @@ class StepGraphs:
                 f"{failure}") from failure
         self.graphs[key] = graph
         self.launches[key] = {k: n for k, n in added.items() if n}
+        self.posted[key] = posted
+        self.kept[key] = kept
 
 
 # ---- the route switch the solvers share ----
@@ -204,7 +251,7 @@ class _recording:
     keeps the solve's own choice.  ``solves`` collects one record a solve
     (solver, route, iterations, flag reads, rare-branch reruns by step,
     the most passes the eager ortho loops took, capture seconds and graph
-    pool bytes, replays by step)."""
+    pool bytes, replays by step, and every flag read in order)."""
 
     def __init__(self, route=None, budgets=None):
         if route is not None and route not in _ROUTES:
@@ -238,13 +285,17 @@ _read_flags.observer = None
 
 
 def _route(dev, sharding) -> str:
-    """The route of a solve on ``dev``: the private one in force, else
-    "graphs" on unsharded CUDA tensors and "eager" otherwise."""
+    """The route of a solve on ``dev`` under ``sharding``: the private one
+    in force, else "graphs" on CUDA tensors, unsharded or sharded over an
+    NCCL group, and "eager" otherwise (CPU tensors, a gloo group)."""
+    capturable = dev.type == "cuda" and (sharding is None
+                                         or sharding.backend == "nccl")
     rec = _RECORDING[0]
     route = rec.route if rec is not None and rec.route else (
-        "graphs" if dev.type == "cuda" and sharding is None else "eager")
-    if route == "graphs" and (dev.type != "cuda" or sharding is not None):
-        raise ValueError("the captured route needs unsharded CUDA tensors")
+        "graphs" if capturable else "eager")
+    if route == "graphs" and not capturable:
+        raise ValueError("the captured route needs CUDA tensors, unsharded "
+                         "or sharded over an NCCL group")
     return route
 
 
@@ -344,8 +395,10 @@ class StepLoop:
 
     def __init__(self, name, st, device, route, scopes):
         self.name, self.st, self.route, self.scopes = name, st, route, scopes
-        self.graphs = StepGraphs(device, capture=route == "graphs")
+        self.graphs = StepGraphs(device, capture=route == "graphs",
+                                 sharding=current_sharding())
         self.reads0 = _read_flags.count
+        self.flag_history = []      # every flag read, as the host saw it
         self.reruns = dict.fromkeys(st.BODIES, 0)
         self.pending = None     # the branch step whose finished bit is unread
         self.ortho_ok = st.ortho_ok0
@@ -365,12 +418,17 @@ class StepLoop:
         with self._scope(step):
             self.graphs.run(step, getattr(self.st, step))
 
+    def _read(self, flags):
+        out = _read_flags(flags)
+        self.flag_history.append(out)
+        return out
+
     def _steps(self, reduce):
         self._run("matvec")
         with self._scope("ritz"):
             reduce()
             self.graphs.run("ritz", self.st.ritz)
-        return _read_flags(self.st.flags)
+        return self._read(self.st.flags)
 
     def _rerun(self, branch):
         # a rare branch: the unrolled ortho loops of that step fell short
@@ -404,7 +462,7 @@ class StepLoop:
         it) is settled, since its ortho_ok still counts.  Returns
         ortho_ok."""
         if self.pending:
-            finished, ortho_ok = _read_flags(
+            finished, ortho_ok = self._read(
                 torch.stack([self.st.finished3, self.st.ortho_ok]))
             if not finished:
                 self._rerun(self.pending)
@@ -426,7 +484,8 @@ class StepLoop:
                       reruns=dict(self.reruns),
                       passes=dict(self.st.passes.most),
                       capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                      replays=dict(g.replays))
+                      replays=dict(g.replays),
+                      flag_history=self.flag_history)
         if rec is not None:
             rec.solves.append(record)
         if verbose:

@@ -1,5 +1,5 @@
 """The captured routes on the card (davidson, lobpcg, caslr, caslr_eff,
-nonsym):
+nonsym, and a sharded davidson over a one-rank NCCL group):
 each iteration's steps replayed as CUDA graphs, against the same steps
 called directly, and the float64 BSR sums called twice.
 
@@ -18,17 +18,21 @@ caslr_eff_ladder and caslr_ladder algorithm 0 on bsr_casida_tdscf(65536,
 512, 4) (lo_iter 60, a zero (15, 131072) paired guess), and for the
 two-sided nonsym_ladder on bsr_nonsym_similarity(65536, 512, 8) (side
 "c", n_max 10, lo_iter 60), whose matvecs launch K2, K1 and K5 as often
-on both routes.  Two calls of the
+on both routes.  The flagship's davidson_ladder with sharding= over
+dist_sliced_matvec of its general store, under a one-rank NCCL group
+(each step's all-reduces captured with it), gives the same bits captured
+and uncaptured, and the unsharded ladder's counts.  Two calls of the
 float64 plain-BSR and distributed-BSR segment products at n = 65536 give
 the same bits.  A step that reads the device cannot be captured, and the
-solve raises instead of running uncaptured (last: a failed capture leaves
-the process as it was, but is run after the rest).
+solve raises instead of running uncaptured, sharded or not (last: a
+failed capture leaves the process as it was, but is run after the rest).
 """
 
 import importlib
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from diaglib_tpu_torch import (
     SolverOptions,
@@ -41,7 +45,9 @@ from diaglib_tpu_torch import (
     nonsym,
     nonsym_ladder,
 )
+from diaglib_tpu_torch.ops import bsr_sliced as bs
 from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
+from diaglib_tpu_torch.ops import dist_sliced as dsl
 from diaglib_tpu_torch.ops.bsr import BSRMatrix, bsr_matvec, random_bsr_spd
 from diaglib_tpu_torch.ops.bsr import row_slots
 from diaglib_tpu_torch.ops.dist_bsr import _segment_spmm
@@ -53,6 +59,7 @@ from diaglib_tpu_torch.problems import (
     nonsym_similarity_ops,
     symm_matrix,
 )
+from diaglib_tpu_torch.parallel import multihost
 from diaglib_tpu_torch.utils import graphs
 from diaglib_tpu_torch.utils.graphs import GraphCaptureError, kernel_counters
 
@@ -207,6 +214,57 @@ def test_captured_nonsym_ladder_bit_equal_to_uncaptured(dev):
         assert s["capture_s"] > 0 and sum(s["replays"].values()) > 0
 
 
+@pytest.fixture
+def nccl_rank(dev):
+    """A one-rank NCCL group in this process, torn down after the test."""
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_ladder_captured_bit_equal_to_uncaptured(flagship,
+                                                         nccl_rank):
+    """The flagship's sharded davidson_ladder over dist_sliced_matvec (K2
+    and K6 in the matvec step, its all-reduces inside the captured
+    steps) on a one-rank NCCL group: the captured route by default, the
+    same bits and counts as the uncaptured route, the same K2 / K6
+    launches, and the unsharded ladder's counts (64 iterations, 954
+    matvecs, PERF.md)."""
+    m, _ = flagship
+    general = bs.slice_bsr(m)
+    sh = multihost.global_sharding(N)
+    one = dsl.distribute_sliced_bsr(general, 1, rank=sh.rank)
+    f32 = torch.float32
+    guess = torch.zeros((15, N), dtype=torch.float64, device="cuda")
+
+    def run(gen):
+        return davidson_ladder(
+            dsl.dist_sliced_matvec(one, sh, dtype=f32),
+            diag_precnd(one.diagonal.to(f32)), dsl.dist_sliced_matvec(one, sh),
+            diag_precnd(one.diagonal), guess, SolverOptions(**OPTS),
+            lo_tol=2e-6, lo_iter=35, generator=gen, sharding=sh)
+
+    eager, e_solves, e_launches = _counted(run, "eager")
+    captured, c_solves, c_launches = _counted(run, None)
+    assert [(s["solver"], s["route"]) for s in c_solves] == \
+        [("davidson", "graphs")] * 2
+    assert captured.ok and eager.ok
+    assert (captured.n_iter, captured.n_matvec, captured.ortho_ok) == \
+        (eager.n_iter, eager.n_matvec, eager.ortho_ok)
+    assert (captured.n_iter, captured.n_matvec) == (64, 954)
+    for f in FIELDS:
+        assert torch.equal(getattr(captured, f), getattr(eager, f)), f
+    reruns = sum(sum(s["reruns"].values()) for s in c_solves)
+    for k in ("peel_rows", "group_spmm"):
+        assert c_launches[k] > 0
+        assert reruns or c_launches[k] == e_launches[k]
+    assert c_launches["sym_spmm"] == c_launches["sliced_spmm"] == 0
+    for s in c_solves:
+        assert s["capture_s"] > 0 and sum(s["replays"].values()) > 0
+
+
 def test_float64_bsr_sums_bit_equal(flagship, dev):
     m, _ = flagship
     m64 = BSRMatrix(m.blocks_t.double(), m.rows, m.cols, m.row_start, m.n,
@@ -287,4 +345,29 @@ def test_nonsym_capture_failure_raises(dev):
     torch.cuda.synchronize()
     with graphs._recording("eager"):
         res = nonsym(*args, side="r")
+    assert res.ok
+
+
+def test_sharded_capture_failure_raises(dev, nccl_rank):
+    """A sharded step that reads the device fails to capture on a one-rank
+    NCCL group: the solve raises, it does not fall back to the eager loop;
+    the same solve runs uncaptured only when asked for privately."""
+    a = symm_matrix(256, device=dev)
+    sh = multihost.global_sharding(256)
+
+    def reading_matvec(x):
+        if float(x.abs().sum()) < 0:        # a read of the device
+            raise AssertionError
+        return sh.all_gather(x) @ a.T
+
+    opts = SolverOptions(n_targ=2, n_max=4, max_iter=100, tol=1e-8)
+    guess = torch.rand((4, 256), dtype=torch.float64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    with pytest.raises(GraphCaptureError, match="'matvec'"):
+        davidson(reading_matvec, diag_precnd(torch.diagonal(a)), guess, opts,
+                 sharding=sh)
+    torch.cuda.synchronize()
+    with graphs._recording("eager"):
+        res = davidson(reading_matvec, diag_precnd(torch.diagonal(a)), guess,
+                       opts, sharding=sh)
     assert res.ok

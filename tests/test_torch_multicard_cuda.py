@@ -1,8 +1,12 @@
 """The multi-card path on four NVIDIA GPUs: every job of
 ``parallel.mh_dryrun`` under NCCL, one rank a card, held against the same
-job under gloo on four CPU ranks (``chip_smoke.compare_fleet``), the
-flagship's ladders job at a reduced n (``chip_smoke.check_ladders``), and
-the refusals of NCCL requests the machine cannot serve.
+job under gloo on four CPU ranks (``chip_smoke.compare_fleet``; job
+``routes`` holds each sharded solve captured against uncaptured on every
+rank), the flagship's ladders job at a reduced n
+(``chip_smoke.check_ladders``; its sharded ladders captured, their steps'
+all-reduces and ring permutes replayed as CUDA graphs, against the
+uncaptured route on every rank), and the refusals of NCCL requests the
+machine cannot serve.
 
 These tests need four cards and nvcc and skip elsewhere.  They import no
 JAX:
@@ -44,19 +48,49 @@ def test_job_under_nccl_matches_gloo(cards, job, tmp_path):
     assert chip_smoke.compare_fleet(job, *runs)
 
 
-def test_ladders_on_the_cards(cards):
+@pytest.fixture(scope="module")
+def ladders(cards):
     """The flagship's job at n = 32768 (16 block rows a rank, the
-    narrowest shard K3's rotations take): the sharded ladders' checks of
-    phase (j2), K2, K3 and K6 launched on every rank and K5 in rank 0's
-    unsharded ladders."""
-    _, outs = mh_dryrun.run_fleet(
+    narrowest shard K3's rotations take), each sharded ladder also
+    captured against uncaptured."""
+    return mh_dryrun.run_fleet(
         "ladders", chip_smoke.ladder_inputs(32768, ("davidson", "lobpcg"),
-                                            True, False), cards)
+                                            True, False), cards)[1]
+
+
+def test_ladders_on_the_cards(ladders):
+    """The sharded ladders' checks of phase (j2), K2, K3 and K6 launched
+    on every rank and K5 in rank 0's unsharded ladders."""
+    outs = ladders
     launches, k5 = chip_smoke.check_ladders("n=32768", outs, "test", True)
     for name in ("peel_rows", "sliced_wide_mm", "group_spmm"):
         assert launches[name] > 0, (name, launches)
     assert k5["sliced_spmm"] > 0 and launches["sliced_spmm"] == 0
     assert launches["sym_spmm"] == launches["bsr_spmm"] == 0
+
+
+@pytest.mark.parametrize("name", ["davidson", "lobpcg"])
+def test_sharded_ladders_captured_equal_uncaptured(ladders, name):
+    """Each rank's sharded ladder on the captured route by default (its
+    steps, their all-reduces and ring permutes replayed as CUDA graphs)
+    against the uncaptured route: every returned tensor bit for bit and
+    the same counts on every rank, the same K2 / K6 launches, every rank
+    reading the same flags (one digest)."""
+    outs = ladders
+    assert all(o[f"{name}_routes"] == ["graphs"] for o in outs)
+    digests = {o[f"{name}_compare"]["digest"] for o in outs}
+    assert len(digests) == 1
+    assert {o[f"{name}_digest"] for o in outs} == digests
+    for o in outs:
+        cmp = o[f"{name}_compare"]
+        assert cmp["same"]
+        assert cmp["counts"]["graphs"] == cmp["counts"]["eager"]
+        assert cmp["counts"]["graphs"] == outs[0][f"{name}_compare"][
+            "counts"]["graphs"]
+        assert {s["route"] for s in cmp["solves"]["graphs"]} == {"graphs"}
+        lc, lu = cmp["launches"]["graphs"], cmp["launches"]["eager"]
+        for k in ("peel_rows", "group_spmm"):
+            assert lc[k] > 0 and (cmp["reruns"] or lc[k] == lu[k])
 
 
 def test_one_seed_builds_one_matrix_on_every_card(cards):
