@@ -142,7 +142,11 @@ Phases (any failure raises and the script exits non-zero):
        under its scope);
        the device-busy share of the window, device kernels an iteration, the
        host time under each scope and the device time of the kernels
-       launched under it, and the kernels with the most device time; (i4)
+       launched under it, the same under each of the step loop's leaf
+       spans (profiling.LEAF_SPANS) with the device's idle time by leaf
+       span, each stage's record from profiling.solve_log (its iterations
+       summing to the ladder's), and the kernels with the most device
+       time; (i4)
        profiling.phase_timings of the float64 symmetric sliced matvec at
        (15, 65536) beside phase 4's K1 time, profiling.wall of one (d)
        ladder beside (d)'s; (i5) the ELL operator of tests/test_ell.py's
@@ -218,6 +222,15 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+# the benchmark's trace arithmetic: kernels' short names, and device and
+# host time by the scope that launched them
+from benchmark.tracing import (
+    SCOPES,
+    idle_by_scope,
+    scope_breakdown,
+    short_names,
+)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -621,16 +634,6 @@ def device_kernels(fn, count):
         log(f"[kernels] torch.profiler saw {short_names(names)} of a call "
             f"that launches {count} kernels; profiling it again")
     return names
-
-
-def short_names(names):
-    """Device kernel names without namespaces, template and function
-    arguments."""
-    out = []
-    for n in names:
-        head = re.split(r"[<(]", n.replace("(anonymous namespace)", ""), 1)[0]
-        out.append(head.split("::")[-1].split()[-1])
-    return out
 
 
 def expect_kernels(tag, names, want):
@@ -1188,13 +1191,15 @@ def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
 
     inv, warm = {}, {}
     for route in ("graphs", "unrolled", "eager"):
-        with graphs._recording(None if route == "graphs" else route) as rec:
+        with graphs._recording(None if route == "graphs" else route), \
+                profiling.solve_log() as solves:
             inv[route] = counted(
                 f"sharded davidson iteration {route}",
                 lambda: profiling.collective_inventory(solve, 1))
             with profiling.flag_window(2) as w:
                 solve(3)
-        if {s["route"] for s in rec.solves} != {route} or not w["closed"]:
+        if {s["route"] for s in solves.records} != {route} or \
+                not w["closed"]:
             raise AssertionError(f"(i6): the {route} solves ran elsewhere")
         warm[route] = w["inventory"]
     log(f"[inventory] one sharded davidson iteration over dist_sliced_matvec"
@@ -1286,8 +1291,10 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5,
 
     stages = "; ".join(
         f"{s['solver']} {s['dtype']} {s['iterations']} iterations, reruns "
-        f"{s['reruns']}, capture {s['capture_s'] * 1e3:.1f} ms, pool "
-        f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}, eager "
+        f"{s['reruns']}, {s['warmups']} warm-ups {s['warmup_ms']:.1f} ms, "
+        f"{s['captures']} captures {s['capture_ms']:.1f} ms, pool "
+        f"{s['pool_bytes'] / 2**20:.1f} MiB, replays {s['replays']}, "
+        f"{s['reduced']} reduced solves {s['reduced_ms']:.1f} ms, eager "
         f"ortho passes at most {u['passes']} (uncaptured)"
         for s, u in zip(rc, ru))
     log(f"[{tag} captured] {stages} ({card})")
@@ -2147,74 +2154,21 @@ def checkpoint_resume(mv_hi, pc_hi, ra, m, dev, counted, card):
                              "than a solve from scratch")
 
 
-def scope_breakdown(trace_events, scopes):
-    """From a Chrome trace of torch.profiler: the device's busy ms (the
-    union of its kernels, copies and fills); the number of kernels; for
-    each scope name, (count, host ms under it, device ms of the kernels
-    launched under it); the device ms of kernels launched outside every
-    scope; and the kernels' (short name, count, ms), largest first.  A
-    kernel belongs to the scope whose host interval holds its launch (the
-    runtime call with the same correlation id)."""
-    import bisect
-
-    launch = {}
-    spans = []
-    kernels = []
-    work = []
-    for e in trace_events:
-        cat = e.get("cat", "")
-        if (cat in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})):
-            launch[e["args"]["correlation"]] = e["ts"]
-        elif cat == "user_annotation" and e.get("name") in scopes:
-            spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
-        if cat == "kernel":
-            kernels.append(e)
-        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            work.append((e["ts"], e["ts"] + e["dur"]))
-    busy, end = 0.0, -math.inf
-    for lo, hi in sorted(work):                # the union of the intervals
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    spans.sort()
-    starts = [sp[0] for sp in spans]
-    host = {k: [0, 0.0, 0.0] for k in scopes}
-    for lo, hi, name in spans:
-        host[name][0] += 1
-        host[name][1] += (hi - lo) / 1e3
-    outside = 0.0
-    by_name = {}
-    for k in kernels:
-        ms = k["dur"] / 1e3
-        nm = short_names([k["name"]])[0]
-        cnt, tot = by_name.get(nm, (0, 0.0))
-        by_name[nm] = (cnt + 1, tot + ms)
-        t = launch.get(k.get("args", {}).get("correlation"))
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        if i >= 0 and t <= spans[i][1]:
-            host[spans[i][2]][2] += ms
-        else:
-            outside += ms
-    top = sorted(((n, c, t) for n, (c, t) in by_name.items()),
-                 key=lambda r: -r[2])
-    return busy / 1e3, len(kernels), host, outside, top
-
-
 # what the trace of a (d), (a) or (e) ladder must name: the phase scopes and
 # K1-K3
 TRACE_NAMES = ("matvec", "rayleigh-ritz", "expand-ortho", "sym_spmm_kernel",
                "slice_rows_kernel", "wide_mm_kernel")
-SCOPES = ("matvec", "rayleigh-ritz", "expand-ortho")
 
 
 def traced_ladder(tag, run, dev, counted, card):
     """Phase (i3): profiling.trace around one warm ladder ``run(gen)`` on
-    its default route ((d)'s, (a)'s and (e)'s, captured): the trace file
-    names the three phase scopes and the kernels K1, K2 and K3; prints the
-    device-busy share of the window, device kernels an iteration, the host
-    and device time under each scope, and the kernels that take the most
-    device time."""
+    its default route ((d)'s, (a)'s and (e)'s, captured), in a
+    profiling.solve_log: the trace file names the three phase scopes and
+    the kernels K1, K2 and K3; prints the device-busy share of the window,
+    device kernels an iteration, the host and device time under each scope
+    and under each of the step loop's leaf spans, the device's idle time
+    by the leaf span the host was in, each stage's record, and the kernels
+    that take the most device time."""
     import glob
     import tempfile
 
@@ -2224,7 +2178,7 @@ def traced_ladder(tag, run, dev, counted, card):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     with tempfile.TemporaryDirectory(prefix="diaglib_trace_") as tmp:
-        with profiling.trace(tmp):
+        with profiling.solve_log() as solves, profiling.trace(tmp):
             t0 = time.perf_counter()
             res = counted(f"traced {tag}", lambda: run(gen))
             wall_s = time.perf_counter() - t0
@@ -2254,6 +2208,26 @@ def traced_ladder(tag, run, dev, counted, card):
         f"{parts}; "
         f"launched outside them {outside:.1f} ms")
     log(f"[trace] {tag} device time by kernel: {tops}")
+    _, _, leaf, _, _ = scope_breakdown(trace_events, profiling.LEAF_SPANS)
+    # the ladder's window: its first scope's start to its last one's end
+    marks = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in SCOPES + profiling.LEAF_SPANS]
+    idle = idle_by_scope(trace_events, profiling.LEAF_SPANS,
+                         min(a for a, _ in marks), max(b for _, b in marks))
+    log(f"[trace] {tag} leaf spans: " + ", ".join(
+        f"{k} {c} x host {h:.1f} ms device {d:.1f} ms"
+        for k, (c, h, d) in leaf.items())
+        + "; device idle by leaf span: " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in idle))
+    log(f"[trace] {tag} records: " + "; ".join(
+        f"{s['dtype']} {s['iterations']} iterations, {s['warmups']} warm-ups "
+        f"{s['warmup_ms']:.1f} ms, {s['captures']} captures "
+        f"{s['capture_ms']:.1f} ms, reruns {s['reruns']}, {s['reduced']} "
+        f"reduced solves {s['reduced_ms']:.1f} ms"
+        for s in solves.records))
+    if sum(s["iterations"] for s in solves.records) != res.n_iter:
+        raise AssertionError("the stages' records miss iterations")
     if not res.ok:
         raise AssertionError("the traced ladder did not converge")
 

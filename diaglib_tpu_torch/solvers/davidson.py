@@ -33,8 +33,9 @@ Semantics kept from the reference:
 * dual tolerance: rms = ||r||/sqrt(n) < tol and max|r| < 10*tol;
 * ``ortho_ok``, per-iteration histories and ``n_matvec`` counting;
 * the phase scopes ``matvec``, ``rayleigh-ritz`` and ``expand-ortho``
-  (``torch.profiler.record_function``, the reference's
-  ``jax.named_scope``), which a ``profiling.trace`` attributes time to.
+  (the reference's ``jax.named_scope``; spans of ``profiling``, a
+  ``record_function`` under a running profiler), which a
+  ``profiling.trace`` attributes time to.
 
 Sharded (``sharding=`` a :class:`~diaglib_tpu_torch.parallel.VectorSharding`):
 every (k, n) block is the rank's column shard, ``n`` in the rms is the

@@ -71,9 +71,20 @@ The solvers share the rest of the machinery here:
   the rerun of the branch step before it when its unrolled ortho loops
   fell short (found one iteration late, so the iteration is undone and
   run again);
-* the private route switch :class:`_recording` (the route, the pass
-  budgets, and one record a solve), the counted flag read
-  :func:`_read_flags` and the route choice :func:`_route`.
+* the private route switch :class:`_recording` (the route and the pass
+  budgets), the counted flag read :func:`_read_flags` and the route
+  choice :func:`_route`.
+
+The step loop's host work is measured where it happens, through
+``profiling``'s one span helper (a ``record_function`` under a running
+profiler, an entry of each open ``profiling.solve_log``, else nothing):
+the phase scopes around the steps, and four leaf spans, none inside
+another: ``step-warmup`` (a step's first, uncaptured call),
+``graph-capture`` (``capture_begin`` to ``capture_end``),
+``step-rerun`` (a branch step run again with the eager loops) and
+``reduced-solve`` (the reduced solve, inside ``rayleigh-ritz``).  With a
+log open each solve files one record into it (:meth:`StepLoop.record`;
+the fields are ``profiling.SolveLog``'s).
 """
 
 from __future__ import annotations
@@ -82,7 +93,6 @@ import contextlib
 import time
 
 import torch
-from torch.profiler import record_function
 
 from .. import profiling
 from ..ortho.core import eager_passes, unrolled
@@ -177,7 +187,8 @@ class StepGraphs:
             return
         graph = self.graphs.get(key)
         if graph is None:
-            fn()
+            with profiling._span("step-warmup"):
+                fn()
             self._capture(key, fn)
             return
         graph.replay()
@@ -196,24 +207,25 @@ class StepGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         posted, kept = {}, []
-        # capture_begin/end rather than torch.cuda.graph, whose entry
-        # synchronizes the card and runs the garbage collector each time;
-        # a sharded step's capture is thread-local (see the module
-        # docstring: NCCL's watchdog thread)
-        graph.capture_begin(pool=self._pool, capture_error_mode=(
-            "global" if self.sharding is None else "thread_local"))
         keep = (contextlib.nullcontext() if self.sharding is None
                 else self.sharding.keep_alive(kept))
         failure = None
-        try:
-            with profiling._captured(posted), keep:
-                fn()
-        except Exception as exc:        # re-raised below, with the step
-            failure = exc
-        try:
-            graph.capture_end()
-        except RuntimeError as exc:
-            failure = failure or exc
+        with profiling._span("graph-capture"):
+            # capture_begin/end rather than torch.cuda.graph, whose entry
+            # synchronizes the card and runs the garbage collector each
+            # time; a sharded step's capture is thread-local (see the
+            # module docstring: NCCL's watchdog thread)
+            graph.capture_begin(pool=self._pool, capture_error_mode=(
+                "global" if self.sharding is None else "thread_local"))
+            try:
+                with profiling._captured(posted), keep:
+                    fn()
+            except Exception as exc:        # re-raised below, with the step
+                failure = exc
+            try:
+                graph.capture_end()
+            except RuntimeError as exc:
+                failure = failure or exc
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         added = {k: f.launches - before[k] for k, f in counters.items()}
@@ -236,8 +248,7 @@ class StepGraphs:
 # step whose loops need more is run again uncaptured)
 _UNROLL = {"vs": 2, "cd": 3, "shift": 0}
 _ROUTES = ("graphs", "eager", "unrolled")
-# a private route and pass budget in force, and the records of the solves
-# run under it (see _recording)
+# a private route and pass budget in force (see _recording)
 _RECORDING = [None]
 
 
@@ -248,24 +259,30 @@ class _recording:
     "eager": the same steps called directly, the ortho loops reading their
     predicates; "unrolled": called directly with the captured route's
     fixed passes and rare-branch reruns) with the pass ``budgets``; None
-    keeps the solve's own choice.  ``solves`` collects one record a solve
-    (solver, route, iterations, flag reads, rare-branch reruns by step,
-    the most passes the eager ortho loops took, capture seconds and graph
-    pool bytes, replays by step, and every flag read in order)."""
+    keeps the solve's own choice.  ``solves`` holds the records of the
+    solves run under it, from a ``profiling.solve_log`` it keeps open,
+    each with every flag the solve read, in order (``flag_history``)."""
 
     def __init__(self, route=None, budgets=None):
         if route is not None and route not in _ROUTES:
             raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
         self.route, self.budgets = route, budgets
-        self.solves = []
 
     def __enter__(self):
         self.prev = _RECORDING[0]
         _RECORDING[0] = self
+        self._log = profiling.solve_log()
+        self.log = self._log.__enter__()
+        self.log._flags = True
         return self
 
     def __exit__(self, *exc):
+        self._log.__exit__(*exc)
         _RECORDING[0] = self.prev
+
+    @property
+    def solves(self) -> list:
+        return self.log.records
 
 
 def _read_flags(flags: torch.Tensor) -> list:
@@ -391,7 +408,7 @@ class StepLoop:
     branch step with the eager loops and runs the iteration again.
     :meth:`branch` runs a branch step; :meth:`close` settles the last one
     after the loop; :meth:`record` files the solve's record.  ``scopes``
-    names the profiler scope of each step (None: no scope)."""
+    names the phase scope of each step (None: no scope)."""
 
     def __init__(self, name, st, device, route, scopes):
         self.name, self.st, self.route, self.scopes = name, st, route, scopes
@@ -405,14 +422,17 @@ class StepLoop:
 
     def __enter__(self):
         self.graphs.__enter__()
+        # the solve's record, summed as it runs (None with no log open)
+        self.sums = profiling._begin_solve(self.name, self.route)
         return self
 
     def __exit__(self, *exc):
+        profiling._end_solve(self.sums)
         return self.graphs.__exit__(*exc)
 
     def _scope(self, step):
         name = self.scopes.get(step)
-        return record_function(name) if name else contextlib.nullcontext()
+        return profiling._span(name) if name else profiling._NULL
 
     def _run(self, step):
         with self._scope(step):
@@ -426,7 +446,8 @@ class StepLoop:
     def _steps(self, reduce):
         self._run("matvec")
         with self._scope("ritz"):
-            reduce()
+            with profiling._span("reduced-solve"):
+                reduce()
             self.graphs.run("ritz", self.st.ritz)
         return self._read(self.st.flags)
 
@@ -436,7 +457,7 @@ class StepLoop:
         # its inputs were kept, so it runs again uncaptured with the eager
         # loops, which gives the loops' own result
         self.reruns[branch] += 1
-        with self._scope(branch):
+        with self._scope(branch), profiling._span("step-rerun"):
             self.st.rerun(branch)
 
     def iterate(self, reduce):
@@ -472,24 +493,20 @@ class StepLoop:
         return self.ortho_ok
 
     def record(self, iterations, dtype, verbose):
-        """File the solve's record with the private switch in force, and
-        print it when ``verbose``."""
-        rec = _RECORDING[0]
-        if not (verbose or rec is not None):
-            return
+        """File the solve's record into the open logs, and print it when
+        ``verbose``."""
         g = self.graphs
-        record = dict(solver=self.name, route=self.route,
-                      dtype=str(dtype).split(".")[-1], iterations=iterations,
-                      flag_reads=_read_flags.count - self.reads0,
-                      reruns=dict(self.reruns),
-                      passes=dict(self.st.passes.most),
-                      capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                      replays=dict(g.replays),
-                      flag_history=self.flag_history)
+        rec = self.sums
         if rec is not None:
-            rec.solves.append(record)
+            rec.update(dtype=str(dtype).split(".")[-1], iterations=iterations,
+                       flag_reads=_read_flags.count - self.reads0,
+                       reruns=dict(self.reruns),
+                       passes=dict(self.st.passes.most),
+                       capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                       replays=dict(g.replays))
+            profiling._file(rec, self.flag_history)
         if verbose:
             print(f"{self.name} route={self.route} iterations={iterations} "
                   f"rare-branch reruns {self.reruns} eager ortho passes at "
-                  f"most {record['passes']} graph capture "
+                  f"most {dict(self.st.passes.most)} graph capture "
                   f"{g.capture_s:.3f} s", flush=True)

@@ -1,7 +1,9 @@
 """The captured routes on the card (davidson, lobpcg, caslr, caslr_eff,
 nonsym, and a sharded davidson over a one-rank NCCL group):
 each iteration's steps replayed as CUDA graphs, against the same steps
-called directly, and the float64 BSR sums called twice.
+called directly, the captured solves' records (profiling.solve_log: one
+warm-up and one capture a step key) and the float64 BSR sums called
+twice.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX:
@@ -139,6 +141,8 @@ def _captured_equals_uncaptured(run, solver):
     for s in c_solves:
         assert s["capture_s"] > 0 and s["pool_bytes"] >= 0
         assert sum(s["replays"].values()) > 0
+        assert s["warmups"] == s["captures"] >= len(s["replays"]) > 0
+    assert all(s["warmups"] == s["captures"] == 0 for s in e_solves)
     return c_solves
 
 
@@ -152,6 +156,48 @@ def test_captured_lobpcg_ladder_bit_equal_to_uncaptured(flagship):
     _, store = flagship
     _captured_equals_uncaptured(
         _symmetric_ladder(lobpcg_ladder, store, 70), "lobpcg")
+
+
+def test_captured_solve_records_one_capture_a_step_key(flagship,
+                                                        monkeypatch):
+    """Each stage of the captured ladder, in profiling.solve_log, files a
+    record with one warm-up and one capture a step key, every other call
+    of a key a replay; its spans hold one step-warmup and one
+    graph-capture a key, neither inside the other, and the stages'
+    iterations sum to the ladder's."""
+    from diaglib_tpu_torch import profiling
+
+    _, store = flagship
+    keys, seen = [], []         # (stage, step key) of every step run
+    real = graphs.StepGraphs.run
+
+    def run(self, key, fn):
+        if not any(self is g for g in seen):
+            seen.append(self)
+        keys.append(([g is self for g in seen].index(True), key))
+        return real(self, key, fn)
+
+    monkeypatch.setattr(graphs.StepGraphs, "run", run)
+    with profiling.solve_log() as log:
+        res = _symmetric_ladder(davidson_ladder, store, 35)(
+            torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    assert res.ok
+    assert [(r["route"], r["dtype"]) for r in log.records] == \
+        [("graphs", "float32"), ("graphs", "float64")]
+    assert sum(r["iterations"] for r in log.records) == res.n_iter
+    assert len(seen) == 2
+    for stage, rec in enumerate(log.records):
+        mine = [k for h, k in keys if h == stage]
+        assert rec["warmups"] == rec["captures"] == len(set(mine))
+        assert sum(rec["replays"].values()) == len(mine) - len(set(mine))
+        assert rec["warmup_ms"] > 0 and rec["capture_ms"] > 0
+        spans = [s for s in log.spans if s.solve == rec["solve"]]
+        for name in ("step-warmup", "graph-capture"):
+            assert sum(s.name == name for s in spans) == len(set(mine))
+        leaf = sorted((s.start_ns, s.end_ns) for s in spans
+                      if s.name in profiling.LEAF_SPANS)
+        assert all(a[1] <= b[0] for a, b in zip(leaf, leaf[1:]))
 
 
 @pytest.fixture(scope="module")
