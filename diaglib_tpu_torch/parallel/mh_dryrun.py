@@ -663,7 +663,11 @@ def _job_sharded_solvers(dev, inp):
 
 # the sharded solves of job ``routes`` (on job sharded_solvers' inputs)
 ROUTE_SOLVES = ("davidson", "gen_david", "lobpcg", "caslr0", "caslr1",
-                "caslr_eff", "nonsym", "bsr_davidson")
+                "caslr_eff", "nonsym", "bsr_davidson", "davidson_ladder")
+# the float32 target of the routes job's davidson_ladder: below the
+# float32 noise floor of its matrix (~2e-6 rms), so that its float32 stage
+# ends by its stall bit
+ROUTE_LO_TOL = 1e-7
 
 
 def _route_runs(dev, inp):
@@ -671,20 +675,24 @@ def _route_runs(dev, inp):
     sharded over the world on ``inp`` (:func:`job_inputs` of
     "sharded_solvers"): the dense operators with each rank holding its
     rows (the matvec all-gathers x), the Casida blocks likewise, nonsym
-    side "c" with the host driver, and davidson over ``dist_bsr_matvec``
-    (ring permutes in the matvec step)."""
+    side "c" with the host driver, davidson over ``dist_bsr_matvec``
+    (ring permutes in the matvec step), and davidson_ladder on the dense
+    operator and a float32 copy, its float32 stage ended by a stall
+    (:data:`ROUTE_LO_TOL`)."""
     import torch
 
     from ..ops.bsr import bsr_diagonal, bsr_from_arrays
     from ..ops.dist_bsr import dist_bsr_matvec, distribute_bsr
     from ..problems import diag_precnd, lrprec_eff, lrprec_std
-    from ..solvers import caslr, caslr_eff, davidson, gen_david, lobpcg
-    from ..solvers import nonsym
+    from ..solvers import caslr, caslr_eff, davidson, davidson_ladder
+    from ..solvers import gen_david, lobpcg, nonsym
     from .sharding import VectorSharding
 
     sh, a, mv = _dense_rows(dev, inp["a"])
     _, _, bv = _dense_rows(dev, inp["s"])
+    _, _, mv32 = _dense_rows(dev, inp["a"].astype(np.float32))
     pc = diag_precnd(sh.local_cols(torch.diagonal(a)))
+    pc32 = diag_precnd(sh.local_cols(torch.diagonal(a)).float())
     guess = sh.local_cols(torch.as_tensor(inp["guess"], device=dev))
     opts = _solve_opts(**inp["options"])
 
@@ -725,6 +733,9 @@ def _route_runs(dev, inp):
                                  side="c", sharding=shn, driver="host"),
         "bsr_davidson": lambda: davidson(bmv, bpc, bguess, opts,
                                          sharding=shb),
+        "davidson_ladder": lambda: davidson_ladder(
+            mv32, pc32, mv, pc, guess, opts, lo_tol=ROUTE_LO_TOL, lo_iter=35,
+            sharding=sh),
     }
 
 

@@ -253,7 +253,9 @@ class SolveLog:
     * ``solve`` (its id), ``solver``, ``route`` ("graphs", "eager",
       "unrolled") and ``dtype``;
     * ``iterations`` and ``flag_reads`` (the host's reads of the packed
-      flags: one an iteration and one a rerun);
+      flags: one an iteration and one a rerun); ``end``, how the loop
+      ended: "tol" (converged), "stall" (a Davidson ladder's float32
+      stage whose residuals stopped falling) or "max_iter";
     * ``reruns``, rare-branch reruns by step; ``passes``, the most passes
       the eager ortho loops took;
     * ``warmups`` / ``warmup_ms`` and ``captures`` / ``capture_ms``: the

@@ -19,6 +19,17 @@ rank, its all-reduces, all-gathers and ring permutes inside the graphs;
 CPU tensors and gloo groups call the same steps directly, with the ortho
 loops reading their predicates.
 
+The float32 stage of ``davidson_ladder`` and ``gen_david_ladder``
+(:func:`_float32_stage`) also watches its residuals: its ritz step sets a
+stall bit, read with the flags, when the largest rms of the targeted
+roots lies ``STALL_DROP`` below its first value and has not fallen by
+``STALL_FACTOR`` from the largest of the ``STALL_WINDOW`` iterations
+before, and the loop then ends as it ends on convergence.  It ends where
+float32 no longer lowers the residual the float64 stage starts from: at
+the float32 noise floor, where that lies above ``lo_tol``.
+:func:`davidson` and :func:`gen_david` never take this exit: they end on
+``tol`` or ``max_iter``.
+
 Semantics kept from the reference:
 
 * incremental reduced-matrix update — only the new block's rows of
@@ -75,6 +86,16 @@ from ..utils.reduced import resolve
 
 __all__ = ["davidson", "gen_david"]
 
+# the stall watch of a ladder's float32 stage (the module docstring): the
+# largest targeted rms, once STALL_DROP below its first value, has not
+# fallen by STALL_FACTOR over STALL_WINDOW iterations.  The drop keeps the
+# watch off a slow start and off a root that enters the targeted set late;
+# the window spans the float32 noise floor's scatter (on the H100 at
+# n = 32768 the stage reaches it in 5-8 iterations, 5 decades down)
+STALL_WINDOW = 3
+STALL_FACTOR = 2.0
+STALL_DROP = 1e3
+
 
 def davidson(matvec, precnd, evec_guess: torch.Tensor,
              options: SolverOptions, *,
@@ -116,6 +137,19 @@ def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
                               generator, sharding)
 
 
+def _float32_stage(matvec, precnd, evec_guess: torch.Tensor,
+                   options: SolverOptions, *, bvec=None,
+                   generator: torch.Generator | None = None,
+                   sharding=None) -> SolverResult:
+    """A Davidson ladder's float32 stage: :func:`davidson` (with ``bvec``
+    :func:`gen_david`) that also ends when its residuals stall (the
+    module docstring); ``ok`` is then false."""
+    with routing_for(options, "davidson" if bvec is None else "gen_david"), \
+            mm_sharding(sharding):
+        return _davidson_impl(matvec, precnd, bvec, evec_guess, options,
+                              generator, sharding, watch=True)
+
+
 class _Iteration(StepState):
     """One solve's fixed-shape state and the steps of an iteration over it,
     the reference's ``_DavidsonState`` and loop body.
@@ -130,8 +164,9 @@ class _Iteration(StepState):
        leading ``ldu_new`` block, whose size changes every iteration and
        whose library call reads its own error flag;
     2. :meth:`ritz`: the rotations, residuals, norms, locking and
-       histories, and :attr:`flags`: ok, n_frozen, and whether the step 3
-       before it finished its ortho loops, with ortho_ok;
+       histories, and :attr:`flags`: ok, n_frozen, whether the step 3
+       before it finished its ortho loops, ortho_ok, and with ``watch``
+       the stall bit (:meth:`stalled`);
     3. :meth:`expand` or :meth:`restart`, as the host's count of
        expansions picks.
 
@@ -145,7 +180,7 @@ class _Iteration(StepState):
     BODIES = {"expand": "_expand_ortho", "restart": "_restart_body"}
 
     def __init__(self, matvec, precnd, bvec, guess, bguess, ortho_ok,
-                 options, sqrtn, budgets):
+                 options, sqrtn, budgets, watch=False):
         self.matvec_fn, self.precnd, self.bvec = matvec, precnd, bvec
         self.options, self.sqrtn = options, sqrtn
         n_max = self.n_max = options.n_max
@@ -183,6 +218,8 @@ class _Iteration(StepState):
         self.eig_h = zeros(max_iter, n_max)
         self.rms_h = full(math.inf, max_iter, n_max)
         self.max_h = full(math.inf, max_iter, n_max)
+        self.watch = watch
+        self.iters = torch.arange(max_iter, device=dev) if watch else None
         i64 = torch.int64
         self.it = zeros(dt=i64)
         self.ldu = zeros(dt=i64)
@@ -264,8 +301,24 @@ class _Iteration(StepState):
         self.done.copy_(done)
         self.ok.copy_(done[:self.n_targ].all())
         self.n_frozen.copy_(done.sum())
+        if self.watch:
+            self.stall.copy_(self.stalled())
         self.it.add_(1)
         self.pack_flags()
+
+    def stalled(self):
+        """Whether the residuals stopped falling at this iteration: the
+        largest targeted rms lies ``STALL_DROP`` below its first value and
+        not ``STALL_FACTOR`` below its largest over the ``STALL_WINDOW``
+        iterations before (never in the first ``STALL_WINDOW``).  Locked
+        roots keep their last rms, under ``tol``."""
+        worst = torch.where(self.targ, self.rms_h, -math.inf).amax(dim=1)
+        now = torch.where(self.iters == self.it, worst, -math.inf).amax()
+        window = (self.iters < self.it) & (self.iters >= self.it
+                                           - STALL_WINDOW)
+        before = torch.where(window, worst, -math.inf).amax()
+        return ((self.it >= STALL_WINDOW) & (now * STALL_DROP < worst[0])
+                & (now * STALL_FACTOR > before))
 
     # ---- step 3 ----
     def expand(self):
@@ -335,7 +388,7 @@ class _Iteration(StepState):
 
 
 def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
-                   sharding):
+                   sharding, watch=False):
     gen_eig = bvec is not None
     method = resolve(options.reduced_solver)
     n_max, max_iter = options.n_max, options.max_iter
@@ -350,7 +403,7 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
     if gen_eig:
         guess, bguess, ortho_ok = b_ortho(guess, bvec(guess))
     st = _Iteration(matvec, precnd, bvec, guess, bguess, ortho_ok, options,
-                    math.sqrt(global_n(n, sharding)), _budgets(route))
+                    math.sqrt(global_n(n, sharding)), _budgets(route), watch)
     loop = StepLoop("davidson", st, dev, route, _SCOPES)
 
     # the host's copies of the counts it needs: the reduced block's size
@@ -358,14 +411,14 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
     ldu, n_act, m_dim = 0, n_max, 1
     ok, n_matvec, it = False, 0, 0
     with loop:
-        while not ok and it < max_iter:
+        while not (ok or loop.stalled) and it < max_iter:
             ldu_new = ldu + n_act
             ok, n_frozen = loop.iterate(lambda: st.reduced(ldu_new, method))
             n_matvec += n_act
             if options.verbose:
                 inflight_progress("davidson", it, n_act, st.eig_h[it],
                                   st.rms, st.rmx)
-            if not ok:
+            if not (ok or loop.stalled):
                 if m_dim < options.dim_dav:
                     loop.branch("expand")
                     ldu, n_act, m_dim = ldu_new, n_max - n_frozen, m_dim + 1

@@ -5,7 +5,12 @@
 
 1. Run the solver in float32 until the residuals reach the float32 noise
    floor (``lo_tol``, at most ``lo_iter`` iterations); it need not
-   converge.
+   converge.  The Davidson ladders' float32 stage (``davidson_ladder``,
+   ``gen_david_ladder``) also ends when its residuals stall, before
+   ``lo_tol`` (``solvers/davidson.py``: the largest rms of the targeted
+   roots has stopped falling), where the matrix's float32 noise floor
+   lies above ``lo_tol``; the other ladders run to ``lo_tol`` or
+   ``lo_iter``.
 2. Warm-start the float64 solver from the float32 Ritz vectors;
    ``check_guess`` (and, with a metric, ``b_ortho``) re-orthonormalizes
    them in float64 (the Casida solvers split the paired rows and
@@ -36,7 +41,7 @@ from ..types import (
     SolverResult,
 )
 from .caslr import caslr, caslr_eff
-from .davidson import davidson, gen_david
+from .davidson import _float32_stage, davidson, gen_david
 from .lobpcg import lobpcg
 from .nonsym import nonsym
 
@@ -54,12 +59,14 @@ def _lo_options(options: SolverOptions, lo_tol, lo_iter) -> SolverOptions:
 
 def _two_stage(solver, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                evec_guess, options: SolverOptions, lo_tol, lo_iter,
-               generator, bvec_lo=None, bvec_hi=None, sharding=None):
+               generator, bvec_lo=None, bvec_hi=None, sharding=None,
+               lo_solver=None):
     lo_kw = dict(bvec=bvec_lo) if bvec_lo is not None else {}
     hi_kw = dict(bvec=bvec_hi) if bvec_hi is not None else {}
-    lo = solver(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
-                _lo_options(options, lo_tol, lo_iter), generator=generator,
-                sharding=sharding, **lo_kw)
+    lo = (lo_solver or solver)(
+        matvec_lo, precnd_lo, evec_guess.to(torch.float32),
+        _lo_options(options, lo_tol, lo_iter), generator=generator,
+        sharding=sharding, **lo_kw)
     hi = solver(matvec_hi, precnd_hi, lo.evec.to(torch.float64), options,
                 generator=generator, sharding=sharding, **hi_kw)
     return SolverResult(
@@ -87,13 +94,16 @@ def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
 
     ``matvec_lo``/``precnd_lo`` operate on float32 blocks,
     ``matvec_hi``/``precnd_hi`` on float64.  ``lo_tol`` is the float32
-    stage's rms target — keep it above the float32 noise floor
-    (~1e-6 ||A||).  Returns the float64 stage's :class:`SolverResult` with
-    iteration/matvec counts accumulated over both stages.
+    stage's rms target and ``lo_iter`` its cap.  Where ``lo_tol`` lies
+    below the float32 noise floor (~1e-6 ||A||), the stage ends when its
+    residuals stop falling instead (the module docstring), and the
+    float64 stage starts from there.  Returns the float64 stage's
+    :class:`SolverResult` with iteration/matvec counts accumulated over
+    both stages.
     """
     return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
                       evec_guess, options, lo_tol, lo_iter, generator,
-                      sharding=sharding)
+                      sharding=sharding, lo_solver=_float32_stage)
 
 
 def lobpcg_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
@@ -117,12 +127,13 @@ def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
                      sharding=None) -> SolverResult:
     """float32-then-float64 generalized Davidson.  The float64 stage
     B-orthonormalizes the warm-start block from scratch, so the float32
-    basis's metric errors do not reach the float64 result.  The result is
-    the float64 stage's with both stages' counts added up."""
-    lo = gen_david(matvec_lo, precnd_lo, bvec_lo,
-                   evec_guess.to(torch.float32),
-                   _lo_options(options, lo_tol, lo_iter), generator=generator,
-                   sharding=sharding)
+    basis's metric errors do not reach the float64 result.  The float32
+    stage ends on ``lo_tol``, ``lo_iter`` or a stall, as
+    :func:`davidson_ladder`'s.  The result is the float64 stage's with
+    both stages' counts added up."""
+    lo = _float32_stage(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
+                        _lo_options(options, lo_tol, lo_iter), bvec=bvec_lo,
+                        generator=generator, sharding=sharding)
     hi = gen_david(matvec_hi, precnd_hi, bvec_hi, lo.evec.to(torch.float64),
                    options, generator=generator, sharding=sharding)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,

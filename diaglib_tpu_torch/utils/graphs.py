@@ -63,9 +63,11 @@ The solvers share the rest of the machinery here:
 
 * :class:`StepState`, the part of a solve's fixed device state every
   solver keeps the same way: the packed flags the host reads once an
-  iteration, what the ritz step changes (kept so that it can be undone),
-  the ortho health and the finished bit of the last branch step, and the
-  rare-branch rerun of that step from the inputs it kept;
+  iteration (with a stall bit that only a ladder's float32 Davidson stage
+  sets; the others pack 0), what the ritz step changes (kept so that it
+  can be undone), the ortho health and the finished bit of the last
+  branch step, and the rare-branch rerun of that step from the inputs it
+  kept;
 * :class:`StepLoop`, the host side of an iteration: the first step, the
   reduced solve between the steps, the ritz step, the one flag read, and
   the rerun of the branch step before it when its unrolled ortho loops
@@ -287,9 +289,9 @@ class _recording:
 
 def _read_flags(flags: torch.Tensor) -> list:
     """The host's one read of the device an iteration: the packed flags
-    of the ritz step, (ok, n_frozen, finished, ortho_ok), the last two of
-    the branch step before it.  ``observer``, when set, is called after
-    each read."""
+    of the ritz step, (ok, n_frozen, finished, ortho_ok, stall), finished
+    and ortho_ok of the branch step before it.  ``observer``, when set, is
+    called after each read."""
     _read_flags.count += 1
     out = flags.tolist()
     if _read_flags.observer is not None:
@@ -349,7 +351,10 @@ class StepState:
         self.ortho_ok = torch.full((), self.ortho_ok0, dtype=torch.bool,
                                    device=device)
         self.ok = torch.zeros((), dtype=torch.bool, device=device)
-        self.flags = torch.zeros(4, dtype=i64, device=device)
+        self.flags = torch.zeros(5, dtype=i64, device=device)
+        # whether the residuals stopped falling: set by a ritz step that
+        # watches them (a ladder's float32 Davidson stage), else False
+        self.stall = torch.zeros((), dtype=torch.bool, device=device)
         # the last branch step's outcome: whether its loops finished, and
         # ortho_ok before it (for a rerun)
         self.finished3 = torch.ones((), dtype=torch.bool, device=device)
@@ -368,7 +373,8 @@ class StepState:
     def pack_flags(self):
         self.flags.copy_(torch.stack([
             self.ok.to(torch.int64), self.n_frozen,
-            self.finished3.to(torch.int64), self.ortho_ok.to(torch.int64)]))
+            self.finished3.to(torch.int64), self.ortho_ok.to(torch.int64),
+            self.stall.to(torch.int64)]))
 
     def _ortho(self):
         """The ortho loops of a branch step: unrolled to the budgets, or
@@ -408,7 +414,8 @@ class StepLoop:
     branch step with the eager loops and runs the iteration again.
     :meth:`branch` runs a branch step; :meth:`close` settles the last one
     after the loop; :meth:`record` files the solve's record.  ``scopes``
-    names the phase scope of each step (None: no scope)."""
+    names the phase scope of each step (None: no scope).  ``ok`` and
+    ``stalled`` are the last iteration's converged and stall bits."""
 
     def __init__(self, name, st, device, route, scopes):
         self.name, self.st, self.route, self.scopes = name, st, route, scopes
@@ -419,6 +426,7 @@ class StepLoop:
         self.reruns = dict.fromkeys(st.BODIES, 0)
         self.pending = None     # the branch step whose finished bit is unread
         self.ortho_ok = st.ortho_ok0
+        self.ok = self.stalled = False
 
     def __enter__(self):
         self.graphs.__enter__()
@@ -462,15 +470,16 @@ class StepLoop:
 
     def iterate(self, reduce):
         """One iteration's steps 1-2 and its flag read; returns (ok,
-        n_frozen)."""
-        ok, n_frozen, finished, ortho_ok = self._steps(reduce)
+        n_frozen) and keeps ``ok`` and ``stalled``."""
+        ok, n_frozen, finished, ortho_ok, stall = self._steps(reduce)
         if self.pending and not finished:
             self.st.undo_ritz()
             self._rerun(self.pending)
-            ok, n_frozen, finished, ortho_ok = self._steps(reduce)
+            ok, n_frozen, finished, ortho_ok, stall = self._steps(reduce)
         self.pending = None
         self.ortho_ok = bool(ortho_ok)
-        return bool(ok), n_frozen
+        self.ok, self.stalled = bool(ok), bool(stall)
+        return self.ok, n_frozen
 
     def branch(self, name):
         """Run the branch step ``name``; its finished bit is read with the
@@ -494,11 +503,14 @@ class StepLoop:
 
     def record(self, iterations, dtype, verbose):
         """File the solve's record into the open logs, and print it when
-        ``verbose``."""
+        ``verbose``.  Its ``end``: "tol" when the last iteration converged,
+        "stall" when its residuals had stopped falling, else "max_iter"."""
         g = self.graphs
         rec = self.sums
+        end = "tol" if self.ok else "stall" if self.stalled else "max_iter"
         if rec is not None:
             rec.update(dtype=str(dtype).split(".")[-1], iterations=iterations,
+                       end=end,
                        flag_reads=_read_flags.count - self.reads0,
                        reruns=dict(self.reruns),
                        passes=dict(self.st.passes.most),
@@ -507,6 +519,6 @@ class StepLoop:
             profiling._file(rec, self.flag_history)
         if verbose:
             print(f"{self.name} route={self.route} iterations={iterations} "
-                  f"rare-branch reruns {self.reruns} eager ortho passes at "
-                  f"most {dict(self.st.passes.most)} graph capture "
+                  f"end={end} rare-branch reruns {self.reruns} eager ortho "
+                  f"passes at most {dict(self.st.passes.most)} graph capture "
                   f"{g.capture_s:.3f} s", flush=True)

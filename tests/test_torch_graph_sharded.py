@@ -10,16 +10,18 @@ captured route's fixed ortho passes and rare-branch reruns, called
 directly.  One fleet of ``parallel.mh_dryrun`` (job ``routes``, on the
 inputs of job ``sharded_solvers``: n = 256 dense operators, n = 512
 distributed BSR) runs davidson, gen_david, lobpcg, caslr (algorithm 0),
-caslr_eff, nonsym (side "c", host driver) and davidson over
-``dist_bsr_matvec`` on the "unrolled" and the "eager" routes, and three
-of them again with one-pass budgets, which force reruns.  Meanwhile this
+caslr_eff, nonsym (side "c", host driver), davidson over
+``dist_bsr_matvec`` and davidson_ladder (its float32 stage ended by the
+stall bit) on the "unrolled" and the "eager" routes, and three of them
+again with one-pass budgets, which force reruns.  Meanwhile this
 process runs the JAX package's sharded solves on the conftest's 8-device
 CPU mesh from the same inputs (the workers import no JAX).
 
 Held: every returned tensor bit for bit between the routes on every rank;
 ``(ok, n_iter, n_matvec)`` equal to the eager sharded loop's before the
 captured route took the sharded solves (pinned below, one torch thread a
-rank); every rank's flag history the same; forced reruns counted and
+rank); every rank's flag history the same, the ladder's stall bit with it;
+forced reruns counted and
 bit-equal; eigenvalues within 1e-10 of the JAX package's.  Also the route
 rule (``utils.graphs._route``) with the group's backend stubbed, and the
 collective inventory's counting of a capture and its replays on a
@@ -48,6 +50,7 @@ from diaglib_tpu.problems import lrprec_std as j_lrprec_std
 from diaglib_tpu.solvers import caslr as j_caslr
 from diaglib_tpu.solvers import caslr_eff as j_caslr_eff
 from diaglib_tpu.solvers import davidson as j_davidson
+from diaglib_tpu.solvers import davidson_ladder as j_davidson_ladder
 from diaglib_tpu.solvers import gen_david as j_gen_david
 from diaglib_tpu.solvers import lobpcg as j_lobpcg
 from diaglib_tpu.solvers import nonsym as j_nonsym
@@ -66,7 +69,10 @@ SHORT = ("davidson", "bsr_davidson", "nonsym")
 PINNED = {"davidson": (True, 15, 112), "gen_david": (True, 9, 67),
           "lobpcg": (True, 13, 109), "caslr0": (True, 22, 652),
           "caslr_eff": (True, 22, 342),
-          "nonsym": (True, 18, 69), "bsr_davidson": (True, 28, 224)}
+          "nonsym": (True, 18, 69), "bsr_davidson": (True, 28, 224),
+          # both stages, the float32 one ended by its stall bit (16 + 4),
+          # as the unsharded ladder on one rank
+          "davidson_ladder": (True, 20, 154)}
 
 
 def _jax_solves(inp):
@@ -107,6 +113,11 @@ def _jax_solves(inp):
             jdb.dist_bsr_matvec(jdb.distribute_bsr(jm, 8), sh),
             j_diag_precnd(jnp.asarray(bdiag)), jnp.asarray(inp["bsr_guess"]),
             opts, sharding=sh),
+        # unsharded: the JAX ladder takes its sharding from a jit'd guess
+        "davidson_ladder": lambda: j_davidson_ladder(
+            j_dense_matvec(a.astype(jnp.float32)),
+            j_diag_precnd(jnp.diagonal(a).astype(jnp.float32)), mv, pc, guess,
+            opts, lo_tol=mh_dryrun.ROUTE_LO_TOL, lo_iter=35),
     }
     out = {}
     for name, run in runs.items():
@@ -200,6 +211,23 @@ def test_flag_history_identical_on_every_rank(fleet, name):
             assert s["iterations"] + sum(s["reruns"].values()) <= \
                 s["flag_reads"] <= s["iterations"] + \
                 sum(s["reruns"].values()) + 1
+
+
+def test_ladder_stall_read_alike_on_every_rank(fleet):
+    """The sharded ladder's float32 stage ends by its stall bit, computed
+    from all-reduced residuals: every rank reads it at the same iteration
+    and ends the stage there, on both routes."""
+    _, outs, _ = fleet
+    for route in ("unrolled", "eager"):
+        stages = [o[f"{route}:davidson_ladder"]["solves"] for o in outs]
+        for lo, hi in stages:
+            assert (lo["dtype"], lo["end"]) == ("float32", "stall")
+            assert lo["iterations"] < 35
+            assert lo["flag_history"][-1][4] == 1
+            assert (hi["dtype"], hi["end"]) == ("float64", "tol")
+        seen = [[(st["iterations"], st["end"], st["flag_history"])
+                 for st in s] for s in stages]
+        assert all(h == seen[0] for h in seen[1:]), route
 
 
 @pytest.mark.parametrize("name", SHORT)

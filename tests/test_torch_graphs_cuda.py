@@ -15,6 +15,9 @@ The flagship ladder (random_bsr_spd(65536, 512, 8), its symmetric store,
 uncaptured in one process gives the same bits in every returned tensor and
 the same counts: both routes run the same arithmetic (an unrolled ortho
 pass past its loop's end is masked out, and launches K3 all the same).
+On the upstream test matrix (symm_matrix(8192), dense) the ladder's
+float32 stage ends by its stall bit at the same iteration on the captured,
+unrolled and eager routes.
 The same holds for the flagship's lobpcg_ladder (lo_iter 70), and for
 caslr_eff_ladder and caslr_ladder algorithm 0 on bsr_casida_tdscf(65536,
 512, 4) (lo_iter 60, a zero (15, 131072) paired guess), and for the
@@ -198,6 +201,58 @@ def test_captured_solve_records_one_capture_a_step_key(flagship,
         leaf = sorted((s.start_ns, s.end_ns) for s in spans
                       if s.name in profiling.LEAF_SPANS)
         assert all(a[1] <= b[0] for a, b in zip(leaf, leaf[1:]))
+
+
+@pytest.fixture(scope="module")
+def hilbert(dev):
+    """The upstream test matrix at n = 8192, dense on the card, and the
+    upstream strategy-6 guess: its float32 noise floor lies above the
+    ladders' lo_tol 2e-6, so the float32 stage ends by its stall bit."""
+    n = 8192
+    a = symm_matrix(n, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    guess = 0.01 * torch.rand((15, n), generator=g, dtype=torch.float64,
+                              device=dev)
+    rows = torch.argsort(torch.diagonal(a), stable=True)[:15]
+    guess[torch.arange(15, device=dev), rows] += 1.0
+    return a, guess
+
+
+def test_stall_on_every_route_at_the_same_iteration(hilbert):
+    """The captured route, the same steps uncaptured with the captured
+    route's fixed passes ("unrolled") and the eager loops end the float32
+    stage by its stall bit at the same iteration, with the same bits in
+    every returned tensor; the captured and unrolled routes read the same
+    flags, and the eager route the same but for a rerun's extra read
+    (finished bit 0)."""
+    a, guess = hilbert
+    a32 = a.float()
+    opts = SolverOptions(n_targ=10, n_max=15, max_iter=100, tol=1e-8,
+                         max_dav=20)
+
+    def run(gen):
+        return davidson_ladder(
+            lambda x: x @ a32, diag_precnd(torch.diagonal(a32)),
+            lambda x: x @ a, diag_precnd(torch.diagonal(a)), guess, opts,
+            lo_tol=2e-6, lo_iter=35, generator=gen)
+
+    out = {route: _counted(run, route)[:2]
+           for route in (None, "unrolled", "eager")}
+    captured, c_solves = out[None]
+    assert [s["route"] for s in c_solves] == ["graphs", "graphs"]
+    assert [s["end"] for s in c_solves] == ["stall", "tol"]
+    assert c_solves[0]["iterations"] < 35 and captured.ok
+    for route in ("unrolled", "eager"):
+        res, solves = out[route]
+        for f in FIELDS:
+            assert torch.equal(getattr(res, f), getattr(captured, f)), \
+                (route, f)
+        assert [(s["iterations"], s["end"]) for s in solves] == \
+            [(s["iterations"], s["end"]) for s in c_solves], route
+    for c, u, e in zip(c_solves, out["unrolled"][1], out["eager"][1]):
+        assert c["flag_history"] == u["flag_history"]
+        assert [f for f in c["flag_history"] if f[2]] == e["flag_history"]
+    assert c_solves[0]["flag_history"][-1][4] == 1
 
 
 @pytest.fixture(scope="module")
