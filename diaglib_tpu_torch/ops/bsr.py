@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.graphs import replayable
 from . import _build
 
 __all__ = ["BSRMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_diagonal",
@@ -303,7 +304,7 @@ def bsr_matvec(m: BSRMatrix, *, force_reference: bool = False):
             return bsr_spmm_plain(m, x, slots)
         return bsr_spmm(m, x)
 
-    return mv
+    return replayable(mv)
 
 
 def random_bsr_spd(n: int, block: int, blocks_per_row: int, seed: int,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.graphs import replayable
 from . import _build
 from .bsr import BSRMatrix, as_arrays, bsr_diagonal
 from .slicing import combine_weights, pow2_grid, slice_rows, slice_scaled
@@ -378,4 +379,4 @@ def sliced_bsr_matvec(m: SlicedBSR, *, dtype=torch.float64,
         y = y * sx.to(acc_dtype) * cs
         return y.to(dtype)
 
-    return mv
+    return replayable(mv)

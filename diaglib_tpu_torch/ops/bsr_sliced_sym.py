@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.graphs import replayable
 from . import _build
 from .bsr import BSRMatrix, as_arrays, bsr_diagonal
 from .bsr_sliced import (
@@ -401,7 +402,7 @@ def sym_sliced_matvec(m: SymSlicedBSR, *, dtype=torch.float64,
         y = y * sx.to(acc_dtype) * u[None, :]
         return y.to(dtype)
 
-    return mv
+    return replayable(mv)
 
 
 def sliced_matvec_any(store, *, dtype=torch.float64, nx: int | None = None,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .._device import host_array, resolve_device
+from ..utils.graphs import replayable
 
 __all__ = ["ELLMatrix", "ell_from_dense", "ell_from_coo", "ell_matvec",
            "ell_diagonal", "ell_to_dense"]
@@ -95,4 +96,4 @@ def ell_matvec(m: ELLMatrix):
             out += v[None, :] * x[:, c]
         return out
 
-    return mv
+    return replayable(mv)

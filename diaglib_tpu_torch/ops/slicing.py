@@ -573,16 +573,22 @@ def _wide_scratch_bytes(m: int, kdim: int) -> int:
 
 
 _wide_scratches: dict = {}
+_wide_replaced: list = []
 
 
 def _wide_scratch(device: torch.device, stream: int, nbytes: int):
     """The kernel's scratch for calls on ``stream``: one buffer a (device,
     stream), grown as needed.  Launches on one stream run in order, so each
     call's a-side launch writes it only after the last call's kernel has
-    read it; the allocator frees a replaced buffer in the same order."""
+    read it.  A replaced buffer is kept for the life of the process
+    (``_wide_replaced``; each is smaller than the one after it): a CUDA
+    graph captured over it writes it at every replay, which may come long
+    after (``utils.graphs.StepCache``)."""
     key = (device.index, stream)
     buf = _wide_scratches.get(key)
     if buf is None or buf.numel() < nbytes:
+        if buf is not None:
+            _wide_replaced.append(buf)
         buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
                           device=device)
         _wide_scratches[key] = buf

@@ -15,6 +15,7 @@ import math
 import torch
 
 from ._device import resolve_device
+from .utils.graphs import replayable
 
 __all__ = ["symm_matrix", "metric_matrix", "casida_blocks", "nonsym_matrix",
            "dense_matvec", "diag_precnd", "bsr_casida_tdscf",
@@ -277,7 +278,7 @@ def dense_matvec(a: torch.Tensor):
     def mv(x):
         return x @ a.T
 
-    return mv
+    return replayable(mv)
 
 
 def diag_precnd(diagonal: torch.Tensor, guard: float = 1.0e-5):
@@ -289,7 +290,7 @@ def diag_precnd(diagonal: torch.Tensor, guard: float = 1.0e-5):
         return torch.where(safe[None, :],
                            x / torch.where(safe, denom, 1.0), x)
 
-    return pc
+    return replayable(pc)
 
 
 def _guard_denom(denom: torch.Tensor, scale: torch.Tensor,

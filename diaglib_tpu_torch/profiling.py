@@ -264,7 +264,11 @@ class SolveLog:
       ``capture_s``, the graphs' own capture clock (the pool's handle
       included), kept with no log too;
     * ``pool_bytes``, the device memory the graphs' pool reserved while
-      capturing; ``replays``, the replays by step key;
+      capturing; ``replays``, the replays by step key (all of these
+      count this solve only, also on graphs kept from earlier solves);
+    * ``reused``: whether the solve ran on a state and graphs kept from an
+      earlier solve of the same shape (``utils.graphs.StepCache``; then
+      no warm-up and no capture of the keys that solve ran);
     * ``reduced`` / ``reduced_ms``: the count and host ms of the
       ``reduced-solve`` spans (the host's wait for the matvec step the
       reduced solve reads is in them).
@@ -364,8 +368,8 @@ def _begin_solve(solver: str, route: str):
     rec = dict(solve=next(_SOLVE_IDS), solver=solver, route=route,
                dtype=None, iterations=0, flag_reads=0, reruns={}, passes={},
                warmups=0, warmup_ms=0.0, captures=0, capture_ms=0.0,
-               capture_s=0.0, pool_bytes=0, replays={}, reduced=0,
-               reduced_ms=0.0)
+               capture_s=0.0, pool_bytes=0, replays={}, reused=False,
+               reduced=0, reduced_ms=0.0)
     _SOLVES.append(rec)
     return rec
 
@@ -540,7 +544,11 @@ def compare_routes(run, device, reps: int = 5) -> dict:
     device in one more run of each: ``total``, ``iterations`` and the
     reads ``between`` two flag reads), ``reruns`` of the captured run and
     the ``digest`` of its flag history (:func:`flag_digest`).  Keys are
-    "graphs" and "eager"."""
+    "graphs" and "eager".  Where ``run`` calls a Davidson solver or ladder
+    with the same replayable callables each time, the captured route's
+    first run keeps its graphs (``utils.graphs.StepCache``) and the
+    later ones replay them: its warm walls and its host-read run then
+    hold no warm-up and no capture, as a caller's repeated solves do."""
     from .utils import graphs
     from .utils.graphs import kernel_counters
 

@@ -6,11 +6,37 @@ reference's ``_DavidsonState``; the expansion space in a ``(lda_pad, n)``
 buffer, ``lda = dim_dav*n_max`` plus one block of scatter padding, with
 the row count ``ldu`` and every other count a 0-d tensor on the device)
 and an iteration in steps that read nothing back (:class:`_Iteration`).
-On CUDA tensors each step is captured once a solve as a CUDA graph and
+On CUDA tensors each step is captured as a CUDA graph once per shape and
 replayed (``utils/graphs.py``, the counterpart of the reference's
 ``jit`` around ``lax.while_loop``); the host reads the device once an
 iteration, the packed flags after the last step, beside the reduced
-eigh's own check.  The ortho loops of a captured step run a fixed number
+eigh's own check.
+
+Once per shape: an unsharded solve on the captured route keeps its state
+and graphs (``utils.graphs.STEP_CACHE``) under a key of everything the
+captured steps bind: the solver ("davidson" or "gen_david"), the
+``matvec``, ``precnd`` and ``bvec`` callables (held weakly: the cache
+keeps no operator alive, and an entry goes when one of them is
+collected), ``n``, the dtype and device, the options, the float32 stage's
+stall watch, the route and the pass budgets.  The next solve with that
+key resets the state in place (:meth:`_Iteration.start`: every buffer a
+step reads before writing gets a fresh state's values, so the bits are a
+fresh state's) and replays the graphs, with no warm-up and no capture.
+A replay reads what the callables read when they were captured, so only
+callables marked ``utils.graphs.replayable`` are keyed: those of the
+port's operator constructors (``problems.dense_matvec``,
+``diag_precnd``, the ``ops`` matvecs), which read fixed tensors.  Any
+other callable, a bound method over an attribute that the caller may
+rebind for one, is captured anew each solve.  At most
+``utils.graphs.STEP_CACHE_SIZE`` entries a device.  The two stages of one
+ladder call keep their (rows, n) buffers in one arena
+(``utils.graphs.Arena``), sized for the float64 stage, so keeping both
+costs no more device memory than the float64 stage alone; a solve
+outside a ladder keeps buffers of its own.  The returned tensors are
+copies, never the kept state's.  The private "unrolled" route keeps its
+state the same way (with no graphs);
+the "eager" route and every sharded solve make a new state and new graphs
+each solve.  The ortho loops of a captured step run a fixed number
 of masked passes (``_UNROLL``); when they needed more, or the QR
 fallback, or the SVD rescue, the step is run again uncaptured from its
 intact inputs (a rare-branch rerun), which gives the loops' own result.
@@ -70,7 +96,14 @@ import torch
 from ..ortho.core import _b_ortho, _b_ortho_vs_x, _ortho_vs_x, b_ortho
 from ..reporting import inflight_progress
 from ..types import SolverOptions, SolverResult
-from ..utils.graphs import StepLoop, StepState, _budgets, _route
+from ..utils.graphs import (
+    STEP_CACHE,
+    Arena,
+    StepLoop,
+    StepState,
+    _budgets,
+    _route,
+)
 # the private switch of utils.graphs stays importable from here too
 from ..utils.graphs import _UNROLL, _read_flags, _recording  # noqa: F401
 from ..utils.guess import check_guess
@@ -115,7 +148,14 @@ def davidson(matvec, precnd, evec_guess: torch.Tensor,
         shards.
 
     Returns a SolverResult; ``eig``/``evec`` hold the n_max Ritz pairs
-    (shift removed from eig).
+    (shift removed from eig), tensors of the caller's own.
+
+    Called again with the same ``matvec`` and ``precnd`` objects, ``n``,
+    dtype, device and options (unsharded, on CUDA tensors), a solve
+    replays the graphs of the last such solve instead of capturing anew,
+    when both callables are marked ``utils.graphs.replayable``, as the
+    port's operator constructors mark theirs: a replay reads the tensors
+    the callables read when they were captured (the module docstring).
     """
     with routing_for(options, "davidson"), mm_sharding(sharding):
         return _davidson_impl(matvec, precnd, None, evec_guess, options,
@@ -131,6 +171,8 @@ def gen_david(matvec, precnd, bvec, evec_guess: torch.Tensor,
 
     ``bvec`` applies the SPD metric B to a row block; the other arguments
     are :func:`davidson`'s.  The returned eigenvectors are B-orthonormal.
+    Its graphs are kept for the next solve as :func:`davidson`'s, when
+    ``bvec`` is marked ``replayable`` too.
     """
     with routing_for(options, "gen_david"), mm_sharding(sharding):
         return _davidson_impl(matvec, precnd, bvec, evec_guess, options,
@@ -178,10 +220,15 @@ class _Iteration(StepState):
     """
 
     BODIES = {"expand": "_expand_ortho", "restart": "_restart_body"}
+    CALLABLES = ("matvec_fn", "precnd", "bvec")
+    # the counts, 0-d int64 tensors; step 3's inputs ldu_new3, n_frozen3
+    COUNTS = ("it", "ldu", "n_act", "n_rst", "ldu_new", "n_frozen",
+              "ldu_new3", "n_frozen3")
 
     def __init__(self, matvec, precnd, bvec, guess, bguess, ortho_ok,
-                 options, sqrtn, budgets, watch=False):
-        self.matvec_fn, self.precnd, self.bvec = matvec, precnd, bvec
+                 options, sqrtn, budgets, watch=False, arena=None):
+        """Allocate the state (its (rows, n) buffers in ``arena`` when
+        given, see :meth:`wide`) and :meth:`start` a solve on it."""
         self.options, self.sqrtn = options, sqrtn
         n_max = self.n_max = options.n_max
         self.n_targ = options.n_targ
@@ -191,50 +238,70 @@ class _Iteration(StepState):
         dtype, dev = guess.dtype, guess.device
         gen = bvec is not None
 
-        def zeros(*shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=dev)
-
-        def full(value, *shape, dt=dtype):
-            return torch.full(shape, value, dtype=dt, device=dev)
+        def empty(*shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=dev)
 
         self.rows = torch.arange(n_max, device=dev)
         self.rows_pad = torch.arange(lda_pad, device=dev)
         self.targ = self.rows < self.n_targ
-        self.space = scatter_rows(zeros(lda_pad, n), guess, 0)
-        self.aspace = zeros(lda_pad, n)
-        self.bspace = (scatter_rows(zeros(lda_pad, n), bguess, 0) if gen
-                       else None)
-        self.a_red = zeros(lda_pad, lda_pad)
-        self.sym = zeros(lda_pad, lda_pad)
-        self.e_red = zeros(lda_pad)
-        self.c_full = zeros(lda_pad, lda_pad)
-        self.eig = zeros(n_max)
-        self.evec = zeros(n_max, n)
-        self.metric_evec = zeros(n_max, n) if gen else None
-        self.r = zeros(n_max, n)
-        self.done = zeros(n_max, dt=torch.bool)
-        self.rms = full(math.inf, n_max)
-        self.rmx = full(math.inf, n_max)
-        self.eig_h = zeros(max_iter, n_max)
-        self.rms_h = full(math.inf, max_iter, n_max)
-        self.max_h = full(math.inf, max_iter, n_max)
+        names, shapes = self.wide(options, n, gen)
+        self.arena = arena          # held: a ladder's two states share it
+        wide = (arena.buffers(shapes, dtype) if arena is not None
+                else [empty(*shape) for shape in shapes])
+        self.bspace = self.metric_evec = self.evec3 = self.metric_evec3 = None
+        for name, buf in zip(names, wide):
+            setattr(self, name, buf)
+        self.a_red = empty(lda_pad, lda_pad)
+        self.sym = empty(lda_pad, lda_pad)
+        self.e_red = empty(lda_pad)
+        self.c_full = empty(lda_pad, lda_pad)
+        self.eig = empty(n_max)
+        self.done = empty(n_max, dt=torch.bool)
+        self.rms = empty(n_max)
+        self.rmx = empty(n_max)
+        self.eig_h = empty(max_iter, n_max)
+        self.rms_h = empty(max_iter, n_max)
+        self.max_h = empty(max_iter, n_max)
         self.watch = watch
         self.iters = torch.arange(max_iter, device=dev) if watch else None
-        i64 = torch.int64
-        self.it = zeros(dt=i64)
-        self.ldu = zeros(dt=i64)
-        self.n_act = full(n_max, dt=i64)
-        self.n_rst = zeros(dt=i64)
-        self.ldu_new = zeros(dt=i64)
-        self.n_frozen = zeros(dt=i64)
-        # step 3's inputs, kept for rerun
-        self.pre = zeros(n_max, n)
-        self.ldu_new3 = zeros(dt=i64)
-        self.n_frozen3 = zeros(dt=i64)
-        self.eig3 = zeros(n_max)
-        self.evec3 = zeros(n_max, n) if gen else None
-        self.metric_evec3 = zeros(n_max, n) if gen else None
-        self._init_steps(ortho_ok, budgets, dev)
+        for name in self.COUNTS:
+            setattr(self, name, empty(dt=torch.int64))
+        # step 3's inputs, kept for rerun, beside the wide pre and (on the
+        # generalized path) evec3 and metric_evec3
+        self.eig3 = empty(n_max)
+        self._alloc_steps(budgets, dev)
+        self.start(matvec, precnd, bvec, guess, bguess, ortho_ok)
+
+    @staticmethod
+    def wide(options, n: int, gen: bool):
+        """The names and shapes of a state's (rows, n) buffers, the ones an
+        arena holds: (lda_pad, n), then (n_max, n)."""
+        n_max = options.n_max
+        tall = ["space", "aspace"] + ["bspace"] * gen
+        short = ["evec", "r", "pre"] + [
+            "metric_evec", "evec3", "metric_evec3"] * gen
+        return tall + short, ([(options.dim_dav * n_max + n_max, n)]
+                              * len(tall) + [(n_max, n)] * len(short))
+
+    def start(self, matvec, precnd, bvec, guess, bguess, ortho_ok):
+        """Write a solve's starting values into the state: the callables,
+        the guess (and B times it) at the head of the space, and every
+        buffer a step reads before writing as a new state has it."""
+        self.matvec_fn, self.precnd, self.bvec = matvec, precnd, bvec
+        for buf in (self.space, self.aspace, self.bspace, self.a_red,
+                    self.sym, self.e_red, self.c_full, self.eig, self.evec,
+                    self.metric_evec, self.r, self.done, self.eig_h,
+                    self.pre, self.eig3, self.evec3, self.metric_evec3,
+                    *(getattr(self, name) for name in self.COUNTS)):
+            if buf is not None:
+                buf.zero_()
+        scatter_rows(self.space, guess, 0)
+        if bvec is not None:
+            scatter_rows(self.bspace, bguess, 0)
+        for buf in (self.rms, self.rmx, self.rms_h, self.max_h):
+            buf.fill_(math.inf)
+        self.n_act.fill_(self.n_max)
+        self._start_steps(ortho_ok)
 
     # ---- step 1 ----
     def matvec(self):
@@ -402,9 +469,28 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
     bguess, ortho_ok = None, True
     if gen_eig:
         guess, bguess, ortho_ok = b_ortho(guess, bvec(guess))
-    st = _Iteration(matvec, precnd, bvec, guess, bguess, ortho_ok, options,
-                    math.sqrt(global_n(n, sharding)), _budgets(route), watch)
-    loop = StepLoop("davidson", st, dev, route, _SCOPES)
+    budgets = _budgets(route)
+    # the state and graphs of the last solve of this shape (the module
+    # docstring), unsharded and not on the eager route; else new ones
+    key = None if sharding is not None or route == "eager" else \
+        STEP_CACHE.key("gen_david" if gen_eig else "davidson",
+                       (matvec, precnd, bvec), n, guess.dtype, dev, options,
+                       watch, route, budgets)
+    st, graphs = STEP_CACHE.take(key, dev)
+    if st is not None:
+        st.start(matvec, precnd, bvec, guess, bguess, ortho_ok)
+    else:
+        # inside a ladder call its two stages share one arena, sized for
+        # the float64 stage; else the state's buffers are its own
+        arena = None if key is None else Arena.of_ladder(
+            Arena.nbytes(_Iteration.wide(options, n, gen_eig)[1],
+                         torch.float64.itemsize), dev)
+        st = _Iteration(matvec, precnd, bvec, guess, bguess, ortho_ok,
+                        options, math.sqrt(global_n(n, sharding)), budgets,
+                        watch, arena)
+    if st.arena is not None:
+        st.arena.busy = True        # until STEP_CACHE.put
+    loop = StepLoop("davidson", st, dev, route, _SCOPES, graphs)
 
     # the host's copies of the counts it needs: the reduced block's size
     # and the matvec count (ldu, n_act) and the branch (m_dim)
@@ -428,18 +514,21 @@ def _davidson_impl(matvec, precnd, bvec, evec_guess, options, generator,
             it += 1
         ortho_ok = loop.close()
     loop.record(it, st.eig.dtype, options.verbose)
-    return SolverResult(
+    # copies: the state serves the next solve
+    res = SolverResult(
         eig=st.eig - options.shift,
-        evec=st.evec,
+        evec=st.evec.clone(),
         ok=ok,
         n_iter=it,
         n_matvec=n_matvec,
-        done=st.done,
-        rms_history=st.rms_h,
-        max_history=st.max_h,
-        eig_history=st.eig_h,
+        done=st.done.clone(),
+        rms_history=st.rms_h.clone(),
+        max_history=st.max_h.clone(),
+        eig_history=st.eig_h.clone(),
         ortho_ok=ortho_ok,
     )
+    STEP_CACHE.put(key, dev, st, loop.graphs)
+    return res
 
 
 # the profiler scope of each step (the restart has none)

@@ -19,7 +19,10 @@
 The result is the float64 stage's, with both stages' iteration and matvec
 counts added up.  On CUDA tensors each Davidson stage (``davidson_ladder``,
 ``gen_david_ladder``) runs its iteration as replayed CUDA graphs, each
-stage capturing its own (``solvers/davidson.py``).
+stage capturing its own once per shape: called again with the same
+callables (marked ``utils.graphs.replayable``), a ladder replays both
+stages' graphs over their kept state, the two stages' buffers in one
+arena made by the call that kept them (``solvers/davidson.py``).
 
 ``sharding=`` (a :class:`~diaglib_tpu_torch.parallel.VectorSharding`) is
 passed to both stages: the guess, the callbacks' blocks and the result's
@@ -40,6 +43,7 @@ from ..types import (
     SolverOptions,
     SolverResult,
 )
+from ..utils.graphs import Arena
 from .caslr import caslr, caslr_eff
 from .davidson import _float32_stage, davidson, gen_david
 from .lobpcg import lobpcg
@@ -99,11 +103,15 @@ def davidson_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
     residuals stop falling instead (the module docstring), and the
     float64 stage starts from there.  Returns the float64 stage's
     :class:`SolverResult` with iteration/matvec counts accumulated over
-    both stages.
+    both stages.  Called again with the same callables, each stage
+    replays its kept graphs as :func:`davidson` does, under the same
+    condition: every callable marked ``utils.graphs.replayable``.
     """
-    return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi, precnd_hi,
-                      evec_guess, options, lo_tol, lo_iter, generator,
-                      sharding=sharding, lo_solver=_float32_stage)
+    with Arena.ladder():
+        return _two_stage(davidson, matvec_lo, precnd_lo, matvec_hi,
+                          precnd_hi, evec_guess, options, lo_tol, lo_iter,
+                          generator, sharding=sharding,
+                          lo_solver=_float32_stage)
 
 
 def lobpcg_ladder(matvec_lo, precnd_lo, matvec_hi, precnd_hi,
@@ -130,12 +138,17 @@ def gen_david_ladder(matvec_lo, precnd_lo, bvec_lo, matvec_hi, precnd_hi,
     basis's metric errors do not reach the float64 result.  The float32
     stage ends on ``lo_tol``, ``lo_iter`` or a stall, as
     :func:`davidson_ladder`'s.  The result is the float64 stage's with
-    both stages' counts added up."""
-    lo = _float32_stage(matvec_lo, precnd_lo, evec_guess.to(torch.float32),
-                        _lo_options(options, lo_tol, lo_iter), bvec=bvec_lo,
-                        generator=generator, sharding=sharding)
-    hi = gen_david(matvec_hi, precnd_hi, bvec_hi, lo.evec.to(torch.float64),
-                   options, generator=generator, sharding=sharding)
+    both stages' counts added up.  Its graphs are kept for the next call
+    as :func:`davidson_ladder`'s."""
+    with Arena.ladder():
+        lo = _float32_stage(matvec_lo, precnd_lo,
+                            evec_guess.to(torch.float32),
+                            _lo_options(options, lo_tol, lo_iter),
+                            bvec=bvec_lo, generator=generator,
+                            sharding=sharding)
+        hi = gen_david(matvec_hi, precnd_hi, bvec_hi,
+                       lo.evec.to(torch.float64), options,
+                       generator=generator, sharding=sharding)
     return dataclasses.replace(hi, n_iter=lo.n_iter + hi.n_iter,
                                n_matvec=lo.n_matvec + hi.n_matvec)
 

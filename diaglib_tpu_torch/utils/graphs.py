@@ -8,14 +8,17 @@ eagerly, so the iterations of ``davidson`` / ``gen_david``
 (``solvers/davidson.py``), ``lobpcg`` (``solvers/lobpcg.py``),
 ``caslr`` / ``caslr_eff`` (``solvers/caslr.py``) and each pass of
 ``nonsym`` (``solvers/nonsym.py``) are cut into steps over
-fixed buffers, each step is captured once per solve as a CUDA graph and
-then replayed: one launch a step instead of a few hundred, and no read of
-the device inside a step.  A ``sharding=`` solve over an NCCL group is
-captured the same way, on every rank: the steps' all-reduces, all-gathers
-and ring permutes run inside the graphs, as the reference's collectives
-run inside its compiled loop.
+fixed buffers, each step is captured as a CUDA graph and then replayed:
+one launch a step instead of a few hundred, and no read of the device
+inside a step.  The Davidson family (``davidson``, ``gen_david`` and
+their ladders' stages) captures once per shape: its state and graphs are
+kept for the next solve of the same shape (:class:`StepCache`).  The
+other solvers, and every sharded solve, capture once per solve.  A
+``sharding=`` solve over an NCCL group is captured the same way, on every
+rank: the steps' all-reduces, all-gathers and ring permutes run inside
+the graphs, as the reference's collectives run inside its compiled loop.
 
-:class:`StepGraphs` holds one solve's graphs, one a step key (the caller
+:class:`StepGraphs` holds a state's graphs, one a step key (the caller
 puts the step, the dtype and the branch into it):
 
 * the first call of a key runs the step uncaptured on the capture stream
@@ -75,7 +78,23 @@ The solvers share the rest of the machinery here:
   run again);
 * the private route switch :class:`_recording` (the route and the pass
   budgets), the counted flag read :func:`_read_flags` and the route
-  choice :func:`_route`.
+  choice :func:`_route`;
+* :class:`StepCache` (:data:`STEP_CACHE`), the states and graphs kept
+  from one solve to the next of the same shape: a solve that passes a
+  key (:meth:`StepCache.key`: the solver, its callables, held weakly, and
+  everything else its captured steps bind) takes the state and graphs of
+  the last solve with that key, resets the state in place and replays the
+  graphs, with no warm-up and no capture.  Only callables marked
+  :func:`replayable` are keyed: a replay reads the tensors and numbers a
+  callable read when it was captured, so a callable that reads anything
+  else at call time (a bound method over an attribute the caller
+  rebinds, say) is captured anew each solve.  The port's operator
+  constructors mark the closures they return.  At most
+  :data:`STEP_CACHE_SIZE` entries a device, the least recently used
+  dropped first; an entry goes with its graphs, pool and buffers when one
+  of its callables is collected, so the cache keeps no caller's operator
+  alive.  The two stages of one ladder call can share their buffers
+  (:class:`Arena`).
 
 The step loop's host work is measured where it happens, through
 ``profiling``'s one span helper (a ``record_function`` under a running
@@ -91,8 +110,12 @@ the fields are ``profiling.SolveLog``'s).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
+import math
 import time
+import weakref
 
 import torch
 
@@ -100,8 +123,9 @@ from .. import profiling
 from ..ortho.core import eager_passes, unrolled
 from .mm import current_sharding
 
-__all__ = ["StepGraphs", "StepState", "StepLoop", "GraphCaptureError",
-           "kernel_counters"]
+__all__ = ["StepGraphs", "StepState", "StepLoop", "StepCache", "Arena",
+           "GraphCaptureError", "kernel_counters", "replayable",
+           "STEP_CACHE", "STEP_CACHE_SIZE"]
 
 
 class GraphCaptureError(RuntimeError):
@@ -138,16 +162,17 @@ def _capture_stream(device: torch.device):
 
 
 class StepGraphs:
-    """One solve's CUDA graphs, made once and replayed (see the module
+    """A state's CUDA graphs, made once and replayed (see the module
     docstring), or, with ``capture`` false, none.  Use as a context around
-    the solve's loop; ``run(key, fn)`` runs the step ``fn`` (no arguments,
+    a solve's loop; ``run(key, fn)`` runs the step ``fn`` (no arguments,
     results written into buffers that outlive the solve's loop).
     ``sharding`` is the solve's (NCCL) sharding, whose collectives the
     steps post, or None.
 
-    ``capture_s`` is the host time spent capturing, ``pool_bytes`` the
-    device memory the graphs' shared pool reserved while capturing,
-    ``replays`` the replays by key."""
+    The current solve's counts (:meth:`new_solve` starts them):
+    ``capture_s``, the host time spent capturing, ``pool_bytes``, the
+    device memory the graphs' shared pool reserved while capturing, and
+    ``replays``, the replays by key."""
 
     def __init__(self, device: torch.device, capture: bool = True,
                  sharding=None):
@@ -162,10 +187,14 @@ class StepGraphs:
         self.launches: dict = {}
         self.posted: dict = {}      # the collectives a key's capture posted
         self.kept: dict = {}        # the tensors its ring permutes use
+        self._pool = None
+        self.new_solve()
+
+    def new_solve(self):
+        """Start the counts of a solve (kept graphs serve many)."""
         self.replays: dict = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
-        self._pool = None
 
     def __enter__(self):
         if self.capture:
@@ -332,35 +361,59 @@ def _budgets(route: str):
 class StepState:
     """The part of a solve's fixed device state that every solver's steps
     keep alike.  A subclass allocates its buffers, then calls
-    :meth:`_init_steps`; its ritz step calls :meth:`keep_ritz` first and
+    :meth:`_init_steps` (or :meth:`_alloc_steps`, and
+    :meth:`_start_steps` at the start of each solve when the state is
+    kept for the next); its ritz step calls :meth:`keep_ritz` first and
     :meth:`pack_flags` last; each branch step keeps its inputs and runs
     its body inside :meth:`_ortho`, then calls :meth:`_close`.
     ``BODIES`` maps each branch to the method that runs it from the kept
-    inputs, which :meth:`rerun` calls with the eager loops."""
+    inputs, which :meth:`rerun` calls with the eager loops.
+    ``CALLABLES`` names the attributes that hold the solve's callables,
+    which :meth:`release` drops when the state is kept between solves."""
 
     # what a ritz step changes and the steps read back, put back by
     # undo_ritz before an iteration is run again
     RITZ_KEPT = ("done", "rms", "rmx", "eig", "it")
     BODIES: dict = {}
+    CALLABLES: tuple = ()
 
     def _init_steps(self, ortho_ok, budgets, device):
+        self._alloc_steps(budgets, device)
+        self._start_steps(ortho_ok)
+
+    def _alloc_steps(self, budgets, device):
         self.budgets = budgets
-        self.passes = eager_passes()
         i64 = torch.int64
-        self.ortho_ok0 = bool(ortho_ok)     # the prologue's, on the host
-        self.ortho_ok = torch.full((), self.ortho_ok0, dtype=torch.bool,
-                                   device=device)
-        self.ok = torch.zeros((), dtype=torch.bool, device=device)
-        self.flags = torch.zeros(5, dtype=i64, device=device)
+        self.ortho_ok = torch.empty((), dtype=torch.bool, device=device)
+        self.ok = torch.empty((), dtype=torch.bool, device=device)
+        self.flags = torch.empty(5, dtype=i64, device=device)
         # whether the residuals stopped falling: set by a ritz step that
         # watches them (a ladder's float32 Davidson stage), else False
-        self.stall = torch.zeros((), dtype=torch.bool, device=device)
+        self.stall = torch.empty((), dtype=torch.bool, device=device)
         # the last branch step's outcome: whether its loops finished, and
         # ortho_ok before it (for a rerun)
-        self.finished3 = torch.ones((), dtype=torch.bool, device=device)
-        self.ortho_ok3 = torch.zeros((), dtype=torch.bool, device=device)
+        self.finished3 = torch.empty((), dtype=torch.bool, device=device)
+        self.ortho_ok3 = torch.empty((), dtype=torch.bool, device=device)
         self.kept = {name: torch.empty_like(getattr(self, name))
                      for name in self.RITZ_KEPT}
+
+    def _start_steps(self, ortho_ok):
+        """A solve's starting values of what :meth:`_alloc_steps` made."""
+        self.passes = eager_passes()
+        self.ortho_ok0 = bool(ortho_ok)     # the prologue's, on the host
+        self.ortho_ok.fill_(self.ortho_ok0)
+        self.ok.zero_()
+        self.flags.zero_()
+        self.stall.zero_()
+        self.finished3.fill_(True)
+        self.ortho_ok3.zero_()
+        for kept in self.kept.values():
+            kept.zero_()
+
+    def release(self):
+        """Drop the solve's callables (the state is kept for the next)."""
+        for name in self.CALLABLES:
+            setattr(self, name, None)
 
     def keep_ritz(self):
         for name, kept in self.kept.items():
@@ -405,7 +458,9 @@ class StepState:
 class StepLoop:
     """The host side of a solve run in steps over a :class:`StepState`
     ``st``, on ``route`` ("graphs" captures each step once and replays
-    it); use as a context around the loop.
+    it); use as a context around the loop.  ``graphs``: the
+    :class:`StepGraphs` kept with ``st`` from an earlier solve (the
+    record's ``reused``), or None for new ones.
 
     :meth:`iterate` runs the first step (``st.matvec``), the reduced solve
     between the steps (its argument, uncaptured) and the ritz step
@@ -417,10 +472,16 @@ class StepLoop:
     names the phase scope of each step (None: no scope).  ``ok`` and
     ``stalled`` are the last iteration's converged and stall bits."""
 
-    def __init__(self, name, st, device, route, scopes):
+    def __init__(self, name, st, device, route, scopes, graphs=None):
         self.name, self.st, self.route, self.scopes = name, st, route, scopes
-        self.graphs = StepGraphs(device, capture=route == "graphs",
-                                 sharding=current_sharding())
+        # graphs kept with st from an earlier solve (StepCache), else new
+        self.reused = graphs is not None
+        if graphs is None:
+            graphs = StepGraphs(device, capture=route == "graphs",
+                                sharding=current_sharding())
+        else:
+            graphs.new_solve()
+        self.graphs = graphs
         self.reads0 = _read_flags.count
         self.flag_history = []      # every flag read, as the host saw it
         self.reruns = dict.fromkeys(st.BODIES, 0)
@@ -515,10 +576,176 @@ class StepLoop:
                        reruns=dict(self.reruns),
                        passes=dict(self.st.passes.most),
                        capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                       replays=dict(g.replays))
+                       replays=dict(g.replays), reused=self.reused)
             profiling._file(rec, self.flag_history)
         if verbose:
             print(f"{self.name} route={self.route} iterations={iterations} "
                   f"end={end} rare-branch reruns {self.reruns} eager ortho "
                   f"passes at most {dict(self.st.passes.most)} graph capture "
                   f"{g.capture_s:.3f} s", flush=True)
+
+
+# ---- the states and graphs kept from one solve to the next ----
+
+# the most entries (a state and its graphs) the cache keeps a device: a
+# Davidson ladder of one shape takes two, one a stage
+STEP_CACHE_SIZE = 4
+
+# the callables marked by replayable
+_REPLAYABLE = weakref.WeakSet()
+
+
+def replayable(fn):
+    """Mark ``fn``, a function that reads only tensors and numbers fixed
+    when it was made, as one whose captured steps a later solve may
+    replay (:class:`StepCache`); returns ``fn``.  A replay reads the
+    device memory and the numbers the capture saw: a tensor changed in
+    place is read anew, a tensor or number rebound is not.  The port's
+    operator constructors (``problems.dense_matvec``, ``diag_precnd``,
+    the ``ops`` matvecs) mark the closures they return; any other
+    callable is captured anew each solve."""
+    _REPLAYABLE.add(fn)
+    return fn
+
+
+def _marked(fn) -> bool:
+    try:
+        return fn in _REPLAYABLE
+    except TypeError:           # no hash
+        return False
+
+
+class StepCache:
+    """The step states and their :class:`StepGraphs` kept from one solve
+    to the next (the module docstring): ``take`` the entry of a key before
+    a solve, ``put`` it back after.  A solve runs on the entry it took, so
+    one that fails takes its entry with it.  ``size`` entries a device at
+    most, the least recently used dropped first.  :meth:`clear` frees
+    them all."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._devices: dict = {}    # device -> OrderedDict(key -> entry)
+
+    def key(self, solver: str, callables, *fixed):
+        """The key of a solve by ``solver`` with ``callables`` (None where
+        the solve has none), and ``fixed``: everything else its captured
+        steps bind (dict values are frozen).  The callables are held
+        weakly; their collection drops every entry keyed by them.  None
+        (nothing kept) when a callable is not marked :func:`replayable`
+        or the key cannot be hashed."""
+        if not all(fn is None or _marked(fn) for fn in callables):
+            return None
+        refs = tuple(fn if fn is None else weakref.ref(fn, self._drop_dead)
+                     for fn in callables)
+        key = (solver, refs) + tuple(
+            tuple(sorted(v.items())) if isinstance(v, dict) else v
+            for v in fixed)
+        try:
+            hash(key)
+        except TypeError:
+            return None
+        return key
+
+    def take(self, key, device):
+        """(state, graphs) kept under ``key`` on ``device``, taken out of
+        the cache; (None, None) on a miss, with no key, or while another
+        solve runs on a state of the entry's arena."""
+        entries = self._devices.get(torch.device(device))
+        entry = None if key is None or entries is None else entries.get(key)
+        arena = None if entry is None else getattr(entry[0], "arena", None)
+        if entry is None or (arena is not None and arena.busy):
+            return None, None
+        del entries[key]
+        return entry
+
+    def put(self, key, device, state, graphs):
+        """Keep ``state`` (its callables released, its arena free) and
+        ``graphs`` under ``key`` (None: keep nothing), as the most recently
+        used entry."""
+        if key is None:
+            return
+        state.release()
+        if getattr(state, "arena", None) is not None:
+            state.arena.busy = False
+        entries = self._devices.setdefault(torch.device(device),
+                                           collections.OrderedDict())
+        entries[key] = (state, graphs)
+        while len(entries) > self.size:
+            entries.popitem(last=False)
+
+    def __len__(self):
+        return sum(len(e) for e in self._devices.values())
+
+    def clear(self):
+        self._devices.clear()
+
+    def _drop_dead(self, _ref=None):
+        for entries in self._devices.values():
+            for key in [k for k in list(entries)
+                        if any(r is not None and r() is None for r in k[1])]:
+                entries.pop(key, None)
+
+
+STEP_CACHE = StepCache(STEP_CACHE_SIZE)
+
+
+class Arena:
+    """Device bytes that the buffers of the two step states made by one
+    ladder call share (:meth:`ladder`): its stages run one after the
+    other, each writing every buffer its steps read before they read it.
+    ``busy`` while a solve runs on a state in the arena, from the solver's
+    taking the state until :meth:`StepCache.put`: the cache hands out no
+    other state of the arena meanwhile (a solve run from inside another,
+    or on another thread, makes its own state).  A solve that fails
+    leaves its arena busy, so the other stage's state is made anew."""
+
+    ALIGN = 512         # each buffer starts on a multiple of it
+
+    # the arena of the ladder call running, in a one-item list, or None
+    _LADDER = contextvars.ContextVar("ladder_arena", default=None)
+
+    def __init__(self, nbytes: int, device):
+        self.bytes = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.busy = False
+
+    @classmethod
+    def nbytes(cls, shapes, itemsize: int) -> int:
+        """Bytes that buffers of ``shapes`` take at ``itemsize``."""
+        return sum(cls._aligned(math.prod(s) * itemsize) for s in shapes)
+
+    @classmethod
+    def _aligned(cls, nbytes: int) -> int:
+        return -(-nbytes // cls.ALIGN) * cls.ALIGN
+
+    @classmethod
+    @contextlib.contextmanager
+    def ladder(cls):
+        """Around one ladder call: the states its stages make share the
+        arena that :meth:`of_ladder` makes for the first of them."""
+        token = cls._LADDER.set([None])
+        try:
+            yield
+        finally:
+            cls._LADDER.reset(token)
+
+    @classmethod
+    def of_ladder(cls, nbytes: int, device):
+        """The arena of the running ladder call, of ``nbytes`` at least
+        (a new one when the call has none that large); None outside a
+        ladder call."""
+        slot = cls._LADDER.get()
+        if slot is None:
+            return None
+        if slot[0] is None or slot[0].bytes.numel() < nbytes:
+            slot[0] = cls(nbytes, device)
+        return slot[0]
+
+    def buffers(self, shapes, dtype) -> list:
+        """Uninitialized buffers of ``shapes`` in ``dtype``, in order."""
+        out, at = [], 0
+        for shape in shapes:
+            nbytes = math.prod(shape) * dtype.itemsize
+            out.append(self.bytes[at:at + nbytes].view(dtype).view(shape))
+            at += self._aligned(nbytes)
+        return out

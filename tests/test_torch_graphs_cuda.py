@@ -15,9 +15,17 @@ The flagship ladder (random_bsr_spd(65536, 512, 8), its symmetric store,
 uncaptured in one process gives the same bits in every returned tensor and
 the same counts: both routes run the same arithmetic (an unrolled ortho
 pass past its loop's end is masked out, and launches K3 all the same).
+A second captured ladder on the same callables runs on the state and
+graphs the first kept (``utils.graphs.StepCache``): no warm-up, no
+capture, the first one's bits; over 20 back-to-back ladders on the same
+callables the reserved device memory stays within 1 % of the second's,
+over the symmetric store and over the plain-BSR route (K4, then the
+float64 segment product, at n = 8192).
 On the upstream test matrix (symm_matrix(8192), dense) the ladder's
 float32 stage ends by its stall bit at the same iteration on the captured,
-unrolled and eager routes.
+unrolled and eager routes; a bound-method operator whose matrix is
+rebound between two solves is captured anew each solve, and the second
+solve finds the new matrix's eigenvalues.
 The same holds for the flagship's lobpcg_ladder (lo_iter 70), and for
 caslr_eff_ladder and caslr_ladder algorithm 0 on bsr_casida_tdscf(65536,
 512, 4) (lo_iter 60, a zero (15, 131072) paired guess), and for the
@@ -33,6 +41,7 @@ solve raises instead of running uncaptured, sharded or not (last: a
 failed capture leaves the process as it was, but is run after the rest).
 """
 
+import dataclasses
 import importlib
 
 import pytest
@@ -53,7 +62,12 @@ from diaglib_tpu_torch import (
 from diaglib_tpu_torch.ops import bsr_sliced as bs
 from diaglib_tpu_torch.ops import bsr_sliced_sym as sym
 from diaglib_tpu_torch.ops import dist_sliced as dsl
-from diaglib_tpu_torch.ops.bsr import BSRMatrix, bsr_matvec, random_bsr_spd
+from diaglib_tpu_torch.ops.bsr import (
+    BSRMatrix,
+    bsr_diagonal,
+    bsr_matvec,
+    random_bsr_spd,
+)
 from diaglib_tpu_torch.ops.bsr import row_slots
 from diaglib_tpu_torch.ops.dist_bsr import _segment_spmm
 from diaglib_tpu_torch.problems import (
@@ -203,6 +217,80 @@ def test_captured_solve_records_one_capture_a_step_key(flagship,
         assert all(a[1] <= b[0] for a, b in zip(leaf, leaf[1:]))
 
 
+def _kept_ladder(mv_lo, pc_lo, mv_hi, pc_hi, n, lo_iter=35):
+    """``run(generator)`` of a davidson_ladder over fixed callables, from
+    a random start of width ``n``."""
+    guess = torch.zeros((15, n), dtype=torch.float64, device="cuda")
+    opts = SolverOptions(**OPTS)
+    return lambda gen: davidson_ladder(mv_lo, pc_lo, mv_hi, pc_hi, guess,
+                                       opts, lo_tol=2e-6, lo_iter=lo_iter,
+                                       generator=gen)
+
+
+def _store_ops(store):
+    f32 = torch.float32
+    return (sym.sym_sliced_matvec(store, dtype=f32),
+            diag_precnd(store.diagonal.to(f32)), sym.sym_sliced_matvec(store),
+            diag_precnd(store.diagonal))
+
+
+def test_kept_ladder_replays_with_no_capture(flagship):
+    """The second ladder on the same callables reuses both stages' states
+    and graphs: no warm-up, no capture, no pool reserved, only replays;
+    every returned tensor bit-equal to the first, freshly captured one
+    from the same start."""
+    _, store = flagship
+    graphs.STEP_CACHE.clear()
+    run = _kept_ladder(*_store_ops(store), N)
+    first, f_solves, f_launches = _counted(run, None)
+    second, s_solves, s_launches = _counted(run, None)
+    assert [s["reused"] for s in f_solves] == [False, False]
+    assert [s["reused"] for s in s_solves] == [True, True]
+    assert first.ok and second.ok
+    assert (second.n_iter, second.n_matvec, second.ortho_ok) == \
+        (first.n_iter, first.n_matvec, first.ortho_ok)
+    for f in FIELDS:
+        assert torch.equal(getattr(second, f), getattr(first, f)), f
+    for f, s in zip(f_solves, s_solves):
+        assert f["warmups"] == f["captures"] > 0
+        assert (s["warmups"], s["captures"], s["capture_s"],
+                s["pool_bytes"]) == (0, 0, 0.0, 0)
+        assert s["iterations"] == f["iterations"]
+        assert sum(s["replays"].values()) == \
+            sum(f["replays"].values()) + f["captures"]
+    # a replay counts what its capture launched
+    assert s_launches == f_launches
+
+
+@pytest.mark.parametrize("route", ["sliced", "bsr"])
+def test_back_to_back_ladders_hold_reserved_memory(flagship, route):
+    """20 ladders on one set of callables: the reserved device memory
+    after the 20th lies within 1 % of the 2nd's (the plain-BSR route grew
+    0.79 GiB a solve when every solve captured anew)."""
+    if route == "sliced":
+        n, ops = N, _store_ops(flagship[1])
+    else:
+        n = 8192
+        m64 = random_bsr_spd(n, B, BPR, seed=0, dtype=torch.float64,
+                             device="cuda")
+        m32 = dataclasses.replace(m64, blocks_t=m64.blocks_t.float())
+        d = bsr_diagonal(m64)
+        ops = (bsr_matvec(m32), diag_precnd(d.float()), bsr_matvec(m64),
+               diag_precnd(d))
+    graphs.STEP_CACHE.clear()
+    run = _kept_ladder(*ops, n)
+    reserved = []
+    for i in range(20):
+        res = run(torch.Generator(device="cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        assert res.ok
+        reserved.append(torch.cuda.memory_reserved())
+    print(f"[reserved] {route} n={n}: after solve 2 {reserved[1]} B, "
+          f"after solve 20 {reserved[-1]} B, "
+          f"{(reserved[-1] - reserved[1]) / reserved[1]:+.4%}")
+    assert abs(reserved[-1] - reserved[1]) <= 0.01 * reserved[1]
+
+
 @pytest.fixture(scope="module")
 def hilbert(dev):
     """The upstream test matrix at n = 8192, dense on the card, and the
@@ -216,6 +304,41 @@ def hilbert(dev):
     rows = torch.argsort(torch.diagonal(a), stable=True)[:15]
     guess[torch.arange(15, device=dev), rows] += 1.0
     return a, guess
+
+
+def test_rebound_operator_is_captured_anew(hilbert):
+    """A bound-method operator whose matrix the caller rebinds between two
+    solves (its diagonal shifted by 0.5, the old one freed): the methods
+    are not marked replayable, so neither solve is kept, and the second
+    solves the new matrix, its eigenvalues within 1e-10 of eigvalsh's (a
+    replay over the old matrix would be 0.5 off)."""
+    a, guess = hilbert
+    opts = SolverOptions(n_targ=10, n_max=15, max_iter=100, tol=1e-8,
+                         max_dav=20)
+
+    class Op:
+        def matvec(self, x):
+            return x @ self.h.T
+
+        def precnd(self, fac, x):
+            return diag_precnd(torch.diagonal(self.h))(fac, x)
+
+    op = Op()
+    graphs.STEP_CACHE.clear()
+    for shift in (0.0, 0.5):
+        op.h = a.clone()
+        op.h.diagonal().add_(shift)
+        with graphs._recording(None) as rec:
+            res = davidson(op.matvec, op.precnd, guess, opts)
+        torch.cuda.synchronize()
+        assert [(s["route"], s["reused"]) for s in rec.solves] == \
+            [("graphs", False)]
+        assert res.ok
+        want = torch.linalg.eigvalsh(op.h)[:10]
+        err = (res.eig[:10] - want).abs().max().item()
+        print(f"[rebound] shift {shift}: max eigenvalue error {err:.3e}")
+        assert err <= 1e-10
+    assert len(graphs.STEP_CACHE) == 0
 
 
 def test_stall_on_every_route_at_the_same_iteration(hilbert):

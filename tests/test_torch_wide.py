@@ -156,6 +156,9 @@ def test_wide_scratch_is_kept_per_stream_and_grown():
     assert big.numel() > small.numel()
     assert tsl._wide_scratch(cpu, 7, 100) is big
     assert tsl._wide_scratch(cpu, 8, 100) is other
+    # the replaced buffer stays alive for the graphs captured over it
+    assert tsl._wide_replaced[-1] is small
+    tsl._wide_replaced.pop()
     for key in [(None, 7), (None, 8)]:
         tsl._wide_scratches.pop(key)
 
