@@ -70,8 +70,7 @@ Phases (any failure raises and the script exits non-zero):
        graphs) and on the uncaptured one (the same steps called directly,
        through the solvers' private switch): every returned tensor bit for
        bit, the same counts and K2 / K1 launches (K5 too for (e), whose
-       T band it carries), the median of 5 warm
-       walls of each in turns, the host's reads of the device an
+       T band it carries), the host's reads of the device an
        iteration (torch.cuda's sync debug mode, at most 3 between two
        flag reads where no step was run again; (e) reads its Gram matrix
        for the host dgeev besides), the rare-branch reruns,
@@ -156,7 +155,7 @@ Phases (any failure raises and the script exits non-zero):
        300) ok with host residuals below tol; (i6) profiling.collective_inventory of one
        sharded davidson iteration over dist_sliced_matvec (K6) under (f)'s
        one-rank NCCL group on the captured, unrolled and eager routes, and
-       of one warm iteration (profiling.flag_window, the captured steps
+       of one warm iteration (torch_fleet.flag_window, the captured steps
        replayed): the captured route's counts the unrolled route's;
 6. kernel usage: a JSON ``kernels`` line with the launch counts summed over
    the timed runs of 5, (h) and (i) included, and each kernel's times and
@@ -165,9 +164,10 @@ Phases (any failure raises and the script exits non-zero):
 ``--ranks R`` (R = 4) runs phase (j) instead of phases 2-6, the multi-card
 path with one NCCL rank a card, through ``parallel.mh_dryrun.run_fleet``:
 it builds the kernels once, needs R cards (else it exits non-zero), and
-   (j1) runs each job of mh_dryrun but the flagship's (dryrun, dist_sliced,
-       sharded_solvers, checkpoint, inventory, routes) on one set of inputs
-       (mh_dryrun.job_inputs, the sizes of its CPU test) under gloo on R
+   (j1) runs each fleet job but the flagship's (mh_dryrun's dryrun;
+       dist_sliced, sharded_solvers, checkpoint, inventory and routes of
+       tests/torch_fleet.py) on one set of inputs (torch_fleet.job_inputs,
+       the sizes of its CPU test) under gloo on R
        CPU ranks and under NCCL on the R cards, and holds the two:
        integer stages (K6's planes, row scales and levels on the received
        shards) bit for bit, float64 eigenvalues within 1e-10, iterations
@@ -185,9 +185,9 @@ it builds the kernels once, needs R cards (else it exits non-zero), and
        davidson_ladder (lo_iter 35) and lobpcg_ladder (lo_iter 70) over
        dist_sliced_matvec (K2, K6, and K3 in the rotations) on the captured
        route, run once to warm up and once counted, then captured against
-       uncaptured on every rank (profiling.compare_routes: the same bits
-       and counts, walls in turns, host reads, capture cost, one flag
-       digest on every rank); rank 0's unsharded ladders over
+       uncaptured on every rank (torch_fleet.route_pair: the same bits
+       and counts, host reads, capture cost, one flag digest on every
+       rank); rank 0's unsharded ladders over
        sliced_bsr_matvec (K5) on the whole store; every pair's residuals by
        dist_bsr_matvec of the float64 products of the original blocks (rms
        < 1e-10, max < 1e-9); eigenvalues within 1e-10 of rank 0's K5
@@ -231,6 +231,8 @@ from benchmark.tracing import (
     scope_breakdown,
     short_names,
 )
+# the fleet jobs, the checks of their outputs and the route comparison
+from tests import torch_fleet
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1169,7 +1171,7 @@ def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
     uncaptured and counts, its capture counts nothing), on the unrolled
     route (the captured route's passes, called directly) and on the eager
     one; then the collectives of one warm iteration (from the second flag
-    read to the third, profiling.flag_window) of a three-iteration solve
+    read to the third, torch_fleet.flag_window) of a three-iteration solve
     on each route, where every captured step is a replay that counts the
     collectives its capture recorded.  The captured route's counts must
     be the unrolled route's, both times (the eager loops may stop after
@@ -1196,7 +1198,7 @@ def sharded_inventory(one, sh, pc, guess, opts, dev, counted, card):
             inv[route] = counted(
                 f"sharded davidson iteration {route}",
                 lambda: profiling.collective_inventory(solve, 1))
-            with profiling.flag_window(2) as w:
+            with torch_fleet.flag_window(2) as w:
                 solve(3)
         if {s["route"] for s in solves.records} != {route} or \
                 not w["closed"]:
@@ -1261,25 +1263,21 @@ def rayleigh_quotient(mv, rows, L, dev, seed):
     return q @ aq.T
 
 
-def captured_vs_uncaptured(tag, run, dev, card, reps=5,
+def captured_vs_uncaptured(tag, run, dev, card,
                            matvec_kernels=("peel_rows", "sym_spmm")):
     """(a), (b), (d), (e), (f), (g) and (h3): the ladder on its default
     route, its steps captured and replayed as CUDA graphs, and on the
-    uncaptured route (the same steps called directly, through the private
-    switch ``utils.graphs._recording``), by profiling.compare_routes:
-    every returned tensor bit for bit, the same counts, the same launches
-    of the ``matvec_kernels`` (K3's differ: a replay runs every unrolled
-    ortho pass); the median of ``reps`` warm walls of each, run in turns;
-    the host's reads an iteration (profiling.host_reads) on each; the
-    rare-branch reruns, graph capture seconds and pool memory of each
-    stage, and the most passes each stage's eager ortho loops took on the
-    uncaptured route.  Returns compare_routes' dict."""
-    from diaglib_tpu_torch import profiling
-
-    cmp = profiling.compare_routes(run, dev, reps)
+    uncaptured route (the same steps called directly), by
+    torch_fleet.route_pair: every returned tensor bit for bit, the same
+    counts, the same launches of the ``matvec_kernels`` (K3's differ: a
+    replay runs every unrolled ortho pass); the host's reads an iteration
+    (torch_fleet.host_reads) on each; the rare-branch reruns, graph
+    capture seconds and pool memory of each stage, and the most passes
+    each stage's eager ortho loops took on the uncaptured route.  Returns
+    route_pair's dict."""
+    cmp = torch_fleet.route_pair(run, dev)
     rc, ru = cmp["solves"]["graphs"], cmp["solves"]["eager"]
     counts = [cmp["counts"][k] for k in ("graphs", "eager")]
-    walls, med = cmp["walls"], cmp["median"]
 
     def reads_line(route):
         r = cmp["reads"][route]
@@ -1301,36 +1299,11 @@ def captured_vs_uncaptured(tag, run, dev, card, reps=5,
     log(f"[{tag} captured vs uncaptured] bit-identical eig, evec, done, "
         f"histories: {cmp['same']}; counts {counts[0]} vs {counts[1]}; "
         f"launches {json.dumps(cmp['launches']['graphs'])} vs "
-        f"{json.dumps(cmp['launches']['eager'])}; median of "
-        f"{reps} warm walls {med['graphs']:.4f} s captured vs "
-        f"{med['eager']:.4f} s uncaptured (walls {walls}) ({card})")
+        f"{json.dumps(cmp['launches']['eager'])} ({card})")
     log(f"[{tag} host reads] captured: {reads_line('graphs')}; uncaptured "
         f"(the eager loop's shape): {reads_line('eager')} ({card})")
-    check_routes(tag, cmp, matvec_kernels)
+    torch_fleet.check_routes(tag, cmp, matvec_kernels)
     return cmp
-
-
-def check_routes(tag, cmp, matvec_kernels):
-    """Raise unless compare_routes' ``cmp`` holds: the same bits and
-    counts, the same launches of ``matvec_kernels`` (but after a
-    rare-branch rerun, which runs steps 1-2 again; the unrolled ortho
-    passes of a replay launch K3 whether or not their loop has stopped),
-    every stage on its route, and at most 3 host reads between two flag
-    reads of the captured run where no step was run again (a nonsymmetric
-    pass's Gram matrix, which the host dgeev reads, among them)."""
-    lc, lu = cmp["launches"]["graphs"], cmp["launches"]["eager"]
-    routes = {k: {s["route"] for s in cmp["solves"][k]}
-              for k in ("graphs", "eager")}
-    if not (cmp["same"] and cmp["counts"]["graphs"] == cmp["counts"]["eager"]
-            and routes == {"graphs": {"graphs"}, "eager": {"eager"}}
-            and (cmp["reruns"] or all(lc[k] == lu[k]
-                                      for k in matvec_kernels))):
-        raise AssertionError(f"{tag}: the captured and uncaptured ladders "
-                             "differ")
-    r = cmp["reads"]["graphs"]
-    if not r["reruns"] and max(r["between"]) > 3:
-        raise AssertionError(f"{tag}: more than 3 host reads an iteration "
-                             "on the captured route")
 
 
 def davidson_routes(run_d, ra, wa, m, timed, card, dev, mv_hi):
@@ -1452,363 +1425,6 @@ def nonsym_routes(run_e, re_, we, m, t_bsr, tt_bsr, eig_sym, timed, card,
 
 
 # ---- phase (j): the multi-card path (--ranks 4) ----
-
-# the jobs of parallel.mh_dryrun run under gloo on CPU ranks and under NCCL
-# on the cards, on one set of inputs each (mh_dryrun.job_inputs)
-MC_JOBS = ("dryrun", "dist_sliced", "sharded_solvers", "checkpoint",
-           "inventory", "routes")
-
-
-def ladder_inputs(n, ladders, unsharded, profile):
-    """The ladders job's inputs: random_bsr_spd(n, 512, 8) built on every
-    rank, the ladders of phase 5 at its options, a zero guess; each
-    sharded ladder also captured against uncaptured."""
-    return dict(build=dict(n=n, block=BLOCK, bpr=BPR, seed=0),
-                ladders=list(ladders),
-                options=dict(n_targ=N_TARG, n_max=N_MAX, max_iter=150,
-                             tol=1e-10, max_dav=10),
-                lo_tol=2e-6, lo_iter=dict(davidson=35, lobpcg=70),
-                unsharded=unsharded, profile=profile, compare=True)
-
-
-def eig_gap(a, b, n_targ):
-    """max |a - b| over the first ``n_targ`` eigenvalues, and whether it is
-    within 1e-10 * max(1, |b|)."""
-    import numpy as np
-
-    d = float(np.max(np.abs(np.asarray(a)[:n_targ] - np.asarray(b)[:n_targ])))
-    return d, d <= 1e-10 * max(1.0, float(np.max(np.abs(b[:n_targ]))))
-
-
-def solve_pair(tag, g, c, n_targ, n_max, counts=True):
-    """One solve's result under gloo (``g``, a rank's output dict) and
-    NCCL (``c``) at ``tag``: eigenvalues within 1e-10, iterations within
-    +-2 and matvecs within +-2 blocks (``counts``), both ok."""
-    d, close = eig_gap(c[f"{tag}_eig"], g[f"{tag}_eig"], n_targ)
-    di = abs(c[f"{tag}_iter"] - g[f"{tag}_iter"])
-    dm = abs(c[f"{tag}_matvec"] - g[f"{tag}_matvec"])
-    ok = (close and g[f"{tag}_ok"] and c[f"{tag}_ok"]
-          and (not counts or (di <= 2 and dm <= 2 * n_max)))
-    line = (f"{tag} eigenvalues {d:.2e} apart, iterations "
-            f"{g[f'{tag}_iter']} / {c[f'{tag}_iter']}, matvecs "
-            f"{g[f'{tag}_matvec']} / {c[f'{tag}_matvec']}"
-            + ("" if counts else " (counts not held: another random "
-               "stream)"))
-    if not ok:
-        raise AssertionError(f"gloo and NCCL disagree: {line}")
-    return line
-
-
-def same_on_every_rank(outs, key):
-    """Whether the array ``key`` every rank gathered from all ranks holds
-    one bit pattern (each rank's copy of an all-reduced result)."""
-    import numpy as np
-
-    return all(np.array_equal(h, out[key][0]) for out in outs
-               for h in out[key])
-
-
-def compare_fleet(job, gloo, nccl):
-    """Hold one job's NCCL run on the cards against its gloo run on CPU
-    ranks (each ``(combined output, [rank outputs])``); returns the lines
-    to print, raises AssertionError on a disagreement."""
-    import numpy as np
-
-    (g_text, g_outs), (c_text, c_outs) = gloo, nccl
-    size = len(c_outs)
-    lines = []
-    for r, out in enumerate(c_outs):
-        if not (out["backend"] == "nccl" and out["rank_device"] == f"cuda:{r}"
-                and out["current_device"] == r):
-            raise AssertionError(f"{job}: NCCL rank {r} ran on "
-                                 f"{out['rank_device']} ({out['backend']})")
-    if job == "dryrun":
-        for text in (g_text, c_text):
-            if text.count("MH_DRYRUN_OK") != size:
-                raise AssertionError(f"dryrun incomplete:\n{text}")
-        keys = ("dense_err", "bsr_err", "mv_err", "sliced_err")
-        lines.append(f"MH_DRYRUN_OK from all {size} ranks on both; oracle "
-                     "errors gloo / NCCL: " + ", ".join(
-                         f"{k} {g_outs[0][k]:.2e} / {c_outs[0][k]:.2e}"
-                         for k in keys))
-    elif job == "dist_sliced":
-        n_groups = 0
-        for g, c in zip(g_outs, c_outs):
-            for tier in ("f64", "f32"):
-                if not c[f"k6_{tier}_equal"]:
-                    raise AssertionError(f"K6 != its plain version ({tier})")
-                for gg, cg in zip(g[f"k6_{tier}"], c[f"k6_{tier}"]):
-                    n_groups += 1
-                    if not all(np.array_equal(a, b) for a, b in zip(gg, cg)):
-                        raise AssertionError(
-                            f"K6's planes, scales or levels differ ({tier})")
-            y, yc = g["y_f64"], c["y_f64"]
-            e64 = float(np.max(np.abs(y - yc)) / np.max(np.abs(y)))
-            y32, yc32 = g["y_f32"], c["y_f32"]
-            e32 = float(np.max(np.abs(y32 - yc32)) / np.max(np.abs(y32)))
-            if not (e64 <= 1e-14 and e32 <= 2.0 ** -20):
-                raise AssertionError(f"dist_sliced matvec: {e64} / {e32}")
-        lines.append(f"K6 on the received planes == its plain version on "
-                     f"every rank; planes, row scales and levels bit-equal "
-                     f"to gloo's on all {n_groups} (rank, tier, group); "
-                     f"matvec f64 within {e64:.1e}, f32 {e32:.1e} of max|y|")
-        for tag in ("david", "ladder"):
-            lines.append(solve_pair(tag, g_outs[0], c_outs[0], 4, 8))
-            if not all(same_on_every_rank(o, f"{tag}_eig_ranks")
-                       for o in (g_outs, c_outs)):
-                raise AssertionError(f"{tag}: reduced results differ "
-                                     "across ranks")
-    elif job == "sharded_solvers":
-        g, c = g_outs[0], c_outs[0]
-        for tag in ("davidson", "gen_david", "lobpcg", "bsr_davidson",
-                    "caslr", "caslr_eff", "caslr_zero"):
-            lines.append(solve_pair(tag, g, c, 4, 8,
-                                    counts=tag != "caslr_zero"))
-        for tag in ("nonsym_host", "nonsym_device"):
-            lines.append(solve_pair(tag, g, c, 5, 5))
-        keys = [k for k in c if k.endswith("_ranks")]
-        if not all(same_on_every_rank(o, k) for o in (g_outs, c_outs)
-                   for k in keys):
-            raise AssertionError("a reduced result differs across ranks")
-        lines.append(f"every rank's reduced results bit-identical within "
-                     f"each run ({len(keys)} gathered: {', '.join(keys)})")
-        e = max(float(np.max(np.abs(go[k] - co[k])) / np.max(np.abs(go[k])))
-                for go, co in zip(g_outs, c_outs) for k in ("bsr_y", "qr"))
-        if not (e <= 1e-12 and c["bsr_steps"] == g["bsr_steps"]):
-            raise AssertionError(f"dist_bsr_matvec / ortho_qr: {e}")
-        lines.append(f"dist_bsr_matvec and the sharded QR within {e:.1e} of "
-                     f"max|y|; steps {list(c['bsr_steps'])}")
-    elif job == "checkpoint":
-        for g, c in zip(g_outs, c_outs):
-            d, close = eig_gap(c["resumed_eig"], g["resumed_eig"], 3)
-            if not (c["loaded_equal"] and c["resumed_ok"] and close
-                    and abs(c["resumed_iter"] - g["resumed_iter"]) <= 2
-                    and abs(c["scratch_iter"] - g["scratch_iter"]) <= 2
-                    and c["resumed_iter"] < c["scratch_iter"]):
-                raise AssertionError(f"checkpoint: {c} against {g}")
-        lines.append(f"every field loaded bit-equal on every card; resumed "
-                     f"{c_outs[0]['resumed_iter']} iterations against "
-                     f"{c_outs[0]['scratch_iter']} from scratch (gloo "
-                     f"{g_outs[0]['resumed_iter']} / "
-                     f"{g_outs[0]['scratch_iter']}), eigenvalues {d:.2e} "
-                     "apart")
-    elif job == "routes":
-        lines += routes_fleet(g_outs, c_outs)
-    elif job == "inventory":
-        for key, what in (("inventory", "eager"),
-                          ("captured", "captured (unrolled under gloo)"),
-                          ("warm", "one warm iteration, captured steps "
-                                   "replayed (unrolled under gloo)")):
-            inv = [o[key] for o in g_outs + c_outs]
-            if any(i != inv[0] for i in inv):
-                raise AssertionError(f"inventory {key}: {inv}")
-            lines.append(f"one sharded iteration's collectives, {what}, "
-                         f"equal on every rank of both: {json.dumps(inv[0])}")
-    return lines
-
-
-def _fields_equal(a, b):
-    """Two result dicts of job ``routes`` equal field for field (arrays bit
-    for bit; the records, walls and launch counts aside)."""
-    import numpy as np
-
-    skip = ("solves", "wall", "launches")
-    return a.keys() == b.keys() and all(
-        np.array_equal(v, b[k]) if isinstance(v, np.ndarray) else v == b[k]
-        for k, v in a.items() if k not in skip)
-
-
-def routes_fleet(g_outs, c_outs):
-    """Job ``routes`` under gloo ("unrolled" against "eager") and under
-    NCCL on the cards ("graphs", each step captured and replayed with its
-    collectives and ring permutes inside, against "eager"): on every rank
-    of each, the two routes the same bits, every stage on its route, the
-    forced reruns counted and the same bits as "eager", the flag history
-    and the eigenvalue history the same on every rank; NCCL against gloo
-    as the other jobs (eigenvalues within 1e-10, counts within +-2)."""
-    lines = []
-    for outs, want in ((g_outs, ("unrolled", "eager")),
-                       (c_outs, ("graphs", "eager"))):
-        first = want[0]
-        if any(o["routes"] != want for o in outs):
-            raise AssertionError(f"routes: not {want} on every rank")
-        names = [k[6:] for k in outs[0] if k.startswith("eager:")]
-        shorts = [k[6:] for k in outs[0] if k.startswith("short:")]
-        pairs = ([(f"{first}:{n}", n, False) for n in names]
-                 + [(f"short:{n}", n, True) for n in shorts])
-        for tag, name, forced in pairs:
-            for o in outs:
-                got = o[tag]
-                reruns = sum(sum(s["reruns"].values()) for s in got["solves"])
-                if not (_fields_equal(got, o[f"eager:{name}"])
-                        and {s["route"] for s in got["solves"]} == {first}
-                        and (reruns > 0 or not forced)):
-                    raise AssertionError(f"routes: {tag} differs from "
-                                         "eager on a rank")
-            hist = [[s["flag_history"] for s in o[tag]["solves"]]
-                    for o in outs]
-            if any(h != hist[0] for h in hist) or not same_on_every_rank(
-                    [o[tag] for o in outs], "eig_ranks"):
-                raise AssertionError(f"routes: {tag}: the ranks differ")
-        reruns = {n: sum(sum(s["reruns"].values())
-                         for s in outs[0][f"short:{n}"]["solves"])
-                  for n in shorts}
-        cap = {n: round(sum(s["capture_s"] for s in
-                            outs[0][f"{first}:{n}"]["solves"]) * 1e3, 1)
-               for n in names}
-        lines.append(
-            f"{first} == eager bit for bit on all {len(outs)} ranks for "
-            f"{', '.join(names)}; one-pass budgets force reruns {reruns} "
-            f"and stay bit-equal; flag and eigenvalue histories the same "
-            f"on every rank; capture ms rank 0 {cap}")
-    for k in c_outs[0]:
-        if not k.startswith("eager:"):
-            continue
-        name = k[6:]
-        g, c = g_outs[0][k], c_outs[0][f"graphs:{name}"]
-        n_targ = 5 if name == "nonsym" else 4
-        d, close = eig_gap(c["eig"], g["eig"], n_targ)
-        if not (close and g["ok"] and c["ok"]
-                and abs(c["n_iter"] - g["n_iter"]) <= 2
-                and abs(c["n_matvec"] - g["n_matvec"]) <= 2 * 8):
-            raise AssertionError(f"routes {name}: gloo and NCCL disagree")
-        lines.append(f"{name} captured on the cards vs eager on gloo: "
-                     f"eigenvalues {d:.2e} apart, iterations {g['n_iter']} "
-                     f"/ {c['n_iter']}, matvecs {g['n_matvec']} / "
-                     f"{c['n_matvec']}")
-    return lines
-
-
-def routes_lines(tag, name, outs, card):
-    """A ladder's ``{name}_compare`` (profiling.compare_routes) on every
-    rank of the ladders job: each captured equal to uncaptured (the same
-    bits, counts and K2 / K6 launches, at most 3 host reads an iteration),
-    the captured flag digest the same on every rank; prints one line a
-    rank."""
-    digests = {o[f"{name}_compare"]["digest"] for o in outs}
-    if len(digests) != 1 or {o[f"{name}_digest"] for o in outs} \
-            != digests:
-        raise AssertionError(f"{tag} {name}: the ranks read other flags")
-    for r, o in enumerate(outs):
-        cmp = o[f"{name}_compare"]
-        check_routes(f"{tag} rank {r} {name}_ladder", cmp,
-                     ("peel_rows", "group_spmm"))
-        rd = {k: cmp["reads"][k] for k in ("graphs", "eager")}
-        stages = "; ".join(
-            f"{s['dtype']} {s['iterations']} iterations, reruns "
-            f"{s['reruns']}, capture {s['capture_s'] * 1e3:.1f} ms, pool "
-            f"{s['pool_bytes'] / 2**20:.1f} MiB"
-            for s in cmp["solves"]["graphs"])
-        log(f"[multicard] {tag} rank {r} sharded {name}_ladder captured vs "
-            f"uncaptured: bit-identical {cmp['same']}, counts "
-            f"{cmp['counts']['graphs']} vs {cmp['counts']['eager']}; "
-            f"median of {len(cmp['walls']['graphs'])} warm walls "
-            f"{cmp['median']['graphs']:.4f} s captured vs "
-            f"{cmp['median']['eager']:.4f} s uncaptured (walls "
-            f"{cmp['walls']}); host reads "
-            + ", ".join(f"{k} {v['total']} in {v['iterations']} iterations "
-                        f"(max {max(v['between'])} between flag reads)"
-                        for k, v in rd.items())
-            + f"; {stages}; flag digest {cmp['digest'][:12]} ({card})")
-
-
-def check_ladders(tag, outs, card, unsharded):
-    """The ladders job's outputs: on every rank ok, its pairs' residuals by
-    the distributed float64 BSR product within rms 1e-10 and max 1e-9, the
-    same eigenvalues and counts, its reduced results bit-identical across
-    the ranks, K6 on the received planes bit-equal to its plain version
-    at both tiers, the ring permutes posted in one order; with
-    ``unsharded``, rank 0's K5 ladder's pairs within the same residual
-    bounds and the sharded eigenvalues within 1e-10 of them; the two
-    ladders' counts are printed, not held (the float32 tier of the
-    distributed operator slices each received shard on its own grid, so
-    its float32 stage ends elsewhere: PERF.md §7.7).  Prints one
-    [multicard] line a check; returns the launch counts of the sharded
-    ladders, summed over the ranks, and of rank 0's K5 ladders."""
-    import numpy as np
-
-    from diaglib_tpu_torch.parallel import mh_dryrun
-
-    first = outs[0]
-    if len({o["build_digest"] for o in outs}) != 1:
-        raise AssertionError(f"{tag}: the ranks built different matrices "
-                             "from one seed")
-    mh_dryrun.check_permute_order(outs)
-    log(f"[multicard] {tag}: n={first['n']} over {len(outs)} ranks, steps "
-        f"{first['steps']}, entries a rank "
-        f"{[o['entries'] for o in outs]}, store "
-        f"{sum(o['store_bytes'] for o in outs) / 1e9:.3f} GB ("
-        f"{first['store_bytes'] / 1e9:.3f} GB on rank 0); build "
-        f"{max(o['build_s'] for o in outs):.1f} s, the same matrix on every "
-        f"rank (diagonal sha1 {str(first['build_digest'])[:12]}); ring "
-        f"permutes in one "
-        f"order on every rank ({len(first['permutes'])} a rank: "
-        f"{[c[0] for c in first['permutes']]})")
-    if not all(o[f"k6_{t}_equal"] for o in outs for t in ("f64", "f32")):
-        raise AssertionError(f"{tag}: K6 != its plain version on a rank")
-    log(f"[multicard] {tag}: K6 on every rank's received planes == "
-        f"group_spmm_plain, both tiers, all {len(outs) * len(first['steps'])}"
-        " (rank, group) a tier")
-    log(f"[multicard] {tag}: peak memory a card, GB: build "
-        f"{[round(o['peak_build_bytes'] / 1e9, 3) for o in outs]}, ladders "
-        f"{[round(o['peak_ladder_bytes'] / 1e9, 3) for o in outs]} ({card})")
-    launches, k5_launches = {}, {}
-    for name in ("davidson", "lobpcg"):
-        if f"{name}_eig" not in first:
-            continue
-        # captured under NCCL; a gloo fleet (a rehearsal on CPU ranks) has
-        # no capture
-        if any(o[f"{name}_routes"] != (["graphs"] if o["backend"] == "nccl"
-                                       else ["eager"]) for o in outs):
-            raise AssertionError(f"{tag} {name}: a rank's sharded ladder "
-                                 "ran on another route")
-        if f"{name}_compare" in first:
-            routes_lines(tag, name, outs, card)
-        for o in outs:
-            rms, rmax = np.max(o[f"{name}_res_rms"]), np.max(
-                o[f"{name}_res_max"])
-            if not (o[f"{name}_ok"] and rms < 1e-10 and rmax < 1e-9
-                    and np.array_equal(o[f"{name}_eig"], first[f"{name}_eig"])
-                    and o[f"{name}_iter"] == first[f"{name}_iter"]
-                    and same_on_every_rank(outs, f"{name}_eig_ranks")
-                    and same_on_every_rank(outs, f"{name}_gram_ranks")):
-                raise AssertionError(f"{tag} {name}: a rank failed or "
-                                     "disagrees")
-        for o in outs:
-            for k, v in o[f"{name}_launches"].items():
-                launches[k] = launches.get(k, 0) + v
-        walls = [o[f"{name}_wall"] for o in outs]
-        log(f"[multicard] {tag} sharded {name}_ladder: ok, "
-            f"{first[f'{name}_iter']} iterations (f64 "
-            f"{first[f'{name}_f64_iter']}), {first[f'{name}_matvec']} "
-            f"matvecs, wall {max(walls):.3f} s (ranks {min(walls):.3f}-"
-            f"{max(walls):.3f}); residuals by dist_bsr_matvec f64: rms "
-            f"{np.max(first[f'{name}_res_rms']):.3e}, max "
-            f"{np.max(first[f'{name}_res_max']):.3e}; eigenvalues, "
-            f"counts and reduced matrices bit-identical on all ranks; "
-            f"launches rank 0 {json.dumps(first[f'{name}_launches'])} "
-            f"({card})")
-        if not unsharded:
-            continue
-        k5 = f"{name}_k5"
-        rms, rmax = np.max(first[f"{k5}_res_rms"]), np.max(
-            first[f"{k5}_res_max"])
-        d, close = eig_gap(first[f"{name}_eig"], first[f"{k5}_eig"], N_TARG)
-        log(f"[multicard] {tag} rank 0 unsharded {name}_ladder over K5: ok="
-            f"{first[f'{k5}_ok']}, {first[f'{k5}_iter']} iterations (f64 "
-            f"{first[f'{k5}_f64_iter']}), {first[f'{k5}_matvec']} matvecs, "
-            f"wall {first[f'{k5}_wall']:.3f} s; residuals rms {rms:.3e}, max "
-            f"{rmax:.3e}; sharded eigenvalues {d:.3e} apart, iterations "
-            f"{first[f'{name}_iter']} vs {first[f'{k5}_iter']}, matvecs "
-            f"{first[f'{name}_matvec']} vs {first[f'{k5}_matvec']} "
-            f"(counts printed, not held) ({card})")
-        if not (first[f"{k5}_ok"] and rms < 1e-10 and rmax < 1e-9 and close):
-            raise AssertionError(f"{tag} {name}: the sharded and the "
-                                 "unsharded ladders disagree")
-        for k, v in first[f"{k5}_launches"].items():
-            k5_launches[k] = k5_launches.get(k, 0) + v
-    return launches, k5_launches
-
 
 def print_profile(profs, card):
     """One warm float64 sharded Davidson iteration on rank 0 on each route
@@ -1961,17 +1577,17 @@ def multicard(ranks, card):
         timeout=60, check=True)
     log(f"[multicard] cards: {'; '.join(smi.stdout.strip().splitlines())}")
 
-    for job in MC_JOBS:
+    for job in torch_fleet.MC_JOBS:
         runs = []
         for backend, device in (("gloo", "cpu"), ("nccl", None)):
             with tempfile.TemporaryDirectory(prefix="diaglib_mc_") as tmp:
-                inp = mh_dryrun.job_inputs(job, ranks, workdir=tmp)
+                inp = torch_fleet.job_inputs(job, ranks, workdir=tmp)
                 t0 = time.perf_counter()
                 runs.append(mh_dryrun.run_fleet(
-                    job, inp, ranks, backend, device,
+                    torch_fleet.JOBS[job], inp, ranks, backend, device,
                     timeout=300 if backend == "gloo" else None))
                 runs[-1] += (time.perf_counter() - t0,)
-        lines = compare_fleet(job, runs[0][:2], runs[1][:2])
+        lines = torch_fleet.compare_fleet(job, runs[0][:2], runs[1][:2])
         log(f"[multicard] job {job}: gloo on {ranks} CPU ranks "
             f"{runs[0][2]:.1f} s, NCCL on {ranks} cards {runs[1][2]:.1f} s "
             f"(fleet wall, start-up included)")
@@ -1980,19 +1596,22 @@ def multicard(ranks, card):
 
     t0 = time.perf_counter()
     _, outs = mh_dryrun.run_fleet(
-        "ladders", ladder_inputs(N, ("davidson", "lobpcg"), True, True),
+        torch_fleet.JOBS["ladders"],
+        torch_fleet.ladder_inputs(N, ("davidson", "lobpcg"), True, True),
         ranks)
     log(f"[multicard] flagship fleet wall {time.perf_counter() - t0:.1f} s")
-    launches, k5_launches = check_ladders("flagship", outs, card, True)
+    launches, k5_launches = torch_fleet.check_ladders("flagship", outs,
+                                                      card, True)
     print_profile(outs[0]["profile"], card)
 
     t0 = time.perf_counter()
     _, weak = mh_dryrun.run_fleet(
-        "ladders", ladder_inputs(ranks * N, ("davidson",), False, False),
+        torch_fleet.JOBS["ladders"],
+        torch_fleet.ladder_inputs(ranks * N, ("davidson",), False, False),
         ranks)
     log(f"[multicard] weak-scaling fleet wall "
         f"{time.perf_counter() - t0:.1f} s")
-    check_ladders("weak", weak, card, False)
+    torch_fleet.check_ladders("weak", weak, card, False)
     peak = max(o["peak_build_bytes"] for o in weak)
     if peak > 60e9:
         raise AssertionError(f"a card's peak memory {peak / 1e9:.1f} GB")

@@ -11,12 +11,6 @@
 * :func:`collective_inventory` counts the collectives of one run: parsed
   from compiled HLO text, as the reference does, or recorded from the
   port's ``torch.distributed`` calls.
-* :func:`compare_routes` runs a solve on its captured route (the steps
-  replayed as CUDA graphs) and on the uncaptured one, and holds the two
-  together: the same bits, the counts, walls in turns, the host's reads
-  of the device an iteration (:class:`host_reads`); :func:`flag_window`
-  marks one iteration of a solve, from one flag read to the next, for a
-  profile or an inventory of a warm iteration.
 * :func:`solve_log` keeps the solves run under it: one record a solver
   call (a ladder's stage is a call of its own), summed while the solve
   runs, and the spans the solvers opened, on the host's clock.
@@ -32,17 +26,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import dataclasses
-import hashlib
 import itertools
 import json
 import os
 import re
 import socket
-import statistics
 import time
 import typing
-import warnings
 
 import torch
 import torch.distributed as dist
@@ -51,8 +41,7 @@ from torch.profiler import record_function
 from ._tree import leaves
 
 __all__ = ["trace", "wall", "phase_timings", "collective_inventory",
-           "host_reads", "compare_routes", "flag_window", "solve_log",
-           "SolveLog", "Span", "LEAF_SPANS"]
+           "solve_log", "SolveLog", "Span", "LEAF_SPANS"]
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s32": 4,
                 "u32": 4, "s8": 1, "u8": 1, "pred": 1, "s64": 8, "u64": 8}
@@ -467,169 +456,3 @@ def phase_timings(matvec, x, reps: int = 10):
         out = matvec(x)
     _sync(out)
     return (time.perf_counter() - t0) / reps
-
-
-class host_reads:
-    """Counts the host's reads of the device: torch.cuda's sync debug mode
-    warns at every synchronizing call (a copy to the host, ``.item()``, a
-    library's error check), and each warning is kept.  ``marks`` holds the
-    count at each flag read of the solvers' steps (``utils.graphs.
-    _read_flags``), so :meth:`per_iteration` gives the reads between two
-    of them."""
-
-    def __enter__(self):
-        from .utils import graphs
-
-        self._graphs = graphs
-        self._catch = warnings.catch_warnings(record=True)
-        self.log = self._catch.__enter__()
-        warnings.simplefilter("always")
-        self.marks = []
-        graphs._read_flags.observer = lambda: self.marks.append(self.reads())
-        torch.cuda.set_sync_debug_mode("warn")
-        return self
-
-    def __exit__(self, *exc):
-        torch.cuda.set_sync_debug_mode("default")
-        self._graphs._read_flags.observer = None
-        self._catch.__exit__(*exc)
-        return False
-
-    def reads(self) -> int:
-        return sum("synchroniz" in str(w.message) for w in self.log)
-
-    def per_iteration(self, solves) -> list:
-        """Reads between consecutive flag reads of one solve (an
-        iteration's, from a solve's second on), given the solves' records
-        (their ``flag_reads``, in order)."""
-        out, at = [], 0
-        for s in solves:
-            marks = self.marks[at:at + s["flag_reads"]]
-            out += [b - a for a, b in zip(marks, marks[1:])]
-            at += s["flag_reads"]
-        return out
-
-
-def _equal(a, b) -> bool:
-    """Every field of two solver results the same (tensors bit for bit)."""
-    for f in dataclasses.fields(a):
-        x, y = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(x, torch.Tensor):
-            if not torch.equal(x, y):
-                return False
-        elif x != y:
-            return False
-    return True
-
-
-def flag_digest(solves) -> str:
-    """sha1 of the flags every solve of ``solves`` (records of
-    ``utils.graphs._recording``) read, in order: the same on every rank of
-    a sharded solve, whose ranks take the same branches."""
-    return hashlib.sha1(repr([s["flag_history"] for s in solves])
-                        .encode()).hexdigest()
-
-
-def compare_routes(run, device, reps: int = 5) -> dict:
-    """``run(generator)`` (a solve or a ladder on CUDA tensors; a fresh
-    generator seeded with 1 each time) on its default route, the steps
-    captured and replayed as CUDA graphs, and on the uncaptured one (the
-    same steps called directly, through the private switch
-    ``utils.graphs._recording("eager")``), each launch count at 0 before
-    every run.  Returns a dict: ``same`` (every field of the two results
-    equal, tensors bit for bit), ``counts`` (n_iter, n_matvec, ok,
-    ortho_ok of each), ``launches`` and ``solves`` (the records of each
-    route's first run), ``walls`` (``reps`` warm walls of each, run in
-    turns) and their ``median``, ``reads`` (the host's reads of the
-    device in one more run of each: ``total``, ``iterations`` and the
-    reads ``between`` two flag reads), ``reruns`` of the captured run and
-    the ``digest`` of its flag history (:func:`flag_digest`).  Keys are
-    "graphs" and "eager".  Where ``run`` calls a Davidson solver or ladder
-    with the same replayable callables each time, the captured route's
-    first run keeps its graphs (``utils.graphs.StepCache``) and the
-    later ones replay them: its warm walls and its host-read run then
-    hold no warm-up and no capture, as a caller's repeated solves do."""
-    from .utils import graphs
-    from .utils.graphs import kernel_counters
-
-    counters = kernel_counters()
-
-    def once(route, reads=False):
-        for f in counters.values():
-            f.launches = 0
-        reader = host_reads() if reads else contextlib.nullcontext()
-        with graphs._recording(None if route == "graphs" else route) as rec:
-            with reader:
-                t0 = time.perf_counter()
-                res = run(torch.Generator(device=device).manual_seed(1))
-                torch.cuda.synchronize(device)
-                rec.wall = time.perf_counter() - t0
-        rec.launches = {k: f.launches for k, f in counters.items()}
-        rec.reader = reader if reads else None
-        return res, rec
-
-    (cap, rc), (unc, ru) = once("graphs"), once("eager")
-    walls = {"graphs": [], "eager": []}
-    for i in range(reps):
-        for route in (("graphs", "eager") if i % 2 else ("eager", "graphs")):
-            walls[route].append(once(route)[1].wall)
-    reads = {}
-    for route in ("graphs", "eager"):
-        _, rec = once(route, reads=True)
-        its = sum(s["iterations"] for s in rec.solves)
-        reads[route] = {"total": rec.reader.reads(), "iterations": its,
-                        "between": rec.reader.per_iteration(rec.solves),
-                        "reruns": sum(sum(s["reruns"].values())
-                                      for s in rec.solves)}
-    return {"same": _equal(cap, unc),
-            "counts": {k: (r.n_iter, r.n_matvec, r.ok, r.ortho_ok)
-                       for k, r in (("graphs", cap), ("eager", unc))},
-            "launches": {"graphs": rc.launches, "eager": ru.launches},
-            "solves": {"graphs": rc.solves, "eager": ru.solves},
-            "walls": walls,
-            "median": {k: statistics.median(v) for k, v in walls.items()},
-            "reads": reads,
-            "reruns": sum(sum(s["reruns"].values()) for s in rc.solves),
-            "digest": flag_digest(rc.solves)}
-
-
-@contextlib.contextmanager
-def flag_window(start: int = 2, prof=None):
-    """Mark one iteration of the solve run under it: from its ``start``-th
-    flag read (``utils.graphs._read_flags``) to the next, the
-    collectives are recorded (``inventory``, as
-    :func:`collective_inventory` records them: a replayed step counts what
-    it runs) and, with a running ``torch.profiler`` ``prof``, the span is
-    a ``record_function`` scope named "flag-window".  Yields a dict with
-    ``inventory``, ``host_ms`` (the window on the host's clock, which
-    starts and ends at a read of the device) and ``closed``."""
-    from .utils import graphs
-
-    out = {"inventory": {}, "host_ms": None, "closed": False}
-    state = {"reads": 0, "open": []}
-
-    def observe():
-        state["reads"] += 1
-        if state["reads"] == start:
-            rec = _recording(out["inventory"])
-            rec.__enter__()
-            state["open"].append(rec)
-            if prof is not None:
-                scope = _span("flag-window")
-                scope.__enter__()
-                state["open"].append(scope)
-            state["t0"] = time.perf_counter()
-        elif state["reads"] == start + 1:
-            out["host_ms"] = (time.perf_counter() - state["t0"]) * 1e3
-            while state["open"]:
-                state["open"].pop().__exit__(None, None, None)
-            out["closed"] = True
-
-    prev = graphs._read_flags.observer
-    graphs._read_flags.observer = observe
-    try:
-        yield out
-    finally:
-        graphs._read_flags.observer = prev
-        while state["open"]:
-            state["open"].pop().__exit__(None, None, None)

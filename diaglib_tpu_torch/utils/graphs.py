@@ -77,7 +77,8 @@ The solvers share the rest of the machinery here:
   fell short (found one iteration late, so the iteration is undone and
   run again);
 * the private route switch :class:`_recording` (the route and the pass
-  budgets), the counted flag read :func:`_read_flags` and the route
+  budgets) and :func:`_on_route` (one call under it, its launches
+  counted), the counted flag read :func:`_read_flags` and the route
   choice :func:`_route`;
 * :class:`StepCache` (:data:`STEP_CACHE`), the states and graphs kept
   from one solve to the next of the same shape: a solve that passes a
@@ -314,6 +315,21 @@ class _recording:
     @property
     def solves(self) -> list:
         return self.log.records
+
+
+def _on_route(fn, route=None, budgets=None):
+    """Private: ``fn()`` under ``_recording(route, budgets)``, every launch
+    count at 0 before it (and a device barrier after it once CUDA is in
+    use).  Returns (its result, the records of its solves, the launches by
+    kernel)."""
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    with _recording(route, budgets) as rec:
+        out = fn()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    return out, rec.solves, {k: f.launches for k, f in counters.items()}
 
 
 def _read_flags(flags: torch.Tensor) -> list:

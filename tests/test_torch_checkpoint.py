@@ -23,6 +23,7 @@ from diaglib_tpu_torch import (
 )
 from diaglib_tpu_torch.parallel import mh_dryrun
 from diaglib_tpu_torch.problems import dense_matvec, diag_precnd, symm_matrix
+from tests import torch_fleet
 
 N = 120
 
@@ -106,8 +107,9 @@ def test_sharded_save_and_load_in_a_fleet(tmp_path):
     inp = {"a": a, "guess": guess, "partial_iter": 4, "dir": str(
         tmp_path / "sharded"), "options": dict(n_targ=3, n_max=6,
                                                max_iter=100, tol=1e-10)}
-    _, outs = mh_dryrun.run_fleet("checkpoint", inp, num_processes=4,
-                                  backend="gloo", device="cpu", timeout=120)
+    _, outs = mh_dryrun.run_fleet(torch_fleet.JOBS["checkpoint"], inp,
+                                  num_processes=4, backend="gloo",
+                                  device="cpu", timeout=120)
     assert sorted(os.listdir(tmp_path / "sharded")) == [
         f"rank{r}.pt" for r in range(4)]
     w = np.linalg.eigvalsh(a)[:3]

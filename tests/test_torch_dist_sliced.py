@@ -50,6 +50,7 @@ from diaglib_tpu_torch.ops.dist_sliced import (
     group_spmm_plain,
 )
 from diaglib_tpu_torch.parallel.mh_dryrun import run_fleet
+from tests.torch_fleet import JOBS
 
 N, B, BPR = 512, 32, 4
 GROUP_FIELDS = ("slices", "loc_rows", "loc_cols")
@@ -272,7 +273,7 @@ def fleet(problem):
                   x_f32=rng.standard_normal((4, N)).astype(np.float32),
                   guess=rng.uniform(-0.5, 0.5, (OPTS["n_max"], N)),
                   options=OPTS, **LADDER)
-    _, results = run_fleet("dist_sliced", inputs, num_processes=4,
+    _, results = run_fleet(JOBS["dist_sliced"], inputs, num_processes=4,
                            backend="gloo", device="cpu", timeout=120)
     return jd, inputs, results
 

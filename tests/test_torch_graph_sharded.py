@@ -7,9 +7,10 @@ every rank, its all-reduces, all-gathers and ring permutes inside the
 graphs.  The CPU has no capture, so the ranks here run the same steps
 through the private ``utils.graphs._recording("unrolled")`` switch: the
 captured route's fixed ortho passes and rare-branch reruns, called
-directly.  One fleet of ``parallel.mh_dryrun`` (job ``routes``, on the
-inputs of job ``sharded_solvers``: n = 256 dense operators, n = 512
-distributed BSR) runs davidson, gen_david, lobpcg, caslr (algorithm 0),
+directly.  One fleet of ``parallel.mh_dryrun.run_fleet`` (job
+``routes`` of ``tests/torch_fleet.py``, on the inputs of job
+``sharded_solvers``: n = 256 dense operators, n = 512 distributed BSR)
+runs davidson, gen_david, lobpcg, caslr (algorithm 0),
 caslr_eff, nonsym (side "c", host driver), davidson over
 ``dist_bsr_matvec`` and davidson_ladder (its float32 stage ended by the
 stall bit) on the "unrolled" and the "eager" routes, and three of them
@@ -58,10 +59,11 @@ from diaglib_tpu_torch import profiling
 from diaglib_tpu_torch.ops.bsr import bsr_diagonal, bsr_from_arrays
 from diaglib_tpu_torch.parallel import VectorSharding, initialize, mh_dryrun
 from diaglib_tpu_torch.utils import graphs
+from tests import torch_fleet
 
 # the job's solves but caslr algorithm 1, which adds ~10 s of gloo
 # collectives to the fleet and nothing the other Casida solves do not run
-SOLVES = tuple(s for s in mh_dryrun.ROUTE_SOLVES if s != "caslr1")
+SOLVES = tuple(s for s in torch_fleet.ROUTE_SOLVES if s != "caslr1")
 SHORT = ("davidson", "bsr_davidson", "nonsym")
 # (ok, n_iter, n_matvec) of each solve on the eager sharded loop of the
 # tree before the sharded solves took the captured route (4 gloo ranks,
@@ -117,7 +119,7 @@ def _jax_solves(inp):
         "davidson_ladder": lambda: j_davidson_ladder(
             j_dense_matvec(a.astype(jnp.float32)),
             j_diag_precnd(jnp.diagonal(a).astype(jnp.float32)), mv, pc, guess,
-            opts, lo_tol=mh_dryrun.ROUTE_LO_TOL, lo_iter=35),
+            opts, lo_tol=torch_fleet.ROUTE_LO_TOL, lo_iter=35),
     }
     out = {}
     for name, run in runs.items():
@@ -131,14 +133,16 @@ def _jax_solves(inp):
 def fleet():
     """The 4-rank gloo fleet of job ``routes`` (in a thread: the ranks are
     processes) beside the JAX package's solves in this process."""
-    inp = dict(mh_dryrun.job_inputs("routes", 4), solves=SOLVES)
+    inp = dict(torch_fleet.job_inputs("routes", 4), solves=SOLVES)
     box = {}
 
     def run():
         try:
+            # about twice the fleet's longest wall seen beside the other
+            # test files on 6 workers (135 s; 46-77 s alone)
             box["outs"] = mh_dryrun.run_fleet(
-                "routes", inp, num_processes=4, backend="gloo", device="cpu",
-                timeout=120)[1]
+                torch_fleet.JOBS["routes"], inp, num_processes=4,
+                backend="gloo", device="cpu", timeout=270)[1]
         except BaseException as exc:       # re-raised in the test's thread
             box["error"] = exc
 
@@ -156,7 +160,7 @@ def fleet():
 def _same(a, b, tag):
     assert a.keys() == b.keys()
     for k, v in a.items():
-        if k in ("solves", "wall", "launches"):
+        if k in ("solves", "launches"):
             continue
         if isinstance(v, np.ndarray):
             assert np.array_equal(v, b[k]), (tag, k)

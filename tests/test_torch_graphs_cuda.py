@@ -80,7 +80,7 @@ from diaglib_tpu_torch.problems import (
 )
 from diaglib_tpu_torch.parallel import multihost
 from diaglib_tpu_torch.utils import graphs
-from diaglib_tpu_torch.utils.graphs import GraphCaptureError, kernel_counters
+from diaglib_tpu_torch.utils.graphs import GraphCaptureError
 
 pytestmark = pytest.mark.cuda
 
@@ -107,16 +107,8 @@ def flagship(dev):
 OPTS = dict(n_targ=10, n_max=15, max_iter=150, tol=1e-10, max_dav=10)
 
 
-def _counted(run, route):
-    """``run(generator)`` on ``route`` (None: the default) with every launch
-    count at 0 before it: (result, solve records, launches)."""
-    counters = kernel_counters()
-    for f in counters.values():
-        f.launches = 0
-    with graphs._recording(route) as rec:
-        res = run(torch.Generator(device="cuda").manual_seed(1))
-    torch.cuda.synchronize()
-    return res, rec.solves, {k: f.launches for k, f in counters.items()}
+def _seeded():
+    return torch.Generator(device="cuda").manual_seed(1)
 
 
 def _symmetric_ladder(ladder, store, lo_iter):
@@ -134,8 +126,10 @@ def _captured_equals_uncaptured(run, solver):
     """The ladder ``run`` on the captured route against the uncaptured
     one: every returned tensor bit for bit, the same counts, the same K2
     and K1 launches; returns the captured solves' records."""
-    eager, e_solves, e_launches = _counted(run, "eager")
-    captured, c_solves, c_launches = _counted(run, None)
+    eager, e_solves, e_launches = graphs._on_route(
+        lambda: run(_seeded()), "eager")
+    captured, c_solves, c_launches = graphs._on_route(
+        lambda: run(_seeded()), None)
     assert [(s["solver"], s["route"]) for s in c_solves] == \
         [(solver, "graphs")] * 2
     assert [s["route"] for s in e_solves] == ["eager", "eager"]
@@ -242,8 +236,10 @@ def test_kept_ladder_replays_with_no_capture(flagship):
     _, store = flagship
     graphs.STEP_CACHE.clear()
     run = _kept_ladder(*_store_ops(store), N)
-    first, f_solves, f_launches = _counted(run, None)
-    second, s_solves, s_launches = _counted(run, None)
+    first, f_solves, f_launches = graphs._on_route(
+        lambda: run(_seeded()), None)
+    second, s_solves, s_launches = graphs._on_route(
+        lambda: run(_seeded()), None)
     assert [s["reused"] for s in f_solves] == [False, False]
     assert [s["reused"] for s in s_solves] == [True, True]
     assert first.ok and second.ok
@@ -359,7 +355,7 @@ def test_stall_on_every_route_at_the_same_iteration(hilbert):
             lambda x: x @ a, diag_precnd(torch.diagonal(a)), guess, opts,
             lo_tol=2e-6, lo_iter=35, generator=gen)
 
-    out = {route: _counted(run, route)[:2]
+    out = {route: graphs._on_route(lambda: run(_seeded()), route)[:2]
            for route in (None, "unrolled", "eager")}
     captured, c_solves = out[None]
     assert [s["route"] for s in c_solves] == ["graphs", "graphs"]
@@ -418,8 +414,10 @@ def test_captured_nonsym_ladder_bit_equal_to_uncaptured(dev):
             diag_precnd(diag), guess, opts, side="c", lo_tol=2e-6,
             lo_iter=60, generator=gen)
 
-    eager, e_solves, e_launches = _counted(run, "eager")
-    captured, c_solves, c_launches = _counted(run, None)
+    eager, e_solves, e_launches = graphs._on_route(
+        lambda: run(_seeded()), "eager")
+    captured, c_solves, c_launches = graphs._on_route(
+        lambda: run(_seeded()), None)
     # the float32 stage's right pass, the float64 stage's two passes
     assert [(s["solver"], s["route"]) for s in c_solves] == \
         [("nonsym", "graphs")] * 3
@@ -470,8 +468,10 @@ def test_sharded_ladder_captured_bit_equal_to_uncaptured(flagship,
             diag_precnd(one.diagonal), guess, SolverOptions(**OPTS),
             lo_tol=2e-6, lo_iter=35, generator=gen, sharding=sh)
 
-    eager, e_solves, e_launches = _counted(run, "eager")
-    captured, c_solves, c_launches = _counted(run, None)
+    eager, e_solves, e_launches = graphs._on_route(
+        lambda: run(_seeded()), "eager")
+    captured, c_solves, c_launches = graphs._on_route(
+        lambda: run(_seeded()), None)
     assert [(s["solver"], s["route"]) for s in c_solves] == \
         [("davidson", "graphs")] * 2
     assert captured.ok and eager.ok

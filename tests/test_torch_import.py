@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it and every submodule pulls in
 no JAX, and builds no kernel (the CUDA build is lazy)."""
 
+import ast
 import importlib
 import inspect
 import pkgutil
@@ -51,6 +52,32 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_package_holds_no_test_rig():
+    """No module of the port imports the tests, ``chip_smoke`` or the
+    benchmark (the fleet jobs and the route comparison live in
+    ``tests/torch_fleet.py``), and ``profiling`` offers the reference's
+    names and the solve log's, no more."""
+    pkg = Path(diaglib_tpu_torch.__file__).parent
+    outside = ("tests", "chip_smoke", "benchmark")
+    found = []
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] in outside]
+    assert found == []
+    from diaglib_tpu_torch import profiling
+
+    assert set(profiling.__all__) == {
+        "trace", "wall", "phase_timings", "collective_inventory",
+        "solve_log", "SolveLog", "Span", "LEAF_SPANS"}
 
 
 def test_kernel_sources_ship_with_the_package():

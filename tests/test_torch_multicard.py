@@ -1,7 +1,8 @@
 """The multi-card path of the PyTorch port, rehearsed on gloo ranks on the
-CPU: the flagship's fleet job (``parallel.mh_dryrun`` job ``ladders``) at a
-toy size, the order in which the distributed operators post their ring
-permutes, and NCCL fleets that must refuse to run without cards.
+CPU: the flagship's fleet job (job ``ladders`` of ``tests/torch_fleet.py``,
+run by ``parallel.mh_dryrun.run_fleet``) at a toy size, the order in which
+the distributed operators post their ring permutes, and NCCL fleets that
+must refuse to run without cards.
 
 The fleet's store is JAX's ``random_bsr_spd(1024, 64, 4)`` (float32
 blocks), sliced and partitioned by JAX and carried to the ranks as arrays;
@@ -44,6 +45,7 @@ from diaglib_tpu.problems import diag_precnd as j_diag_precnd
 from diaglib_tpu.solvers import davidson_ladder as j_davidson_ladder
 from diaglib_tpu.solvers import lobpcg_ladder as j_lobpcg_ladder
 from diaglib_tpu_torch.parallel import mh_dryrun
+from tests import torch_fleet
 
 ROOT = Path(__file__).resolve().parents[1]
 N, B, BPR = 1024, 64, 4
@@ -78,9 +80,9 @@ def fleet():
                                                                        4))),
                   ladders=list(LADDERS), options=OPTS, lo_tol=LO_TOL,
                   lo_iter=LO_ITER, guess=guess, unsharded=True, warm=False)
-    _, results = mh_dryrun.run_fleet("ladders", inputs, num_processes=4,
-                                     backend="gloo", device="cpu",
-                                     timeout=120)
+    _, results = mh_dryrun.run_fleet(torch_fleet.JOBS["ladders"], inputs,
+                                     num_processes=4, backend="gloo",
+                                     device="cpu", timeout=120)
     return js, guess, results
 
 
@@ -193,7 +195,7 @@ def test_lobpcg_float32_stage_count_follows_rounding(fleet):
 
 def test_permutes_posted_in_the_same_order_on_every_rank(fleet):
     _, _, results = fleet
-    mh_dryrun.check_permute_order(results)
+    torch_fleet.check_permute_order(results)
     # one float64 and one float32 sliced matvec, then one BSR product:
     # three offsets each at D = 4
     assert [c[0] for c in results[0]["permutes"]] == [1, 2, 3] * 3
@@ -212,14 +214,14 @@ def test_order_check_catches_a_rank_out_of_order(fleet):
     calls[0], calls[2] = calls[2], calls[0]
     swapped[2]["permutes"] = calls
     with pytest.raises(AssertionError, match="other orders"):
-        mh_dryrun.check_permute_order(swapped)
+        torch_fleet.check_permute_order(swapped)
     # the same offsets, but rank 1 sends rank 0 a float32 shard first
     mixed = [dict(out) for out in results]
     calls = list(mixed[1]["permutes"])
     calls[0:3], calls[3:6] = calls[3:6], calls[0:3]
     mixed[1]["permutes"] = calls
     with pytest.raises(AssertionError, match="sends"):
-        mh_dryrun.check_permute_order(mixed)
+        torch_fleet.check_permute_order(mixed)
 
 
 def test_k6_on_received_planes(fleet):
@@ -241,7 +243,7 @@ def test_nccl_fleet_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for job in ("dryrun", "ladders"):
         with pytest.raises(RuntimeError, match="no CUDA device for the nccl"):
-            mh_dryrun.run_fleet(job, {}, num_processes=4)
+            mh_dryrun.run_fleet(torch_fleet.JOBS[job], {}, num_processes=4)
     with pytest.raises(RuntimeError, match="no CUDA device for the nccl"):
         mh_dryrun.launch(2)
     assert not started      # no worker was started, on gloo or otherwise
@@ -254,8 +256,8 @@ def test_nccl_fleet_with_too_few_cards_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     with pytest.raises(RuntimeError, match="4 NCCL ranks need as many "
                        "cards, this machine has 3"):
-        mh_dryrun.run_fleet("ladders", {}, num_processes=4,
-                            backend="nccl")
+        mh_dryrun.run_fleet(torch_fleet.JOBS["ladders"], {},
+                            num_processes=4, backend="nccl")
 
 
 def test_fleet_timeouts_default_by_backend(monkeypatch):
@@ -286,12 +288,12 @@ def test_job_inputs_cover_every_job(tmp_path):
     accept."""
     from diaglib_tpu_torch.ops.dist_sliced import dist_sliced_from_arrays
 
-    for job in mh_dryrun.JOBS:
+    for job in torch_fleet.JOBS:
         if job == "ladders":
             with pytest.raises(ValueError):
-                mh_dryrun.job_inputs(job)
+                torch_fleet.job_inputs(job)
             continue
-        inp = mh_dryrun.job_inputs(job, 4, workdir=str(tmp_path))
+        inp = torch_fleet.job_inputs(job, 4, workdir=str(tmp_path))
         leaves = list(inp.values())
         while leaves:
             v = leaves.pop()
@@ -301,7 +303,7 @@ def test_job_inputs_cover_every_job(tmp_path):
                 leaves.extend(v)
             else:
                 assert isinstance(v, (np.ndarray, int, float, str)), (job, v)
-    store = mh_dryrun.job_inputs("dist_sliced", 4)["store"]
+    store = torch_fleet.job_inputs("dist_sliced", 4)["store"]
     for r in range(4):
         dm = dist_sliced_from_arrays(store, r, "cpu")
         assert dm.rank == r and dm.ndev == 4 and dm.steps == (0, 1, 2, 3)

@@ -1,9 +1,9 @@
-"""The multi-card path on four NVIDIA GPUs: every job of
-``parallel.mh_dryrun`` under NCCL, one rank a card, held against the same
-job under gloo on four CPU ranks (``chip_smoke.compare_fleet``; job
+"""The multi-card path on four NVIDIA GPUs: every fleet job of
+``tests/torch_fleet.py`` under NCCL, one rank a card, held against the
+same job under gloo on four CPU ranks (``torch_fleet.compare_fleet``; job
 ``routes`` holds each sharded solve captured against uncaptured on every
 rank), the flagship's ladders job at a reduced n
-(``chip_smoke.check_ladders``; its sharded ladders captured, their steps'
+(``torch_fleet.check_ladders``; its sharded ladders captured, their steps'
 all-reduces and ring permutes replayed as CUDA graphs, against the
 uncaptured route on every rank), and the refusals of NCCL requests the
 machine cannot serve.
@@ -19,9 +19,9 @@ import os
 import pytest
 import torch
 
-import chip_smoke
 from diaglib_tpu_torch.parallel import mh_dryrun
 from diaglib_tpu_torch.parallel.multihost import initialize
+from tests import torch_fleet
 
 pytestmark = pytest.mark.cuda
 RANKS = 4
@@ -37,15 +37,16 @@ def cards():
     return RANKS
 
 
-@pytest.mark.parametrize("job", chip_smoke.MC_JOBS)
+@pytest.mark.parametrize("job", torch_fleet.MC_JOBS)
 def test_job_under_nccl_matches_gloo(cards, job, tmp_path):
     runs = []
     for backend, device in (("gloo", "cpu"), ("nccl", None)):
-        inp = mh_dryrun.job_inputs(job, cards,
-                                   workdir=str(tmp_path / backend))
-        runs.append(mh_dryrun.run_fleet(job, inp, cards, backend, device,
+        inp = torch_fleet.job_inputs(job, cards,
+                                     workdir=str(tmp_path / backend))
+        runs.append(mh_dryrun.run_fleet(torch_fleet.JOBS[job], inp, cards,
+                                        backend, device,
                                         timeout=300 if device else None))
-    assert chip_smoke.compare_fleet(job, *runs)
+    assert torch_fleet.compare_fleet(job, *runs)
 
 
 @pytest.fixture(scope="module")
@@ -54,15 +55,16 @@ def ladders(cards):
     narrowest shard K3's rotations take), each sharded ladder also
     captured against uncaptured."""
     return mh_dryrun.run_fleet(
-        "ladders", chip_smoke.ladder_inputs(32768, ("davidson", "lobpcg"),
-                                            True, False), cards)[1]
+        torch_fleet.JOBS["ladders"],
+        torch_fleet.ladder_inputs(32768, ("davidson", "lobpcg"), True,
+                                  False), cards)[1]
 
 
 def test_ladders_on_the_cards(ladders):
     """The sharded ladders' checks of phase (j2), K2, K3 and K6 launched
     on every rank and K5 in rank 0's unsharded ladders."""
     outs = ladders
-    launches, k5 = chip_smoke.check_ladders("n=32768", outs, "test", True)
+    launches, k5 = torch_fleet.check_ladders("n=32768", outs, "test", True)
     for name in ("peel_rows", "sliced_wide_mm", "group_spmm"):
         assert launches[name] > 0, (name, launches)
     assert k5["sliced_spmm"] > 0 and launches["sliced_spmm"] == 0

@@ -1,7 +1,8 @@
 """The process-spanning names of ``parallel.multihost`` that the solvers
 do not call: ``global_mesh``, ``global_sharding`` and ``make_replicated``
 (with ``make_global`` beside them), on 4 gloo ranks on the CPU (job
-``mesh`` of ``parallel.mh_dryrun.run_fleet``).  The world group, a
+``mesh`` of ``tests/torch_fleet.py``, run by
+``parallel.mh_dryrun.run_fleet``).  The world group, a
 ``VectorSharding`` of the length, and the caller's array are what each
 must give, exactly."""
 
@@ -9,15 +10,17 @@ import numpy as np
 import pytest
 
 from diaglib_tpu_torch.parallel import mh_dryrun
+from tests import torch_fleet
 
 RANKS = 4
 
 
 @pytest.fixture(scope="module")
 def fleet():
-    inp = mh_dryrun.job_inputs("mesh", RANKS)
-    _, outs = mh_dryrun.run_fleet("mesh", inp, num_processes=RANKS,
-                                  backend="gloo", device="cpu", timeout=120)
+    inp = torch_fleet.job_inputs("mesh", RANKS)
+    _, outs = mh_dryrun.run_fleet(torch_fleet.JOBS["mesh"], inp,
+                                  num_processes=RANKS, backend="gloo",
+                                  device="cpu", timeout=120)
     return inp["x"], outs
 
 

@@ -26,6 +26,7 @@ from diaglib_tpu_torch.profiling import (
     trace,
     wall,
 )
+from tests import torch_fleet
 
 HERE = Path(__file__).resolve().parent
 
@@ -104,8 +105,9 @@ def fleet_inventory():
     inp = {"a": symm_matrix(N, device="cpu").numpy(),
            "guess": np.random.default_rng(4).uniform(-0.5, 0.5, (N_EIG, N)),
            "options": dict(n_targ=3, n_max=N_EIG, max_iter=10, tol=1e-8)}
-    _, outs = mh_dryrun.run_fleet("inventory", inp, num_processes=4,
-                                  backend="gloo", device="cpu", timeout=120)
+    _, outs = mh_dryrun.run_fleet(torch_fleet.JOBS["inventory"], inp,
+                                  num_processes=4, backend="gloo",
+                                  device="cpu", timeout=120)
     return [o["inventory"] for o in outs]
 
 

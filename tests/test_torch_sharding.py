@@ -68,6 +68,7 @@ from diaglib_tpu_torch.problems import (
     symm_matrix,
 )
 from diaglib_tpu_torch.utils.guess import check_guess
+from tests import torch_fleet
 
 N, B = 256, 32
 OPTS = dict(n_targ=4, n_max=8, max_iter=200, tol=1e-8, max_dav=10)
@@ -98,8 +99,8 @@ def fleet():
                   casida=casida, casida_guess=casida_guess,
                   casida_zero_guess=zero, nonsym=np.asarray(ns),
                   nonsym_guess=np.asarray(ns_guess), nonsym_options=NONSYM)
-    _, results = mh_dryrun.run_fleet("sharded_solvers", inputs,
-                                     num_processes=4, backend="gloo",
+    _, results = mh_dryrun.run_fleet(torch_fleet.JOBS["sharded_solvers"],
+                                     inputs, num_processes=4, backend="gloo",
                                      device="cpu", timeout=120)
     return inputs, m, results
 
